@@ -1,0 +1,580 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``xaynet_tpu_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py            # the full run: 25M-element round, 16 updates
+
+Builds the two hand-written CUDA kernels from ``xaynet_tpu_torch/csrc`` with
+``nvcc`` (into ``build/xaynet_tpu_torch/``, timed as set-up), then:
+
+- **Phase A** holds every kernel byte-exact against its plain torch version
+  on the card: K1 (the batch fold, planar and packed) over K in {1, 8, 64}
+  and K = 65535, limb counts 2, 3, 10, 66 and 67, prime and 2^(32L) orders
+  and a ragged model length; K2 (the Sum2 mask fold) over seed groups with
+  mid-block start cursors, forced multi-trip runs, draw widths above the
+  wire width and the widest orders, plus K2's mask against the host
+  ``StreamSampler``. Each kernel is then timed at the shapes the main path
+  gives it, beside its plain version, and checked there too.
+- **Phase B** drives one PET round through the port's entry points at the
+  size of ResNet-50 (25,000,000 parameters), the shipped mask config
+  prime/f32/b0/m3, 16 update participants (each masks on the card: mask
+  derived by K2, weights added by K1), ``StagedAggregator`` with batch 8 and
+  packed staging (two K1 flushes), ``finalize``, the Sum2 ``sum_masks`` over
+  the 16 seeds (K2), ``validate_unmasking`` and ``unmask_array``. It checks
+  the aggregate against python big-int sums at 2,048 positions, the unit
+  part and model count, the decoded model against the f32 mean within
+  16/exp_shift + 1e-6, and that the launch counters show every kernel ran.
+
+Prints what it found on earlier lines; on its last lines the card's name
+and power limit, the kernel table as one JSON object, and
+``{"ok": true, "device": {...}}``. Any failure exits non-zero without that
+last line, as does a machine without CUDA. Longer records (compiler
+reports, every check) go to ``chiprun_out/chip_smoke.json``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+import traceback
+from fractions import Fraction
+from pathlib import Path
+
+import numpy as np
+
+HERE = Path(__file__).resolve().parent
+OUT_DIR = Path("chiprun_out")
+
+MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+INT32_LANES_PER_SM = 64  # Hopper SM: 64 INT32 lanes (H100 architecture white paper)
+# ChaCha20 block: 10 double rounds x 8 quarter rounds x 12 ops (4 add, 4 xor,
+# 4 rotate; a rotate is one funnel shift) + 16 final adds
+CHACHA_OPS_PER_BLOCK = 10 * 8 * 12 + 16
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+class Failure(RuntimeError):
+    """A check of this run failed."""
+
+
+def gpu_name_and_power() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )  # fmt: skip
+    return out.stdout.strip().splitlines()[0]
+
+
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )  # fmt: skip
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+class Smoke:
+    def __init__(self, args):
+        import torch
+
+        self.torch = torch
+        self.args = args
+        self.dev = torch.device(args.device)
+        self.cuda = self.dev.type == "cuda"
+        self.rng = np.random.default_rng(args.seed)
+        self.records: dict = {"checks": []}
+        self.max_err = {"fold_planar": 0, "fold_packed": 0, "mask_fold": 0}
+
+    # -- helpers ------------------------------------------------------------
+
+    def sync(self) -> None:
+        if self.cuda:
+            self.torch.cuda.synchronize()
+
+    def check(self, ok: bool, what: str) -> None:
+        self.records["checks"].append({"check": what, "ok": bool(ok)})
+        if not ok:
+            raise Failure(what)
+
+    def compare(self, name: str, got, want, what: str) -> None:
+        """Byte-exact comparison of two uint32/int64 tensors; records the
+        largest absolute difference for the kernel table."""
+        from xaynet_tpu_torch.ops.fold import widen
+
+        torch = self.torch
+        g = widen(got) if got.dtype == torch.uint32 else got.to(torch.int64)
+        w = widen(want) if want.dtype == torch.uint32 else want.to(torch.int64)
+        err = int((g - w).abs().max()) if g.numel() else 0
+        self.max_err[name] = max(self.max_err[name], err)
+        self.check(g.shape == w.shape and err == 0, f"{name}: {what} (max |diff| {err})")
+
+    def time_ms(self, fn, reps: int) -> float:
+        """Mean milliseconds per call of ``fn`` after one warm-up call, from
+        CUDA events around ``reps`` calls (host clock around a synchronize
+        on the CPU rehearsal)."""
+        torch = self.torch
+        fn()
+        self.sync()
+        if not self.cuda:
+            t = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            return (time.perf_counter() - t) * 1e3 / reps
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def elements(self, order: int, n_limb: int, shape: tuple[int, ...]) -> np.ndarray:
+        """Random group elements as planar limbs ``uint32[*shape[:-1], L, n]``
+        (top limb below the order's, so every element is valid; every 97th
+        column is order - 1 to drive the carries)."""
+        from xaynet_tpu_torch.ops import limbs
+
+        *lead, n = shape
+        out = self.rng.integers(0, 1 << 32, size=(*lead, n_limb, n), dtype=np.uint64)
+        out = out.astype(np.uint32)
+        if order != 1 << (32 * n_limb):
+            top = int(limbs.int_to_limbs(order, n_limb)[-1])
+            out[..., n_limb - 1, :] = self.rng.integers(0, top, size=(*lead, n), dtype=np.uint64)
+            out[..., ::97] = limbs.int_to_limbs(order - 1, n_limb)[:, None]
+        return out
+
+    # -- set-up -------------------------------------------------------------
+
+    def build(self) -> None:
+        from xaynet_tpu_torch.ops import kernels
+
+        t = time.perf_counter()
+        libs = kernels.build()
+        for name in libs:
+            kernels.load(name)
+        dt = time.perf_counter() - t
+        logs = {}
+        for name in kernels.SOURCES:
+            path = kernels.build_dir() / f"{name}.log"
+            logs[name] = path.read_text() if path.exists() else ""
+        self.records["build"] = {"seconds": dt, "nvcc_logs": logs}
+        log(f"[setup] built {sorted(libs)} with nvcc in {dt:.1f} s (into {kernels.build_dir()})")
+
+    # -- phase A: each kernel against its plain version ---------------------
+
+    def phase_a_fold(self) -> None:
+        from xaynet_tpu_torch.core.mask.config import (
+            BoundType, DataType, GroupType, MaskConfig, ModelType,
+        )  # fmt: skip
+        from xaynet_tpu_torch.ops import kernels, limbs
+        from xaynet_tpu_torch.ops.fold import to_device_u32
+
+        torch = self.torch
+        cfgs = [
+            ("L2 prime", MaskConfig(GroupType.PRIME, DataType.F32, BoundType.B0, ModelType.M3)),
+            ("L3", MaskConfig(GroupType.INTEGER, DataType.F32, BoundType.B0, ModelType.M9)),
+            ("L3 2^96", MaskConfig(GroupType.POWER2, DataType.I32, BoundType.BMAX, ModelType.M9)),
+            ("L10", MaskConfig(GroupType.INTEGER, DataType.F32, BoundType.BMAX, ModelType.M3)),
+            ("L66 2^2112", MaskConfig(GroupType.POWER2, DataType.F64, BoundType.BMAX, ModelType.M3)),
+            ("L67", MaskConfig(GroupType.INTEGER, DataType.F64, BoundType.BMAX, ModelType.M12)),
+        ]
+        cases = []
+        for label, cfg in cfgs:
+            n = 100_003 if "L6" not in label else 20_011  # ragged: no multiple of the block
+            for k in (1, 8, 64):
+                cases.append((label, cfg.order, k, n))
+        cases.append(("L2 prime", cfgs[0][1].order, 65535, 64))
+        cases.append(("L3 2^96", cfgs[2][1].order, 65535, 64))
+        for label, order, k, n in cases:
+            n_limb = limbs.n_limbs_for_order(order)
+            bpn = limbs.wire_width_for(order)
+            acc0 = self.elements(order, n_limb, (n,))
+            stack = self.elements(order, n_limb, (k, n))
+            acc_dev = to_device_u32(acc0, self.dev)
+            stack_dev = to_device_u32(stack, self.dev)
+            got = kernels.fold_planar(acc_dev.clone(), stack_dev, order)
+            want = kernels.fold_planar_plain(acc_dev.clone(), stack_dev, order)
+            self.compare("fold_planar", got, want, f"planar {label} K={k} n={n}")
+            packed = torch.from_numpy(limbs.pack_planar(stack, bpn)).to(self.dev)
+            got = kernels.fold_packed(acc_dev.clone(), packed, order)
+            want = kernels.fold_packed_plain(acc_dev.clone(), packed, order)
+            self.compare("fold_packed", got, want, f"packed {label} K={k} n={n} bpn={bpn}")
+            del acc_dev, stack_dev, packed, got, want
+        self.sync()
+        log(f"[phase A] K1 planar and packed byte-exact vs plain in {len(cases)} cases each")
+
+    def phase_a_mask_fold(self) -> None:
+        from xaynet_tpu_torch.core.crypto.prng import StreamSampler
+        from xaynet_tpu_torch.core.mask.config import (
+            BoundType, DataType, GroupType, MaskConfig, ModelType,
+        )  # fmt: skip
+        from xaynet_tpu_torch.ops import kernels, limbs
+        from xaynet_tpu_torch.ops.fold import to_device_u32, to_numpy_u32, zeros_u32
+
+        cfgs = [
+            ("prime L2 draw6", MaskConfig(GroupType.PRIME, DataType.F32, BoundType.B0, ModelType.M3)),
+            ("L2 draw8", MaskConfig(GroupType.INTEGER, DataType.F32, BoundType.B2, ModelType.M6)),
+            ("L3 wire11 draw12", MaskConfig(GroupType.POWER2, DataType.F32, BoundType.B4, ModelType.M12)),
+            ("L4 wire16 draw17", MaskConfig(GroupType.POWER2, DataType.F64, BoundType.B6, ModelType.M12)),
+            ("L10 draw37", MaskConfig(GroupType.INTEGER, DataType.F32, BoundType.BMAX, ModelType.M3)),
+            ("L67 draw268", MaskConfig(GroupType.INTEGER, DataType.F64, BoundType.BMAX, ModelType.M12)),
+        ]
+        n_cases = 0
+        for label, cfg in cfgs:
+            order = cfg.order
+            n_limb = limbs.n_limbs_for_order(order)
+            bpn = limbs.draw_width_for(order)
+            count = 3000 if n_limb < 60 else 300
+            seeds = [self.rng.bytes(32) for _ in range(3)]
+            kws = to_device_u32(np.stack([np.frombuffer(s, "<u4") for s in seeds]), self.dev)
+            # unit-draw cursors, pushed mid-block
+            offs = []
+            for i, s in enumerate(seeds):
+                sampler = StreamSampler(s)
+                sampler.draw_limbs(1, order)
+                offs.append(sampler.consumed_bytes + 17 * i + 5)
+            expected = count * (1 << (8 * bpn)) // order
+            for chunk in (None, max(7, expected // 5)):
+                acc0 = self.elements(order, n_limb, (count,))
+                got_acc, got_end = kernels.mask_fold(
+                    to_device_u32(acc0, self.dev), kws, offs, count, order, chunk
+                )
+                want_acc, want_end = kernels.mask_fold_plain(
+                    to_device_u32(acc0, self.dev), kws, offs, count, order, chunk
+                )
+                what = f"{label} B=3 count={count} chunk={chunk}"
+                self.compare("mask_fold", got_acc, want_acc, what + " acc")
+                self.compare("mask_fold", got_end, want_end, what + " end cursors")
+                n_cases += 1
+            # the mask itself, against the host sampler: one seed into a zero acc
+            small = 200
+            acc, end = kernels.mask_fold(zeros_u32((n_limb, small), self.dev), kws[:1], offs[:1],
+                                         small, order)
+            sampler = StreamSampler(seeds[0])
+            sampler.skip_bytes(offs[0])
+            host = sampler.draw_limbs(small, order)
+            self.check(
+                np.array_equal(to_numpy_u32(acc).T, host) and int(end[0]) == sampler.consumed_bytes,
+                f"mask_fold: {label} mask and cursor == host StreamSampler",
+            )
+        self.sync()
+        log(f"[phase A] K2 byte-exact vs plain in {n_cases} group cases; masks == host sampler")
+
+    def phase_a_main_shapes(self) -> dict:
+        """Each kernel at the main path's shapes: checked against its plain
+        version there, and timed (kernel and plain) with CUDA events."""
+        from xaynet_tpu_torch.core.mask.config import (
+            BoundType, DataType, GroupType, MaskConfig, ModelType,
+        )  # fmt: skip
+        from xaynet_tpu_torch.core.crypto.prng import StreamSampler
+        from xaynet_tpu_torch.ops import chacha, kernels, limbs
+        from xaynet_tpu_torch.ops.fold import to_device_u32
+
+        torch = self.torch
+        args = self.args
+        order = MaskConfig(GroupType.PRIME, DataType.F32, BoundType.B0, ModelType.M3).order
+        n, k = args.length, args.batch
+        n_limb, bpn = limbs.n_limbs_for_order(order), limbs.wire_width_for(order)
+        timings = {}
+
+        acc0 = to_device_u32(self.elements(order, n_limb, (n,)), self.dev)
+        stack = self.elements(order, n_limb, (k, n))
+        packed = torch.from_numpy(limbs.pack_planar(stack, bpn)).to(self.dev)
+        del stack
+        got = kernels.fold_packed(acc0.clone(), packed, order)
+        want = kernels.fold_packed_plain(acc0.clone(), packed, order)
+        self.compare("fold_packed", got, want, f"main shape uint8[{k}, {bpn}, {n}]")
+        del got, want
+        acc = acc0.clone()
+        timings["fold_packed"] = {
+            "ms": self.time_ms(lambda: kernels.fold_packed(acc, packed, order), 10),
+            "plain_ms": self.time_ms(lambda: kernels.fold_packed_plain(acc, packed, order), 2),
+            "bytes": packed.numel() + 2 * acc.numel() * 4,
+            "shape": f"uint8[{k},{bpn},{n}] into uint32[{n_limb},{n}]",
+        }
+        del packed
+
+        one = to_device_u32(self.elements(order, n_limb, (1, n)), self.dev)
+        got = kernels.fold_planar(acc0.clone(), one, order)
+        want = kernels.fold_planar_plain(acc0.clone(), one, order)
+        self.compare("fold_planar", got, want, f"main shape uint32[1, {n_limb}, {n}]")
+        del got, want
+        timings["fold_planar"] = {
+            "ms": self.time_ms(lambda: kernels.fold_planar(acc, one, order), 10),
+            "plain_ms": self.time_ms(lambda: kernels.fold_planar_plain(acc, one, order), 2),
+            "bytes": one.numel() * 4 + 2 * acc.numel() * 4,
+            "shape": f"uint32[1,{n_limb},{n}] into uint32[{n_limb},{n}]",
+        }
+        del one, acc
+
+        seeds = [self.rng.bytes(32) for _ in range(2)]
+        kws = to_device_u32(np.stack([np.frombuffer(s, "<u4") for s in seeds]), self.dev)
+        offs = []
+        for s in seeds:
+            sampler = StreamSampler(s)
+            sampler.draw_limbs(1, order)
+            offs.append(sampler.consumed_bytes)
+        got_acc, got_end = kernels.mask_fold(acc0.clone(), kws, offs, n, order)
+        t = time.perf_counter()
+        want_acc, want_end = kernels.mask_fold_plain(acc0.clone(), kws, offs, n, order)
+        self.sync()
+        plain_s = (time.perf_counter() - t) / len(seeds)
+        self.compare("mask_fold", got_acc, want_acc, f"main shape count={n} B={len(seeds)} acc")
+        self.compare("mask_fold", got_end, want_end, f"main shape count={n} end cursors")
+        del got_acc, want_acc
+        acc = acc0.clone()
+        ms = self.time_ms(lambda: kernels.mask_fold(acc, kws[:1], offs[:1], n, order), 5)
+        # the keystream this seed's data needs: start cursor to end cursor
+        blocks = (int(got_end[0]) - offs[0]) / 64
+        timings["mask_fold"] = {
+            "ms": ms,
+            "plain_ms": plain_s * 1e3,
+            "ops": blocks * CHACHA_OPS_PER_BLOCK,
+            "bytes": 2 * acc.numel() * 4,
+            "candidates": chacha.provision_candidates(n, order),
+            "shape": f"one seed, count={n} into uint32[{n_limb},{n}]",
+        }
+        del acc, acc0
+        if self.cuda:
+            torch.cuda.empty_cache()
+        for name, t in timings.items():
+            log(f"[phase A] {name} at main shape {t['shape']}: {t['ms']:.3f} ms (plain {t['plain_ms']:.1f} ms)")
+        return timings
+
+    # -- phase B: the main path ---------------------------------------------
+
+    def phase_b(self) -> dict:
+        from xaynet_tpu_torch.core.mask.config import (
+            BoundType, DataType, GroupType, MaskConfig, ModelType,
+        )  # fmt: skip
+        from xaynet_tpu_torch.core.mask.model import Scalar
+        from xaynet_tpu_torch.core.mask.object import MaskObject, MaskUnit, MaskVect
+        from xaynet_tpu_torch.ops import kernels, limbs, masking
+        from xaynet_tpu_torch.server.aggregation import StagedAggregator
+
+        args = self.args
+        cfg = MaskConfig(GroupType.PRIME, DataType.F32, BoundType.B0, ModelType.M3)
+        pair = cfg.pair()
+        order, length, n_up = cfg.order, args.length, args.updates
+        rng = np.random.default_rng(args.seed + 1)
+        seeds = [rng.bytes(32) for _ in range(n_up)]
+        scalar = Scalar(Fraction(1, n_up))
+        idx = np.sort(rng.choice(length, size=min(2048, length), replace=False))
+        walls = {"participants_mask": 0.0, "update_aggregate": 0.0}
+        sampled, units = [], []
+        wsum = np.zeros(length, dtype=np.float64)
+
+        kernels.reset_launches()
+        t_round = time.perf_counter()
+        agg = StagedAggregator(pair, length, batch_size=args.batch, device=self.dev)
+        for i in range(n_up):
+            weights = rng.uniform(-0.9, 0.9, length).astype(np.float32)
+            wsum += weights
+            t = time.perf_counter()
+            obj = masking.mask_update(seeds[i], scalar, weights, pair, device=self.dev)
+            self.sync()
+            walls["participants_mask"] += time.perf_counter() - t
+            sampled.append(obj.vect.data[idx].copy())
+            units.append(obj.unit.data.copy())
+            t = time.perf_counter()
+            agg.validate_aggregation(obj)
+            agg.aggregate(obj)
+            self.sync()
+            walls["update_aggregate"] += time.perf_counter() - t
+            del obj, weights
+        t = time.perf_counter()
+        final = agg.finalize()
+        self.sync()
+        walls["finalize"] = time.perf_counter() - t
+        t = time.perf_counter()
+        unit_m, vect_m = masking.sum_masks(seeds, length, pair, seed_batch=args.batch, device=self.dev)
+        self.sync()
+        walls["sum2_sum_masks"] = time.perf_counter() - t
+        mask = MaskObject(MaskVect(pair.vect, vect_m), MaskUnit(pair.unit, unit_m))
+        t = time.perf_counter()
+        final.validate_unmasking(mask)
+        walls["validate_unmasking"] = time.perf_counter() - t
+        t = time.perf_counter()
+        model = final.unmask_array(mask)
+        self.sync()
+        walls["unmask_array"] = time.perf_counter() - t
+        walls["round_total"] = time.perf_counter() - t_round
+        launches = dict(kernels.LAUNCHES)
+
+        # (a) aggregate == python big-int modular sums at sampled positions
+        got = final.object
+        agg_ints = limbs.limbs_to_ints(got.vect.data[idx])
+        want_ints = [0] * len(idx)
+        for rows in sampled:
+            for j, v in enumerate(limbs.limbs_to_ints(rows)):
+                want_ints[j] = (want_ints[j] + v) % order
+        self.check(agg_ints == want_ints, f"(a) aggregate == big-int sums at {len(idx)} positions")
+        # (b) unit part and model count
+        unit_want = sum(limbs.limbs_to_int(u) for u in units) % pair.unit.order
+        self.check(limbs.limbs_to_int(got.unit.data) == unit_want, "(b) unit aggregate")
+        self.check(final.nb_models == n_up, f"(b) nb_models == {n_up}")
+        # (c) decoded model within the protocol tolerance of the f32 mean
+        self.check(model.shape == (length,) and bool(np.all(np.isfinite(model))),
+                   "(c) model finite, of the model length")
+        tol = n_up / cfg.exp_shift + 1e-6
+        err = float(np.max(np.abs(model - wsum / n_up)))
+        self.check(err <= tol, f"(c) |model - mean| = {err:.3e} <= {tol:.3e}")
+        # (d) the main path went through the kernels
+        flushes = -(-n_up // args.batch)
+        if self.cuda:
+            self.check(launches["fold_packed"] == flushes, f"(d) K1 packed ran for {flushes} flushes")
+            self.check(launches["fold_planar"] == n_up, f"(d) K1 planar added {n_up} masks")
+            self.check(launches["mask_fold"] == 2 * n_up,
+                       f"(d) K2 derived {2 * n_up} masks (one launch per seed and trip)")
+        log(f"[phase B] round of {n_up} updates x {length} params: checks (a)-(d) passed; "
+            f"decode max err {err:.3e} <= {tol:.3e}")
+        log(f"[phase B] launches {launches}")
+        log("[phase B] wall seconds (synchronized): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in walls.items()))
+        return {"walls": walls, "launches": launches, "decode_max_err": err}
+
+    # -- device kernel times on the main path -------------------------------
+
+    def kernel_table(self, timings: dict, launches: dict) -> list[dict]:
+        torch = self.torch
+        props = torch.cuda.get_device_properties(0)
+        int_rate = props.multi_processor_count * INT32_LANES_PER_SM * max_sm_clock_hz()
+        rows = []
+        meta = {
+            "fold_packed": ("xaynet_tpu_torch/csrc/fold.cu", "xaynet_tpu/ops/fold_pallas.py:125"),
+            "fold_planar": ("xaynet_tpu_torch/csrc/fold.cu", "xaynet_tpu/ops/fold_pallas.py:125"),
+            "mask_fold": ("xaynet_tpu_torch/csrc/mask_fold.cu", "xaynet_tpu/ops/fold_pallas.py:201"),
+        }
+        for name in ("fold_packed", "fold_planar", "mask_fold"):
+            t = timings[name]
+            bytes_ms = t["bytes"] / MEM_BYTES_PER_S * 1e3
+            ops_ms = t.get("ops", 0) / int_rate * 1e3
+            source, replaces = meta[name]
+            rows.append({
+                "name": name,
+                "route": "cuda",
+                "source": source,
+                "replaces": replaces,
+                "launches": launches[name],
+                "max_abs_err": self.max_err[name],
+                "ms": t["ms"],
+                "plain_ms": t["plain_ms"],
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
+                "library_ms": None,
+            })  # fmt: skip
+        self.records["int32_ops_per_s"] = int_rate
+        return rows
+
+    def device_profile(self, timings: dict) -> None:
+        """Device time of each kernel by name over one K2 seed and one K1
+        packed fold at the main shapes (torch.profiler / CUPTI)."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+
+        from xaynet_tpu_torch.ops import kernels
+
+        n = self.args.length
+        from xaynet_tpu_torch.ops.fold import zeros_u32
+
+        acc = zeros_u32((2, n), self.dev)
+        packed = torch.zeros((self.args.batch, 6, n), dtype=torch.uint8, device=self.dev)
+        kws = torch.zeros((1, 8), dtype=torch.int32, device=self.dev).view(torch.uint32)
+        order = 20_000_000_000_021
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            kernels.fold_packed(acc, packed, order)
+            kernels.mask_fold(acc, kws, [6], n, order)
+            torch.cuda.synchronize()
+        rows = []
+        for ev in prof.key_averages():
+            dev_us = getattr(ev, "device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(ev, "cuda_time_total", 0)
+            if dev_us and ("kernel" in ev.key or "mf_" in ev.key or "fold" in ev.key):
+                rows.append({"kernel": ev.key, "device_ms": dev_us / 1e3, "calls": ev.count})
+        self.records["profile"] = rows
+        for r in rows:
+            log(f"[profile] {r['kernel'][:60]}: {r['device_ms']:.3f} ms over {r['calls']} call(s)")
+        del acc, packed
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--length", type=int, default=25_000_000, help="model length")
+    parser.add_argument("--updates", type=int, default=16, help="update participants")
+    parser.add_argument("--batch", type=int, default=8, help="aggregation batch size")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--device", default="cuda",
+                        help="'cpu' rehearses the control flow with the plain versions "
+                             "(no kernels, no result line)")
+    args = parser.parse_args()
+
+    sys.path.insert(0, str(HERE))
+    try:
+        import torch
+        import xaynet_tpu_torch
+    except ImportError as exc:
+        print(f"chip_smoke: cannot import the port: {exc}", file=sys.stderr)
+        return 2
+    if Path(xaynet_tpu_torch.__file__).resolve().parent.parent != HERE:
+        print("chip_smoke: xaynet_tpu_torch is not beside this script", file=sys.stderr)
+        return 2
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+
+    smoke = Smoke(args)
+    t0 = time.perf_counter()
+    try:
+        if smoke.cuda:
+            smoke_name = gpu_name_and_power()
+            log(f"[setup] {smoke_name}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+                f"{torch.cuda.device_count()} device(s)")
+            smoke.build()
+        smoke.phase_a_fold()
+        smoke.phase_a_mask_fold()
+        timings = smoke.phase_a_main_shapes()
+        result = smoke.phase_b()
+    except Exception as exc:  # every phase failure ends the run without a result
+        traceback.print_exc()
+        print(f"chip_smoke: FAILED: {type(exc).__name__}: {exc}", file=sys.stderr)
+        _write_records(smoke.records)
+        return 1
+    if smoke.cuda:
+        try:
+            smoke.device_profile(timings)
+        except Exception as exc:  # an extra reading, not a phase: record why it is missing
+            smoke.records["profile"] = f"unavailable: {type(exc).__name__}: {exc}"
+            log(f"[profile] unavailable: {exc}")
+    smoke.records.update(timings=timings, round=result, seconds=time.perf_counter() - t0)
+    if not smoke.cuda:
+        _write_records(smoke.records)
+        log(f"chip_smoke: rehearsal on {args.device} passed in {time.perf_counter() - t0:.1f} s")
+        return 0
+    table = smoke.kernel_table(timings, result["launches"])
+    smoke.records["kernels"] = table
+    _write_records(smoke.records)
+    log(f"[done] {time.perf_counter() - t0:.1f} s")
+    print(gpu_name_and_power())
+    print(json.dumps({"kernels": table}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))  # fmt: skip
+    return 0
+
+
+def _write_records(records: dict) -> None:
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "chip_smoke.json").write_text(json.dumps(records, indent=1, default=str))
+
+
+if __name__ == "__main__":
+    sys.exit(main())

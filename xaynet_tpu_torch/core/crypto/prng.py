@@ -1,0 +1,114 @@
+"""Uniform group-element sampling from the ChaCha20 keystream.
+
+Bit-exact port of the reference's rejection sampler (reference:
+rust/xaynet-core/src/crypto/prng.rs:16-27): each attempt draws
+``len(order.to_bytes_le())`` bytes from the stream, interprets them
+little-endian and rejects values ``>= order``. The byte stream is consumed
+per *attempt*, so the accepted sequence equals ``filter(candidate < order)``
+over the chopped keystream — which is exactly what the vectorized sampler
+exploits: generate a chunk of keystream, chop into fixed-width candidates,
+keep the ones below the order (a compaction, not a sequential loop).
+
+``derive_mask`` draws one unit-order element and then the vector elements
+from the *same* stream (reference: rust/xaynet-core/src/mask/seed.rs:61-78),
+so the sampler is a stateful cursor: leftover keystream bytes carry over
+between draws of different orders.
+"""
+
+from __future__ import annotations
+
+from fractions import Fraction
+
+import numpy as np
+
+from ...ops import limbs as limb_ops
+from .chacha import BLOCK_BYTES, keystream_blocks
+
+
+class StreamSampler:
+    """Vectorized rejection sampler over one seed's keystream."""
+
+    def __init__(self, seed: bytes):
+        if len(seed) != 32:
+            raise ValueError("seed must be 32 bytes")
+        self._seed = bytes(seed)
+        self._block = 0
+        self._leftover = np.zeros(0, dtype=np.uint8)
+
+    @property
+    def consumed_bytes(self) -> int:
+        """Bytes of keystream consumed so far (for device-kernel handoff)."""
+        return self._block * BLOCK_BYTES - len(self._leftover)
+
+    def skip_bytes(self, n: int) -> None:
+        """Advance the stream cursor by ``n`` bytes without drawing.
+
+        Whole blocks are skipped by advancing the counter (ChaCha20 is
+        seekable); only a trailing partial block is generated.
+        """
+        take = min(n, len(self._leftover))
+        self._leftover = self._leftover[take:]
+        n -= take
+        if n <= 0:
+            return
+        self._block += n // BLOCK_BYTES
+        intra = n % BLOCK_BYTES
+        if intra:
+            blk = keystream_blocks(self._seed, self._block, 1)
+            self._block += 1
+            self._leftover = blk[intra:]
+
+    def _more_keystream(self, nbytes: int) -> np.ndarray:
+        nblocks = max(4, -(-nbytes // BLOCK_BYTES))
+        ks = keystream_blocks(self._seed, self._block, nblocks)
+        self._block += nblocks
+        return ks
+
+    def draw_limbs(self, count: int, order: int) -> np.ndarray:
+        """First ``count`` accepted draws below ``order`` as ``uint32[count, L]``.
+
+        Consumes the same keystream prefix as ``count`` sequential draws of
+        the reference (one ``draw_width``-byte attempt at a time).
+        """
+        out_limbs = limb_ops.n_limbs_for_order(order)
+        if count == 0:
+            return np.zeros((0, out_limbs), dtype=np.uint32)
+        # Draw width is the byte length of the *order itself* (the reference
+        # sizes the buffer with `max_int.to_bytes_le()`), which exceeds the
+        # element width when the order is a power of two at a byte boundary
+        # (e.g. 2^88, 2^96 from the catalogue).
+        bpn = limb_ops.draw_width_for(order)
+        cand_limbs = limb_ops.n_limbs_for_bytes(bpn)
+        order_cl = limb_ops.int_to_limbs(order, cand_limbs)
+        accept_rate = float(Fraction(order, 1 << (8 * bpn)))  # handles huge orders
+
+        accepted: list[np.ndarray] = []
+        got = 0
+        while got < count:
+            need = count - got
+            target = int(need * bpn / max(accept_rate, 1e-6) * 1.15) + 4 * BLOCK_BYTES
+            if len(self._leftover):
+                buf = np.concatenate(
+                    [self._leftover, self._more_keystream(target - len(self._leftover))]
+                )
+            else:
+                buf = self._more_keystream(target)
+            n_cand = len(buf) // bpn
+            cand = limb_ops.bytes_le_to_limbs(buf[: n_cand * bpn], n_cand, bpn)
+            keep_mask = limb_ops.lt_const(cand, order_cl)
+            n_keep = int(keep_mask.sum())
+            if n_keep >= need:
+                # find the attempt index of the `need`-th acceptance; bytes
+                # after it stay in the stream for the next draw
+                idx = np.nonzero(keep_mask)[0]
+                last = int(idx[need - 1])
+                self._leftover = buf[(last + 1) * bpn :]
+                keep = cand[idx[:need]]
+            else:
+                self._leftover = buf[n_cand * bpn :]
+                keep = cand[keep_mask]
+            if keep.shape[0]:
+                # accepted values are < order, so they fit the element width
+                accepted.append(keep[:, :out_limbs])
+                got += keep.shape[0]
+        return accepted[0] if len(accepted) == 1 else np.concatenate(accepted, axis=0)

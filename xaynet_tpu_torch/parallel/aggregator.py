@@ -1,0 +1,111 @@
+"""Device-resident aggregation of masked updates on one device.
+
+Port of ``xaynet_tpu/parallel/aggregator.py:ShardedAggregator`` for a single
+device (the mesh, the shard plans and the host native fold are not part of
+this package). The running aggregate is a device-resident planar
+``uint32[L, model_len]`` tensor; masked updates are folded into it in
+batches by kernel K1 (``ops.fold``), planar or packed byte-planar, and the
+Unmask subtract runs against it in place of a host gather.
+
+The reference analogue is rust/xaynet-server/src/state_machine/phases/
+update.rs:119-152, one sequential big-int pass per accepted update.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.mask.config import MaskConfig
+from ..device import resolve_device
+from ..ops import limbs as host_limbs
+from ..ops.fold import (
+    MAX_LAZY_BATCH,
+    fold_packed_batch,
+    fold_planar_batch,
+    mod_sub_planar,
+    planar_to_wire,
+    to_device_u32,
+    to_numpy_u32,
+    wire_to_planar,
+    zeros_u32,
+)
+
+
+class DeviceAggregator:
+    """Accumulates masked updates on one device (``cuda`` by default).
+
+    ``kernel_used`` reports what folds the batches: ``"cuda"`` (kernel K1)
+    on a CUDA device, ``"plain"`` (its plain torch version) on the CPU.
+    """
+
+    def __init__(self, config: MaskConfig, model_length: int, device=None):
+        self.device = resolve_device(device)
+        self.config = config
+        self.model_length = model_length
+        self.order = config.order
+        self.n_limbs = host_limbs.n_limbs_for_order(config.order)
+        # the single-source-of-truth pack width (ops/limbs.wire_width_for)
+        self.packed_width = host_limbs.wire_width_for(self.order)
+        self.kernel_used = "cuda" if self.device.type == "cuda" else "plain"
+        self.acc = zeros_u32((self.n_limbs, model_length), self.device)
+        self.nb_models = 0
+
+    def packed_staging_usable(self) -> bool:
+        """Whether packed byte-planar staging shrinks anything: at the
+        ``order == 2^(32L)`` boundary bpn == 4L and packing is a no-op."""
+        return self.packed_width < 4 * self.n_limbs
+
+    def add_batch(self, stack) -> None:
+        """Fold wire-layout ``uint32[K, model_len, L]`` host updates."""
+        stack = np.asarray(stack, dtype=np.uint32)
+        if stack.ndim != 3 or stack.shape[2] != self.n_limbs:
+            raise ValueError("expected uint32[K, model_len, L]")
+        if stack.shape[1] != self.model_length:
+            raise ValueError("model length mismatch")
+        if stack.shape[0] > MAX_LAZY_BATCH:
+            raise ValueError("batch too large for lazy-carry fold")
+        self.add_planar_batch(to_device_u32(wire_to_planar(stack), self.device))
+
+    def add_planar_batch(self, stack_planar: torch.Tensor) -> None:
+        """Fold a device-resident planar ``uint32[K, L, model_len]`` batch."""
+        fold_planar_batch(self.acc, stack_planar, self.order)
+        self.nb_models += stack_planar.shape[0]
+
+    def add_packed_batch(self, packed: torch.Tensor) -> None:
+        """Fold a device-resident packed byte-planar ``uint8[K, bpn, model_len]``
+        batch (K1's packed variant: limbs assemble inside the fold)."""
+        fold_packed_batch(self.acc, packed, self.n_limbs, self.order)
+        self.nb_models += packed.shape[0]
+
+    def mask_planar(self, mask_vect) -> torch.Tensor:
+        """An aggregated host mask (wire ``[n, L]`` or planar ``[L, n]``) as a
+        planar tensor on this device."""
+        mask = np.asarray(mask_vect, dtype=np.uint32)
+        if mask.shape == (self.model_length, self.n_limbs):
+            mask = wire_to_planar(mask)
+        if mask.shape != (self.n_limbs, self.model_length):
+            raise ValueError("mask shape matches neither the wire nor the planar layout")
+        return to_device_u32(mask, self.device)
+
+    def unmask_limbs(self, mask_vect) -> np.ndarray:
+        """Subtract the aggregated mask on the device; returns the unmasked
+        host wire ``uint32[model_len, L]`` (the only accumulator download)."""
+        out = mod_sub_planar(self.acc, self.mask_planar(mask_vect), self.order)
+        return planar_to_wire(to_numpy_u32(out))
+
+    def snapshot(self) -> np.ndarray:
+        """Host wire-layout copy of the aggregate (checkpoints / tests)."""
+        return planar_to_wire(to_numpy_u32(self.acc))
+
+    def restore(self, wire: np.ndarray, nb_models: int) -> None:
+        """Restore from a host wire-layout snapshot."""
+        wire = np.asarray(wire, dtype=np.uint32)
+        if wire.shape != (self.model_length, self.n_limbs):
+            raise ValueError("snapshot shape does not match the aggregator")
+        self.acc = to_device_u32(wire_to_planar(wire), self.device)
+        self.nb_models = nb_models
+
+    def reset(self) -> None:
+        self.acc = zeros_u32((self.n_limbs, self.model_length), self.device)
+        self.nb_models = 0

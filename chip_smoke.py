@@ -12,8 +12,13 @@ Builds the two hand-written CUDA kernels from ``xaynet_tpu_torch/csrc`` with
   and a ragged model length; K2 (the Sum2 mask fold) over seed groups with
   mid-block start cursors, forced multi-trip runs, draw widths above the
   wire width and the widest orders, plus K2's mask against the host
-  ``StreamSampler``. Each kernel is then timed at the shapes the main path
-  gives it, beside its plain version, and checked there too.
+  ``StreamSampler``; then the edges of K2's decoupled look-back (the
+  count-th acceptance in tile 0 and at tile boundaries, count 1, the early
+  exit, seven trips, cursors past 2^31 bytes and 2^32 blocks, 16 seeds,
+  twenty launches into one accumulator). Each kernel is then timed at the
+  shapes the main path gives it, beside its plain version, and checked
+  there too. K2's bound counts the instructions of its keystream loop on
+  the busier integer pipe, read from the built kernel's SASS.
 - **Phase B** drives one PET round through the port's entry points at the
   size of ResNet-50 (25,000,000 parameters), the shipped mask config
   prime/f32/b0/m3, 16 update participants (each masks on the card: mask
@@ -49,10 +54,21 @@ HERE = Path(__file__).resolve().parent
 OUT_DIR = Path("chiprun_out")
 
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
-INT32_LANES_PER_SM = 64  # Hopper SM: 64 INT32 lanes (H100 architecture white paper)
+# Hopper SM: 64 lanes a clock on each integer pipe, the ALU pipe (logic,
+# shifts, IADD3, compares) and the FMA pipe's IMAD side (H100 architecture
+# white paper: 64 INT32 units per SM; CUDA C++ Programming Guide,
+# arithmetic instruction throughput)
+INT32_LANES_PER_SM = 64
 # ChaCha20 block: 10 double rounds x 8 quarter rounds x 12 ops (4 add, 4 xor,
 # 4 rotate; a rotate is one funnel shift) + 16 final adds
 CHACHA_OPS_PER_BLOCK = 10 * 8 * 12 + 16
+# its xors and rotates: the ALU pipe's share when every add goes to IMAD
+CHACHA_ALU_OPS_PER_BLOCK = 10 * 8 * 8
+# SASS opcodes (before the first '.') by Hopper pipe; VIADD is counted on
+# the FMA side, where it cannot make the busier pipe busier
+ALU_OPCODES = {"LOP3", "SHF", "IADD3", "LEA", "SEL", "ISETP", "PRMT", "FLO", "POPC", "IABS",
+               "IMNMX", "VIMNMX", "BMSK", "SGXT", "PLOP3", "MOV", "P2R", "R2P"}
+FMA_OPCODES = {"IMAD", "IMUL", "VIADD"}
 
 
 def log(msg: str) -> None:
@@ -79,6 +95,63 @@ def max_sm_clock_hz() -> float:
     return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
+def k2_keystream_sass(lib: Path, n_limb: int) -> dict | None:
+    """Instructions per ChaCha20 block of K2's keystream loop, by pipe, read
+    from the built library's SASS (``cuobjdump -sass``) of
+    ``mf_mask_fold_kernel<n_limb>``. The round loop is the innermost
+    backward branch holding a double round's 32 xors (LOP3); when it holds
+    fewer than a block's 320, it runs 320 / (its LOP3) times inside the
+    innermost loop around it, the block loop. None if the tool or the loops
+    are not found."""
+    import re
+    from collections import Counter
+
+    from xaynet_tpu_torch.ops import kernels
+
+    tool = Path(kernels.nvcc_path()).parent / "cuobjdump"
+    if not tool.exists():
+        return None
+    text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=120).stdout
+    fns = [c for c in text.split("Function : ")[1:]
+           if f"mf_mask_fold_kernelILi{n_limb}E" in c.split(None, 1)[0]]
+    if not fns:
+        return None
+    pat = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+    ins = [(int(a, 16), op, args) for a, op, args in pat.findall(fns[0])]
+    loops = []  # (first, last address) of each backward branch
+    for addr, op, args in ins:
+        target = re.search(r"0x([0-9a-f]+)", args) if op.startswith("BRA") else None
+        if target and int(target.group(1), 16) < addr:
+            loops.append((int(target.group(1), 16), addr))
+
+    def body(loop):
+        return Counter(o for a, o, _ in ins if loop[0] <= a <= loop[1])
+
+    def lop3(loop):
+        return sum(n for o, n in body(loop).items() if o.startswith("LOP3"))
+
+    rounds = [lp for lp in loops if lop3(lp) >= 32]
+    if not rounds:
+        return None
+    inner = min(rounds, key=lambda lp: lp[1] - lp[0])
+    per_block = body(inner)
+    if lop3(inner) < 320:
+        trips, rest = divmod(320, lop3(inner))
+        outer = [lp for lp in loops if lp[0] <= inner[0] and inner[1] <= lp[1] and lp != inner]
+        if rest or not outer:
+            return None
+        per_block = body(min(outer, key=lambda lp: lp[1] - lp[0]))
+        for op, n in body(inner).items():
+            per_block[op] += (trips - 1) * n
+    kinds = Counter()
+    for op, n in per_block.items():
+        base = op.split(".")[0]
+        kinds["alu" if base in ALU_OPCODES else "fma" if base in FMA_OPCODES else "other"] += n
+    return {"alu": kinds["alu"], "fma": kinds["fma"], "other": kinds["other"],
+            "by_opcode": dict(per_block.most_common())}
+
+
 class Smoke:
     def __init__(self, args):
         import torch
@@ -90,6 +163,7 @@ class Smoke:
         self.rng = np.random.default_rng(args.seed)
         self.records: dict = {"checks": []}
         self.max_err = {"fold_planar": 0, "fold_packed": 0, "mask_fold": 0}
+        self.sass = None
 
     # -- helpers ------------------------------------------------------------
 
@@ -159,12 +233,17 @@ class Smoke:
         for name in libs:
             kernels.load(name)
         dt = time.perf_counter() - t
-        logs = {}
-        for name in kernels.SOURCES:
-            path = kernels.build_dir() / f"{name}.log"
-            logs[name] = path.read_text() if path.exists() else ""
-        self.records["build"] = {"seconds": dt, "nvcc_logs": logs}
+        logs = {name: lib.with_suffix(".log").read_text() for name, lib in libs.items()}
+        self.records["build"] = {"seconds": dt, "nvcc_logs": logs,
+                                 "libraries": {n: str(p) for n, p in libs.items()}}
         log(f"[setup] built {sorted(libs)} with nvcc in {dt:.1f} s (into {kernels.build_dir()})")
+        self.sass = k2_keystream_sass(libs["mask_fold"], n_limb=2)
+        self.records["k2_sass"] = self.sass
+        if self.sass:
+            log(f"[setup] K2 keystream loop in SASS, per ChaCha block: ALU pipe {self.sass['alu']}, "
+                f"FMA pipe {self.sass['fma']}, other {self.sass['other']} instructions")
+        else:
+            log("[setup] K2 keystream loop not found in SASS: bound from the op count")
 
     # -- phase A: each kernel against its plain version ---------------------
 
@@ -266,6 +345,74 @@ class Smoke:
         self.sync()
         log(f"[phase A] K2 byte-exact vs plain in {n_cases} group cases; masks == host sampler")
 
+    def phase_a_look_back(self) -> None:
+        """K2's single pass where its decoupled look-back and early exit
+        have edges, on the main order (draw width 6): the count-th
+        acceptance inside tile 0, as the last of tile 0 or 1 and the first
+        of tile 1; count 1; a trip 200 tiles long for 300 elements (the
+        done flag); seven trips; cursors past 2^31 bytes and 2^32 blocks; a
+        16-seed group from mid-block cursors; and twenty launches in a row
+        into one accumulator (a stale status word would shift a prefix).
+        Each against the plain version (acc and end cursors), and the first
+        seed's mask and cursor against the host ``StreamSampler``."""
+        from xaynet_tpu_torch.core.crypto.prng import StreamSampler
+        from xaynet_tpu_torch.core.mask.config import (
+            BoundType, DataType, GroupType, MaskConfig, ModelType,
+        )  # fmt: skip
+        from xaynet_tpu_torch.ops import chacha, kernels, limbs
+        from xaynet_tpu_torch.ops.fold import to_device_u32, to_numpy_u32, zeros_u32
+
+        order = MaskConfig(GroupType.PRIME, DataType.F32, BoundType.B0, ModelType.M3).order
+        bpn, tile = limbs.draw_width_for(order), kernels.plan_trips(1, order).tile
+        seed = self.rng.bytes(32)
+        kw = np.frombuffer(seed, "<u4")
+        cand = chacha.chop_candidates(chacha.keystream_bytes(kw.tolist(), 6, 2 * tile * bpn),
+                                      2 * tile, bpn)
+        order_cl = tuple(int(x) for x in limbs.int_to_limbs(order, cand.shape[1]))
+        acc0, acc1 = chacha.accept_mask(cand, order_cl).view(2, tile).sum(1).tolist()
+        group = [self.rng.bytes(32) for _ in range(16)]
+        cases = [  # (label, seeds, start cursors, count, chunk_candidates)
+            ("count in tile 0", [seed], [6], acc0 // 2, None),
+            ("last of tile 0", [seed], [6], acc0, None),
+            ("first of tile 1", [seed], [6], acc0 + 1, None),
+            ("last of tile 1", [seed], [6], acc0 + acc1, None),
+            ("count 1", [seed], [6], 1, None),
+            ("early exit", [seed], [6], 300, 200 * tile),
+            ("seven trips", [seed], [6], 3000, 3000 * (1 << 8 * bpn) // order // 7 + 13),
+            ("cursor above 2^31", [seed], [2**31 + 12345], 2000, None),
+            ("block counter above 2^32", [seed], [2**38 + 7], 2000, None),
+            ("B=16 mid-block", group, [13 * i + 5 for i in range(16)], 5000, None),
+        ]
+        for label, seeds, offs, count, chunk in cases:
+            kws = to_device_u32(np.stack([np.frombuffer(s, "<u4") for s in seeds]), self.dev)
+            acc = to_device_u32(self.elements(order, 2, (count,)), self.dev)
+            got, ends = kernels.mask_fold(acc.clone(), kws, offs, count, order, chunk)
+            want, want_ends = kernels.mask_fold_plain(acc.clone(), kws, offs, count, order, chunk)
+            what = f"look-back: {label} (count={count}, chunk={chunk})"
+            self.compare("mask_fold", got, want, what + " acc")
+            self.compare("mask_fold", ends, want_ends, what + " end cursors")
+            mask, end = kernels.mask_fold(zeros_u32((2, count), self.dev), kws[:1], offs[:1],
+                                          count, order, chunk)
+            sampler = StreamSampler(seeds[0])
+            sampler.skip_bytes(offs[0])
+            host = sampler.draw_limbs(count, order)
+            self.check(
+                np.array_equal(to_numpy_u32(mask).T, host) and int(end[0]) == sampler.consumed_bytes,
+                f"{what}: mask and cursor == host StreamSampler",
+            )
+        count = 20_000
+        acc = to_device_u32(self.elements(order, 2, (count,)), self.dev)
+        want = acc.clone()
+        for i in range(20):
+            kws = to_device_u32(np.frombuffer(self.rng.bytes(32), "<u4")[None].copy(), self.dev)
+            _, end = kernels.mask_fold(acc, kws, [7 * i], count, order)
+            _, want_end = kernels.mask_fold_plain(want, kws, [7 * i], count, order)
+            self.compare("mask_fold", end, want_end, f"look-back: launch {i + 1} of 20 end cursor")
+        self.compare("mask_fold", acc, want, "look-back: 20 launches into one acc")
+        self.sync()
+        log(f"[phase A] K2 look-back edge cases byte-exact vs plain and host sampler "
+            f"({len(cases)} cases, tile {tile} candidates; 20 launches into one acc)")
+
     def phase_a_main_shapes(self) -> dict:
         """Each kernel at the main path's shapes: checked against its plain
         version there, and timed (kernel and plain) with CUDA events."""
@@ -335,7 +482,7 @@ class Smoke:
         timings["mask_fold"] = {
             "ms": ms,
             "plain_ms": plain_s * 1e3,
-            "ops": blocks * CHACHA_OPS_PER_BLOCK,
+            "blocks": blocks,
             "bytes": 2 * acc.numel() * 4,
             "candidates": chacha.provision_candidates(n, order),
             "shape": f"one seed, count={n} into uint32[{n_limb},{n}]",
@@ -451,6 +598,22 @@ class Smoke:
             "fold_planar": ("xaynet_tpu_torch/csrc/fold.cu", "xaynet_tpu/ops/fold_pallas.py:125"),
             "mask_fold": ("xaynet_tpu_torch/csrc/mask_fold.cu", "xaynet_tpu/ops/fold_pallas.py:201"),
         }
+        # K2's operations: the instructions of its keystream loop on the
+        # busier integer pipe, per ChaCha block the data needs
+        if self.sass:
+            per_block = max(self.sass["alu"], self.sass["fma"])
+        else:
+            per_block = CHACHA_ALU_OPS_PER_BLOCK
+        k2 = timings["mask_fold"]
+        k2["ops"] = k2["blocks"] * per_block
+        self.records["k2_bound"] = {
+            "blocks": k2["blocks"],
+            "ops_per_block": per_block,
+            "from": "SASS, busier pipe" if self.sass else "xors and rotates",
+            # every op of the block on one 64-lane pipe: the earlier bound
+            "one_pipe_ops_per_block": CHACHA_OPS_PER_BLOCK,
+            "one_pipe_ms": k2["blocks"] * CHACHA_OPS_PER_BLOCK / int_rate * 1e3,
+        }
         for name in ("fold_packed", "fold_planar", "mask_fold"):
             t = timings[name]
             bytes_ms = t["bytes"] / MEM_BYTES_PER_S * 1e3
@@ -473,8 +636,8 @@ class Smoke:
         return rows
 
     def device_profile(self, timings: dict) -> None:
-        """Device time of each kernel by name over one K2 seed and one K1
-        packed fold at the main shapes (torch.profiler / CUPTI)."""
+        """Device time of each kernel (and memset) by name over one K2 seed
+        and one K1 packed fold at the main shapes (torch.profiler / CUPTI)."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
 
@@ -496,7 +659,7 @@ class Smoke:
             dev_us = getattr(ev, "device_time_total", None)
             if dev_us is None:
                 dev_us = getattr(ev, "cuda_time_total", 0)
-            if dev_us and ("kernel" in ev.key or "mf_" in ev.key or "fold" in ev.key):
+            if dev_us and any(k in ev.key for k in ("kernel", "mf_", "fold", "Memset")):
                 rows.append({"kernel": ev.key, "device_ms": dev_us / 1e3, "calls": ev.count})
         self.records["profile"] = rows
         for r in rows:
@@ -539,6 +702,7 @@ def main() -> int:
             smoke.build()
         smoke.phase_a_fold()
         smoke.phase_a_mask_fold()
+        smoke.phase_a_look_back()
         timings = smoke.phase_a_main_shapes()
         result = smoke.phase_b()
     except Exception as exc:  # every phase failure ends the run without a result

@@ -17,7 +17,7 @@ import torch
 
 from xaynet_tpu_torch.core.crypto.prng import StreamSampler
 from xaynet_tpu_torch.core.mask.config import BoundType, DataType, GroupType, MaskConfig, ModelType
-from xaynet_tpu_torch.ops import kernels, limbs
+from xaynet_tpu_torch.ops import chacha, kernels, limbs
 from xaynet_tpu_torch.ops.fold import to_device_u32, widen
 
 pytestmark = pytest.mark.cuda
@@ -95,6 +95,89 @@ def test_mask_fold_kernel_matches_plain_and_host(cuda, name, trips):
     host = sampler.draw_limbs(count, order)
     assert np.array_equal(mask.view(torch.int32).cpu().numpy().view(np.uint32).T, host)
     assert int(end[0]) == sampler.consumed_bytes
+
+
+def _tile_acceptances(seed: bytes, start: int, order: int, n_tiles: int) -> list[int]:
+    """Accepted candidates in each of K2's first ``n_tiles`` tiles of a trip
+    from byte ``start`` (host arithmetic, independent of the kernel)."""
+    bpn = limbs.draw_width_for(order)
+    tile = kernels.plan_trips(1, order).tile
+    kw = np.frombuffer(seed, "<u4").tolist()
+    cand = chacha.chop_candidates(
+        chacha.keystream_bytes(kw, start, n_tiles * tile * bpn), n_tiles * tile, bpn
+    )
+    order_cl = tuple(int(x) for x in limbs.int_to_limbs(order, cand.shape[1]))
+    return chacha.accept_mask(cand, order_cl).view(n_tiles, tile).sum(1).tolist()
+
+
+def _look_back_case(name: str):
+    """(seeds, start cursors, count, chunk_candidates) of one look-back edge
+    case, on the main path's order (draw width 6)."""
+    order = ORDERS["L2"]
+    seed = bytes(range(40, 72))
+    acc0, acc1 = _tile_acceptances(seed, 6, order, 2)
+    cases = {
+        "count-in-tile-0": ([seed], [6], acc0 // 2, None),
+        "last-of-tile-0": ([seed], [6], acc0, None),
+        "first-of-tile-1": ([seed], [6], acc0 + 1, None),
+        "last-of-tile-1": ([seed], [6], acc0 + acc1, None),
+        "count-1": ([seed], [6], 1, None),
+        # a trip 200 tiles long for 300 elements: most tiles exit on the done flag
+        "early-exit": ([seed], [6], 300, 200 * kernels.plan_trips(1, order).tile),
+        # about seven trips, the trip no multiple of the tile
+        "seven-trips": ([seed], [6], 3000, 3000 * (1 << 48) // order // 7 + 13),
+        "cursor-above-2^31": ([seed], [2**31 + 12345], 2000, None),
+        "block-counter-above-2^32": ([seed], [2**38 + 7], 2000, None),
+    }
+    seeds = [bytes([i, 3]) * 16 for i in range(16)]
+    cases["B16-mid-block"] = (seeds, [13 * i + 5 for i in range(16)], 5000, None)
+    return cases[name]
+
+
+LOOK_BACK_CASES = [
+    "count-in-tile-0", "last-of-tile-0", "first-of-tile-1", "last-of-tile-1", "count-1",
+    "early-exit", "seven-trips", "cursor-above-2^31", "block-counter-above-2^32",
+    "B16-mid-block",
+]  # fmt: skip
+
+
+@pytest.mark.parametrize("case", LOOK_BACK_CASES)
+def test_mask_fold_look_back_edge_cases(cuda, case):
+    """K2's single pass where its look-back and early exit have edges: the
+    count-th acceptance in tile 0 and on either side of a tile boundary,
+    count 1, a trip far longer than the count, many trips, cursors past
+    2^31 bytes and 2^32 blocks, a 16-seed group. Accumulator and end
+    cursors against the plain version, and the first seed's mask and
+    cursor against the host sampler."""
+    order = ORDERS["L2"]
+    seeds, offs, count, chunk = _look_back_case(case)
+    kws = to_device_u32(np.stack([np.frombuffer(s, "<u4") for s in seeds]), cuda)
+    acc0 = to_device_u32(_elements(order, (count,), 11), cuda)
+    got, ends = kernels.mask_fold(acc0.clone(), kws, offs, count, order, chunk)
+    want, want_ends = kernels.mask_fold_plain(acc0.clone(), kws, offs, count, order, chunk)
+    assert _same(got, want) and ends.tolist() == want_ends.tolist()
+    zero = torch.zeros((2, count), dtype=torch.int32, device=cuda).view(torch.uint32)
+    mask, end = kernels.mask_fold(zero, kws[:1], offs[:1], count, order, chunk)
+    sampler = StreamSampler(seeds[0])
+    sampler.skip_bytes(offs[0])
+    host = sampler.draw_limbs(count, order)
+    assert np.array_equal(mask.view(torch.int32).cpu().numpy().view(np.uint32).T, host)
+    assert int(end[0]) == sampler.consumed_bytes
+
+
+def test_mask_fold_twenty_launches_into_one_acc(cuda):
+    """Twenty K2 calls in a row into one accumulator, each over many tiles:
+    a status word left from an earlier launch would shift a prefix."""
+    order = ORDERS["L2"]
+    count = 20_000
+    acc = to_device_u32(_elements(order, (count,), 5), cuda)
+    want = acc.clone()
+    for i in range(20):
+        kw = to_device_u32(np.frombuffer(bytes([i, 9]) * 16, "<u4")[None].copy(), cuda)
+        _, end = kernels.mask_fold(acc, kw, [7 * i], count, order)
+        _, want_end = kernels.mask_fold_plain(want, kw, [7 * i], count, order)
+        assert end.tolist() == want_end.tolist()
+    assert _same(acc, want)
 
 
 def test_launch_counters_count_kernel_launches(cuda):

@@ -4,7 +4,8 @@
   root conftest imports jax into this one) without pulling ``jax`` or any
   ``xaynet_tpu`` module into ``sys.modules``;
 - the kernel loader imports where there is no ``nvcc``, and building then
-  raises instead of falling back;
+  raises instead of falling back; a built library is reused only for the
+  same source and flags;
 - entry points given no device run on CUDA, so without one they raise;
 - a wrapper handed a tensor that is neither on the CPU nor on a CUDA
   device raises (only CPU tensors take the plain versions).
@@ -81,6 +82,32 @@ def test_kernel_loader_imports_without_nvcc(tmp_path):
     proc = _run(code, env)
     assert proc.returncode == 0, proc.stderr
     assert "raised: nvcc not found" in proc.stdout
+
+
+def test_kernel_build_is_keyed_on_source_and_flags(tmp_path, monkeypatch):
+    """A library is reused only while its source and compiler flags are
+    unchanged: each is in the library's name, whatever the files' times."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for src in kernels.SOURCES.values():
+        (csrc / src).write_bytes((kernels.CSRC / src).read_bytes())
+    monkeypatch.setattr(kernels, "CSRC", csrc)
+    stem = kernels.library_stem("mask_fold")
+    assert stem.startswith("libxn_mask_fold-")
+    assert kernels.library_stem("mask_fold", ("-DXN_CHACHA_UNROLL=10",)) != stem
+    out = tmp_path / "build"
+    out.mkdir()
+    for name in kernels.SOURCES:
+        (out / f"{kernels.library_stem(name)}.so").write_bytes(b"")
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    assert kernels.build(out)["mask_fold"] == out / f"{stem}.so"  # built: no nvcc needed
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kernels.build(out, extra_flags=("-DXN_CHACHA_UNROLL=10",))
+    (csrc / "mask_fold.cu").write_text((csrc / "mask_fold.cu").read_text() + "\n// edited\n")
+    assert kernels.library_stem("mask_fold") != stem
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kernels.build(out)
 
 
 @pytest.fixture

@@ -24,11 +24,11 @@ from xaynet_tpu.core.mask.config import BoundType, DataType, GroupType, MaskConf
 from xaynet_tpu.core.mask.masking import Aggregation, Masker
 from xaynet_tpu.core.mask.model import Scalar
 from xaynet_tpu.core.mask.seed import MaskSeed
-from xaynet_tpu.ops import fold_pallas, limbs as ref_limbs, masking_jax
+from xaynet_tpu.ops import chacha_jax, fold_pallas, limbs as ref_limbs, masking_jax
 from xaynet_tpu.ops.fold_jax import planar_to_wire
 from xaynet_tpu_torch import convert
 from xaynet_tpu_torch.core.mask.model import Scalar as PortScalar
-from xaynet_tpu_torch.ops import fold, kernels, masking
+from xaynet_tpu_torch.ops import chacha, fold, kernels, masking
 
 CPU = torch.device("cpu")
 # the suite runs in several worker processes at once: keep torch's CPU ops
@@ -213,3 +213,83 @@ def test_unmask_vect_limbs_is_mod_sub():
     )
     want = ref_limbs.mod_sub(a, b, ref_limbs.order_limbs_for(order))
     assert np.array_equal(planar_to_wire(fold.to_numpy_u32(got)), want)
+
+
+# --- K2's trip plan (the wrapper's launch arithmetic, run on the CPU) -------
+
+# a config for each draw width the plan must size, and its tile: as many
+# candidates as keep a tile's keystream within one ChaCha block per thread
+# (256 threads, 64 bytes each, any start byte within a block), at most 32
+# candidates per thread
+PLAN_WIDTHS = {
+    6: (MaskConfig(GroupType.PRIME, DataType.F32, BoundType.B0, ModelType.M3), 2720),
+    8: (MaskConfig(GroupType.INTEGER, DataType.F32, BoundType.B2, ModelType.M6), 2040),
+    12: (MaskConfig(GroupType.POWER2, DataType.F32, BoundType.B4, ModelType.M12), 1360),
+    17: (MaskConfig(GroupType.POWER2, DataType.F64, BoundType.B6, ModelType.M12), 960),
+    37: (MaskConfig(GroupType.INTEGER, DataType.F32, BoundType.BMAX, ModelType.M3), 441),
+    268: (MaskConfig(GroupType.INTEGER, DataType.F64, BoundType.BMAX, ModelType.M12), 60),
+}
+
+
+@pytest.mark.parametrize("count", [1, 3000, 25_000_000])
+@pytest.mark.parametrize("bpn", sorted(PLAN_WIDTHS))
+def test_trip_plan_tiles_and_provisioning(bpn, count):
+    cfg, tile = PLAN_WIDTHS[bpn]
+    plan = kernels.plan_trips(count, cfg.order)
+    assert plan.bpn == bpn == ref_limbs.draw_width_for(cfg.order)
+    assert plan.trip == chacha_jax.provision_candidates(count, cfg.order)
+    assert plan.tile == tile
+    assert 63 + plan.tile * bpn <= 64 * kernels.K2_THREADS
+    assert -(-plan.tile // kernels.K2_THREADS) <= 32
+    assert (plan.n_tiles - 1) * plan.tile < plan.trip <= plan.n_tiles * plan.tile
+    assert plan.scratch_words == plan.n_tiles + 2
+    short = kernels.plan_trips(count, cfg.order, chunk_candidates=plan.tile + 1)
+    assert (short.trip, short.n_tiles) == (plan.tile + 1, 2)
+
+
+@pytest.mark.parametrize("start", [6, 2_110_731_114, 2**31 + 12_345, 2**38 + 7])
+def test_trip_plan_offsets_walk_the_keystream_like_the_host_sampler(start):
+    """Walking the plan's trips from a start cursor (past 2^31 bytes and
+    past 2^32 blocks too) over the keystream, counting acceptances per
+    trip, ends on the host sampler's cursor; the offsets are exact."""
+    cfg = PLAN_WIDTHS[6][0]
+    order, count = cfg.order, 400
+    plan = kernels.plan_trips(count, order, chunk_candidates=_short_trip(count, order, 5))
+    seed = bytes(range(7, 39))
+    kw = np.frombuffer(seed, "<u4").tolist()
+    order_cl = tuple(int(x) for x in ref_limbs.int_to_limbs(order, 2))
+    base, t = 0, 0
+    while True:
+        off = plan.offset(start, t)
+        assert off == start + t * plan.trip * plan.bpn
+        ok = chacha.accept_mask(
+            chacha.chop_candidates(chacha.keystream_bytes(kw, off, plan.trip * 6), plan.trip, 6),
+            order_cl,
+        )
+        csum = torch.cumsum(ok.to(torch.int64), 0)
+        if base + int(csum[-1]) >= count:
+            end = off + (int(torch.nonzero(csum >= count - base)[0, 0]) + 1) * plan.bpn
+            break
+        base += int(csum[-1])
+        t += 1
+    assert t >= 3
+    sampler = StreamSampler(seed)
+    sampler.skip_bytes(start)
+    sampler.draw_limbs(count, order)
+    assert end == sampler.consumed_bytes
+
+
+@pytest.mark.parametrize("chunk", [None, 2000])
+@pytest.mark.parametrize("start", [2**31 + 12_345, 2**38 + 7])
+def test_plain_mask_fold_from_cursors_past_32_bits(start, chunk):
+    """The plain K2 from a cursor past 2^31 bytes (the 25M mask ends at
+    ~2.11e9) and past 2^32 blocks (the block counter's high word), in one
+    trip and in several, against the host sampler."""
+    order = PLAN_WIDTHS[6][0].order
+    seed = bytes(range(9, 41))
+    kws = np.frombuffer(seed, "<u4")[None].copy()
+    acc, ends = _port_mask_fold(kws, [start], 300, order, chunk)
+    sampler = StreamSampler(seed)
+    sampler.skip_bytes(start)
+    want = sampler.draw_limbs(300, order)
+    assert np.array_equal(planar_to_wire(acc), want) and ends == [sampler.consumed_bytes]

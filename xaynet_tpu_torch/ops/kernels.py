@@ -14,7 +14,7 @@ Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface and loaded with ctypes, at first use (never at
 import: this module imports on machines without ``nvcc``). Libraries go to
 ``build/xaynet_tpu_torch/`` beside the package (``XAYNET_TORCH_BUILD_DIR``
-overrides it).
+overrides it), named by a digest of their source and compiler flags.
 
 Each wrapper decides by the device of its tensors: a CPU tensor runs the
 plain torch version beside it (``*_plain``), a CUDA tensor launches the
@@ -28,10 +28,12 @@ probability < 2^-60, or when a caller shrinks ``chunk_candidates``).
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import shutil
 import subprocess
 import threading
+from dataclasses import dataclass
 from pathlib import Path
 
 import numpy as np
@@ -89,31 +91,42 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
 
 
-def build(out_dir: Path | None = None) -> dict[str, Path]:
-    """Compile every kernel source that is missing or older than its source,
-    one ``nvcc`` per source, all started together. Returns the library
-    paths; each compiler's output (``-Xptxas -v`` register and spill
-    report) is kept beside its library as ``<name>.log``."""
+def library_stem(name: str, extra_flags: tuple[str, ...] = ()) -> str:
+    """File stem of kernel ``name``'s library: ``libxn_<name>-<digest>``, the
+    digest taken over the source and the compiler flags, so a changed
+    kernel or a changed flag always builds anew."""
+    digest = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    digest.update("\0".join((*NVCC_FLAGS, *extra_flags)).encode())
+    return f"libxn_{name}-{digest.hexdigest()[:16]}"
+
+
+def build(out_dir: Path | None = None, extra_flags: tuple[str, ...] = ()) -> dict[str, Path]:
+    """Compile every kernel source whose library (keyed on the source's and
+    the flags' content, :func:`library_stem`) is missing, one ``nvcc`` per
+    source, all started together; ``extra_flags`` go to ``nvcc`` after
+    :data:`NVCC_FLAGS`. Returns the library paths; each compiler's output
+    (``-Xptxas -v`` register and spill report) is kept beside its library
+    as ``<stem>.log``."""
     out = Path(out_dir) if out_dir is not None else build_dir()
     out.mkdir(parents=True, exist_ok=True)
-    libs = {name: out / f"libxn_{name}.so" for name in SOURCES}
+    libs = {name: out / f"{library_stem(name, extra_flags)}.so" for name in SOURCES}
     procs = {}
     for name, src in SOURCES.items():
-        source, lib = CSRC / src, libs[name]
-        if lib.exists() and lib.stat().st_mtime >= source.stat().st_mtime:
+        lib = libs[name]
+        if lib.exists():
             continue
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(lib) + ".tmp", str(source)]
+        cmd = [nvcc_path(), *NVCC_FLAGS, *extra_flags, "-o", f"{lib}.tmp", str(CSRC / src)]
         procs[name] = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )
     failed = []
     for name, proc in procs.items():
         log, _ = proc.communicate()
-        (out / f"{name}.log").write_text(log)
+        libs[name].with_suffix(".log").write_text(log)
         if proc.returncode != 0:
             failed.append(f"{SOURCES[name]}:\n{log}")
         else:
-            os.replace(str(libs[name]) + ".tmp", libs[name])
+            os.replace(f"{libs[name]}.tmp", libs[name])
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return libs
@@ -129,9 +142,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.xn_fold_packed.argtypes = [p, p, p, i, i, i, ll, i, i, p]
         lib.xn_fold_packed.restype = i
     else:
-        lib.xn_mask_fold_tile_candidates.argtypes = [i]
-        lib.xn_mask_fold_tile_candidates.restype = i
-        lib.xn_mask_fold_trip.argtypes = [p, ll, ll, i, i, i, p, p, p, ll, p, p, p, p, p]
+        lib.xn_mask_fold_trip.argtypes = [p, ll, ll, i, i, i, i, p, p, p, ll, ll, p, p, p, p]
         lib.xn_mask_fold_trip.restype = i
 
 
@@ -145,6 +156,15 @@ def load(name: str) -> ctypes.CDLL:
             _bind(name, lib)
             _LIBS[name] = lib
         return lib
+
+
+def use_library(name: str, path: Path) -> None:
+    """Make the wrappers launch kernel ``name`` from the library at ``path``
+    (a build with other flags, to compare two builds in one process)."""
+    lib = ctypes.CDLL(str(path))
+    _bind(name, lib)
+    with _LIB_LOCK:
+        _LIBS[name] = lib
 
 
 def _check(rc: int, what: str, lib: ctypes.CDLL) -> None:
@@ -284,6 +304,48 @@ def fold_packed(acc: torch.Tensor, packed: torch.Tensor, order: int) -> torch.Te
 
 # --- K2: the fused mask fold -----------------------------------------------
 
+# threads of one K2 tile and the widest draw (``kThreads``, ``kMaxDraw`` in
+# csrc/mask_fold.cu); a tile's keystream is at most one 64-byte ChaCha
+# block per thread, and a thread tests at most 32 candidates (one flag bit
+# each)
+K2_THREADS = 256
+K2_MAX_DRAW = 4 * 68 + 4
+_K2_MAX_TILE = 32 * K2_THREADS
+
+
+@dataclass(frozen=True)
+class TripPlan:
+    """How K2 covers one seed's keystream: trips of ``trip`` candidates,
+    each trip one launch over ``n_tiles`` tiles of ``tile`` candidates, with
+    ``scratch_words`` int64 words of look-back state (tile counter, done
+    flag, one status word per tile)."""
+
+    bpn: int
+    trip: int
+    tile: int
+    n_tiles: int
+    scratch_words: int
+
+    def offset(self, start: int, t: int) -> int:
+        """Keystream byte at which trip ``t`` of a seed whose vector draw
+        starts at byte ``start`` begins."""
+        return start + t * self.trip * self.bpn
+
+
+def plan_trips(count: int, order: int, chunk_candidates: int | None = None) -> TripPlan:
+    """K2's launch arithmetic for ``count`` elements of ``order``: one trip
+    covers ``chunk_candidates`` candidates (default: the 2^-60
+    provisioning, :func:`chacha.provision_candidates`); a tile holds as
+    many candidates as keep its keystream, from any start byte within a
+    block, within one ChaCha block per thread."""
+    bpn = host_limbs.draw_width_for(order)
+    trip = int(chunk_candidates) if chunk_candidates else chacha.provision_candidates(count, order)
+    if trip < 1:
+        raise ValueError("chunk_candidates must be positive")
+    tile = max(1, min(_K2_MAX_TILE, (64 * K2_THREADS - 63) // bpn))
+    n_tiles = -(-trip // tile)
+    return TripPlan(bpn=bpn, trip=trip, tile=tile, n_tiles=n_tiles, scratch_words=2 + n_tiles)
+
 
 def _check_mask_fold_args(acc, key_words, offsets, count, order) -> list[int]:
     n_limb = host_limbs.n_limbs_for_order(order)
@@ -341,6 +403,9 @@ def mask_fold(
     folded with a modular add, and the mask never exists in device memory.
     ``chunk_candidates`` is the candidates one trip covers (default: the
     2^-60 provisioning, one trip); a small value forces the multi-trip path.
+    A trip is one launch per seed (:func:`plan_trips`); after each trip the
+    host reads the group's acceptance counts once, to learn which seeds
+    need another.
     Cursors are int64 (the JAX kernel's int32 cursors stop at 2 GiB of
     keystream, which a 25M-element mask of the default config nearly fills).
     """
@@ -353,30 +418,24 @@ def mask_fold(
     if count == 0 or not offs:
         return acc, ends
     n_limb = acc.shape[0]
-    bpn = host_limbs.draw_width_for(order)
-    trip = int(chunk_candidates) if chunk_candidates else chacha.provision_candidates(count, order)
-    if trip < 1:
-        raise ValueError("chunk_candidates must be positive")
+    plan = plan_trips(count, order, chunk_candidates)
+    if plan.bpn > K2_MAX_DRAW:
+        raise ValueError(f"draw width {plan.bpn} is out of the kernel's range")
     lib = load("mask_fold")
-    tile = lib.xn_mask_fold_tile_candidates(bpn)
-    if tile <= 0:
-        raise ValueError(f"draw width {bpn} is out of the kernel's range")
-    n_tiles = -(-trip // tile)
-    counts = torch.empty(n_tiles, dtype=torch.int32, device=dev)
-    prefix = torch.empty(n_tiles, dtype=torch.int64, device=dev)
+    scratch = torch.empty(plan.scratch_words, dtype=torch.int64, device=dev)
     base = torch.zeros(len(offs), dtype=torch.int64, device=dev)
     _, order_bytes, order_limbs = _order_buffers(order, n_limb, dev)
     pow2 = int(order == 1 << (32 * n_limb))
     stream = _stream(dev)
-    pending, t = list(range(len(offs))), 0
+    pending, done, t = list(range(len(offs))), [0] * len(offs), 0
     with torch.cuda.device(dev):
         while pending:
             for b in pending:
                 rc = lib.xn_mask_fold_trip(
-                    key_words.data_ptr() + 32 * b, offs[b] + t * trip * bpn, trip, bpn,
-                    n_limb, pow2, order_bytes.data_ptr(), order_limbs.data_ptr(),
-                    acc.data_ptr(), count, base.data_ptr() + 8 * b, ends.data_ptr() + 8 * b,
-                    counts.data_ptr(), prefix.data_ptr(), stream,
+                    key_words.data_ptr() + 32 * b, plan.offset(offs[b], t), plan.trip,
+                    plan.bpn, plan.tile, n_limb, pow2, order_bytes.data_ptr(),
+                    order_limbs.data_ptr(), acc.data_ptr(), count, done[b],
+                    base.data_ptr() + 8 * b, ends.data_ptr() + 8 * b, scratch.data_ptr(), stream,
                 )  # fmt: skip
                 _check(rc, "K2 mask fold", lib)
                 LAUNCHES["mask_fold"] += 1
@@ -384,4 +443,3 @@ def mask_fold(
             pending = [b for b in pending if done[b] < count]
             t += 1
     return acc, ends
-

@@ -17,8 +17,9 @@ Builds the two hand-written CUDA kernels from ``xaynet_tpu_torch/csrc`` with
   exit, seven trips, cursors past 2^31 bytes and 2^32 blocks, 16 seeds,
   twenty launches into one accumulator). Each kernel is then timed at the
   shapes the main path gives it, beside its plain version, and checked
-  there too. K2's bound counts the instructions of its keystream loop on
-  the busier integer pipe, read from the built kernel's SASS.
+  there too. K2's bound counts the xors and rotates its ChaCha20 blocks
+  need, on the ALU pipe; the built keystream loop's instructions per pipe
+  (from its SASS) are recorded beside it.
 - **Phase B** drives one PET round through the port's entry points at the
   size of ResNet-50 (25,000,000 parameters), the shipped mask config
   prime/f32/b0/m3, 16 update participants (each masks on the card: mask
@@ -62,7 +63,8 @@ INT32_LANES_PER_SM = 64
 # ChaCha20 block: 10 double rounds x 8 quarter rounds x 12 ops (4 add, 4 xor,
 # 4 rotate; a rotate is one funnel shift) + 16 final adds
 CHACHA_OPS_PER_BLOCK = 10 * 8 * 12 + 16
-# its xors and rotates: the ALU pipe's share when every add goes to IMAD
+# its xors and rotates, which only the ALU pipe runs: K2's bound (the adds
+# can go to the FMA pipe's IMAD side, which then carries fewer)
 CHACHA_ALU_OPS_PER_BLOCK = 10 * 8 * 8
 # SASS opcodes (before the first '.') by Hopper pipe; VIADD is counted on
 # the FMA side, where it cannot make the busier pipe busier
@@ -243,7 +245,7 @@ class Smoke:
             log(f"[setup] K2 keystream loop in SASS, per ChaCha block: ALU pipe {self.sass['alu']}, "
                 f"FMA pipe {self.sass['fma']}, other {self.sass['other']} instructions")
         else:
-            log("[setup] K2 keystream loop not found in SASS: bound from the op count")
+            log("[setup] K2 keystream loop not found in SASS")
 
     # -- phase A: each kernel against its plain version ---------------------
 
@@ -598,22 +600,20 @@ class Smoke:
             "fold_planar": ("xaynet_tpu_torch/csrc/fold.cu", "xaynet_tpu/ops/fold_pallas.py:125"),
             "mask_fold": ("xaynet_tpu_torch/csrc/mask_fold.cu", "xaynet_tpu/ops/fold_pallas.py:201"),
         }
-        # K2's operations: the instructions of its keystream loop on the
-        # busier integer pipe, per ChaCha block the data needs
-        if self.sass:
-            per_block = max(self.sass["alu"], self.sass["fma"])
-        else:
-            per_block = CHACHA_ALU_OPS_PER_BLOCK
+        # K2's operations: the xors and rotates of each ChaCha block the
+        # data needs, on the ALU pipe
         k2 = timings["mask_fold"]
-        k2["ops"] = k2["blocks"] * per_block
+        k2["ops"] = k2["blocks"] * CHACHA_ALU_OPS_PER_BLOCK
         self.records["k2_bound"] = {
             "blocks": k2["blocks"],
-            "ops_per_block": per_block,
-            "from": "SASS, busier pipe" if self.sass else "xors and rotates",
-            # every op of the block on one 64-lane pipe: the earlier bound
+            "ops_per_block": CHACHA_ALU_OPS_PER_BLOCK,
+            # every op of the block on one 64-lane pipe, the bound's earlier form
             "one_pipe_ops_per_block": CHACHA_OPS_PER_BLOCK,
             "one_pipe_ms": k2["blocks"] * CHACHA_OPS_PER_BLOCK / int_rate * 1e3,
         }
+        if self.sass:  # what the built loop issues on its busier pipe: a diagnostic
+            issued = max(self.sass["alu"], self.sass["fma"])
+            self.records["k2_bound"]["sass_busier_pipe_ms"] = k2["blocks"] * issued / int_rate * 1e3
         for name in ("fold_packed", "fold_planar", "mask_fold"):
             t = timings[name]
             bytes_ms = t["bytes"] / MEM_BYTES_PER_S * 1e3

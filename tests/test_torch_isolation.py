@@ -94,7 +94,6 @@ def test_kernel_build_is_keyed_on_source_and_flags(tmp_path, monkeypatch):
     monkeypatch.setattr(kernels, "CSRC", csrc)
     stem = kernels.library_stem("mask_fold")
     assert stem.startswith("libxn_mask_fold-")
-    assert kernels.library_stem("mask_fold", ("-DXN_CHACHA_UNROLL=10",)) != stem
     out = tmp_path / "build"
     out.mkdir()
     for name in kernels.SOURCES:
@@ -102,8 +101,11 @@ def test_kernel_build_is_keyed_on_source_and_flags(tmp_path, monkeypatch):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     assert kernels.build(out)["mask_fold"] == out / f"{stem}.so"  # built: no nvcc needed
-    with pytest.raises(RuntimeError, match="nvcc not found"):
-        kernels.build(out, extra_flags=("-DXN_CHACHA_UNROLL=10",))
+    with monkeypatch.context() as flags:
+        flags.setattr(kernels, "NVCC_FLAGS", (*kernels.NVCC_FLAGS, "-DXN_CHANGED_FLAG"))
+        assert kernels.library_stem("mask_fold") != stem
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            kernels.build(out)
     (csrc / "mask_fold.cu").write_text((csrc / "mask_fold.cu").read_text() + "\n// edited\n")
     assert kernels.library_stem("mask_fold") != stem
     with pytest.raises(RuntimeError, match="nvcc not found"):

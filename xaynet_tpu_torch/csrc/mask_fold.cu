@@ -48,13 +48,6 @@
 #include <cuda/atomic>
 #include <cuda_runtime.h>
 
-// Double rounds per iteration of the ChaCha20 round loop. Unrolling all
-// ten made the kernel 3% slower on the H100 (device time), though its SASS
-// has as many ALU-pipe instructions per block: the loop stays.
-#ifndef XN_CHACHA_UNROLL
-#define XN_CHACHA_UNROLL 1
-#endif
-
 namespace {
 
 constexpr int kThreads = 256;
@@ -63,7 +56,6 @@ constexpr int kMaxDraw = 4 * kMaxLimbs + 4;
 constexpr int kMaxCandsPerThread = 32;  // one flag bit each
 constexpr int kDefaultSmem = 48 * 1024;
 constexpr int kMaxSmem = 227 * 1024;
-constexpr int kChachaUnroll = XN_CHACHA_UNROLL;
 
 // Look-back status word of a tile: flag in bits 62-63, the trip-local
 // acceptance count in bits 0-61 (the tile's own for an aggregate, up to and
@@ -77,9 +69,12 @@ constexpr long long kPast = 1ll << 60;
 using Atomic64 = cuda::atomic_ref<unsigned long long, cuda::thread_scope_device>;
 
 // The tile's keystream region in words: every block a tile can touch from
-// any start byte, plus one word the unaligned reads may look past the end.
+// any start byte, plus room for one more block. A 4-byte read that ends on
+// the last generated byte also loads the word after it (ks_bytes4), which
+// ks_word maps into that next block's 16 words; the bytes it brings are
+// shifted out or masked off, but the load stays inside the region.
 __host__ __device__ inline int keystream_words(int tile_cands, int bpn) {
-  return ((63 + tile_cands * bpn + 63) >> 6) * 16 + 4;
+  return ((63 + tile_cands * bpn + 63) >> 6) * 16 + 16;
 }
 
 __host__ __device__ inline int smem_bytes(int tile_cands, int bpn) {
@@ -113,7 +108,8 @@ __device__ __forceinline__ void chacha_block(const uint32_t* key, unsigned long 
   uint32_t x4 = key[0], x5 = key[1], x6 = key[2], x7 = key[3];
   uint32_t x8 = key[4], x9 = key[5], x10 = key[6], x11 = key[7];
   uint32_t x12 = j12, x13 = j13, x14 = 0u, x15 = 0u;
-#pragma unroll (kChachaUnroll)
+  // the double-round loop stays rolled: unrolled, K2 ran 3% slower (PERF.md §6)
+#pragma unroll 1
   for (int i = 0; i < 10; ++i) {
     XN_QR(x0, x4, x8, x12)
     XN_QR(x1, x5, x9, x13)

@@ -91,31 +91,30 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
 
 
-def library_stem(name: str, extra_flags: tuple[str, ...] = ()) -> str:
+def library_stem(name: str) -> str:
     """File stem of kernel ``name``'s library: ``libxn_<name>-<digest>``, the
     digest taken over the source and the compiler flags, so a changed
     kernel or a changed flag always builds anew."""
     digest = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
-    digest.update("\0".join((*NVCC_FLAGS, *extra_flags)).encode())
+    digest.update("\0".join(NVCC_FLAGS).encode())
     return f"libxn_{name}-{digest.hexdigest()[:16]}"
 
 
-def build(out_dir: Path | None = None, extra_flags: tuple[str, ...] = ()) -> dict[str, Path]:
+def build(out_dir: Path | None = None) -> dict[str, Path]:
     """Compile every kernel source whose library (keyed on the source's and
     the flags' content, :func:`library_stem`) is missing, one ``nvcc`` per
-    source, all started together; ``extra_flags`` go to ``nvcc`` after
-    :data:`NVCC_FLAGS`. Returns the library paths; each compiler's output
+    source, all started together. Returns the library paths; each compiler's output
     (``-Xptxas -v`` register and spill report) is kept beside its library
     as ``<stem>.log``."""
     out = Path(out_dir) if out_dir is not None else build_dir()
     out.mkdir(parents=True, exist_ok=True)
-    libs = {name: out / f"{library_stem(name, extra_flags)}.so" for name in SOURCES}
+    libs = {name: out / f"{library_stem(name)}.so" for name in SOURCES}
     procs = {}
     for name, src in SOURCES.items():
         lib = libs[name]
         if lib.exists():
             continue
-        cmd = [nvcc_path(), *NVCC_FLAGS, *extra_flags, "-o", f"{lib}.tmp", str(CSRC / src)]
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", f"{lib}.tmp", str(CSRC / src)]
         procs[name] = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )
@@ -156,15 +155,6 @@ def load(name: str) -> ctypes.CDLL:
             _bind(name, lib)
             _LIBS[name] = lib
         return lib
-
-
-def use_library(name: str, path: Path) -> None:
-    """Make the wrappers launch kernel ``name`` from the library at ``path``
-    (a build with other flags, to compare two builds in one process)."""
-    lib = ctypes.CDLL(str(path))
-    _bind(name, lib)
-    with _LIB_LOCK:
-        _LIBS[name] = lib
 
 
 def _check(rc: int, what: str, lib: ctypes.CDLL) -> None:

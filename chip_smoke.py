@@ -20,15 +20,32 @@ Builds the two hand-written CUDA kernels from ``xaynet_tpu_torch/csrc`` with
   there too. K2's bound counts the xors and rotates its ChaCha20 blocks
   need, on the ALU pipe; the built keystream loop's instructions per pipe
   (from its SASS) are recorded beside it.
+- **Phase P** holds the Update fold's streaming pipeline
+  (``parallel/streaming.py``) on the card at small sizes, shipped config:
+  (p1) streamed and plain sequential folds of the same batches give
+  byte-identical aggregates and model counts, equal to big-int sums,
+  packed and planar staging; (p2) ``staging_buffers=4, dispatch_ahead=3``
+  with a jittered fold seam over 32 batches: each batch folds once, in
+  order, nothing stays in flight and every ring buffer comes back; (p3) a
+  ``streaming.fold`` fault injected once degrades the pipeline to the
+  synchronous path and leaves the aggregate byte-identical; (p4) a fault on
+  both tries (the fault site, then the retry's upload) poisons it, and every
+  later drain and submit raises ``StreamingError``.
 - **Phase B** drives one PET round through the port's entry points at the
   size of ResNet-50 (25,000,000 parameters), the shipped mask config
   prime/f32/b0/m3, 16 update participants (each masks on the card: mask
   derived by K2, weights added by K1), ``StagedAggregator`` with batch 8 and
-  packed staging (two K1 flushes), ``finalize``, the Sum2 ``sum_masks`` over
+  packed staging: each flush submits into the streaming pipeline (two K1
+  flushes, folded by its worker on the accumulator's stream while the next
+  updates are masked and staged), ``finalize_inplace`` (the drain: the
+  round's only synchronization of the folds), the Sum2 ``sum_masks`` over
   the 16 seeds (K2), ``validate_unmasking`` and ``unmask_array``. It checks
   the aggregate against python big-int sums at 2,048 positions, the unit
   part and model count, the decoded model against the f32 mean within
   16/exp_shift + 1e-6, and that the launch counters show every kernel ran.
+  It reports each flush's stage and fold seconds, the pipeline's overlap
+  ratio, K1 packed's device time inside the pipeline and what pinning the
+  staging ring cost.
 
 Prints what it found on earlier lines; on its last lines the card's name
 and power limit, the kernel table as one JSON object, and
@@ -172,6 +189,10 @@ class Smoke:
     def sync(self) -> None:
         if self.cuda:
             self.torch.cuda.synchronize()
+
+    def sync_current_stream(self) -> None:
+        if self.cuda:
+            self.torch.cuda.current_stream().synchronize()
 
     def check(self, ok: bool, what: str) -> None:
         self.records["checks"].append({"check": what, "ok": bool(ok)})
@@ -496,6 +517,141 @@ class Smoke:
             log(f"[phase A] {name} at main shape {t['shape']}: {t['ms']:.3f} ms (plain {t['plain_ms']:.1f} ms)")
         return timings
 
+    # -- phase P: the streaming pipeline ------------------------------------
+
+    def phase_pipeline(self) -> dict:
+        """The Update fold's streaming pipeline on the card (checks (p1)-(p4),
+        module docstring), on the shipped config, each against the plain
+        sequential fold of the same batches on the CPU."""
+        from xaynet_tpu_torch.core.mask.config import (
+            BoundType, DataType, GroupType, MaskConfig, ModelType,
+        )  # fmt: skip
+        from xaynet_tpu_torch.ops import limbs
+        from xaynet_tpu_torch.parallel.aggregator import DeviceAggregator
+        from xaynet_tpu_torch.parallel.streaming import StreamingAggregator, StreamingError
+        from xaynet_tpu_torch.resilience import faults
+
+        cfg = MaskConfig(GroupType.PRIME, DataType.F32, BoundType.B0, ModelType.M3)
+        order = cfg.order
+        found: dict = {}
+
+        def batches(n: int, count: int, k: int) -> list[np.ndarray]:
+            """``count`` wire-layout batches ``uint32[k, n, L]``."""
+            return [np.ascontiguousarray(self.elements(order, 2, (k, n)).transpose(0, 2, 1))
+                    for _ in range(count)]
+
+        def plain(n: int, wires: list) -> DeviceAggregator:
+            ref = DeviceAggregator(cfg, n, device="cpu")
+            for w in wires:
+                ref.add_batch(w)
+            return ref
+
+        def streamed(n: int, wires: list, **kw):
+            agg = DeviceAggregator(cfg, n, device=self.dev)
+            return agg, StreamingAggregator(agg, max_batch=wires[0].shape[0], **kw)
+
+        def same(agg, ref, what: str) -> None:
+            self.check(np.array_equal(agg.snapshot(), ref.snapshot())
+                       and agg.nb_models == ref.nb_models, what)
+
+        def poisoned(call, what: str) -> None:
+            try:
+                call()
+            except StreamingError:
+                self.check(True, what)
+                return
+            self.check(False, what)
+
+        # (p1) streamed == plain sequential == big-int sums, both layouts
+        n, k, count = 1_000_003, 8, 6
+        wires = batches(n, count, k)
+        ref = plain(n, wires)
+        idx = np.sort(self.rng.choice(n, size=2048, replace=False))
+        want = [0] * len(idx)
+        for w in wires:
+            for row in w:
+                want = [(a + b) % order for a, b in zip(want, limbs.limbs_to_ints(row[idx]))]
+        for packed in (True, False):
+            kind = "packed" if packed else "planar"
+            agg, stream = streamed(n, wires, packed=packed)
+            self.check(stream._packed == packed, f"(p1) {kind} staging in use")
+            for w in wires:
+                stream.submit_batch(w)
+            stream.drain()
+            same(agg, ref, f"(p1) {kind}: streamed == plain sequential fold, "
+                           f"{count} batches of {k} x {n}, equal nb_models")
+            self.check(limbs.limbs_to_ints(agg.snapshot()[idx]) == want,
+                       f"(p1) {kind}: aggregate == big-int sums at {len(idx)} positions")
+            stream.close()
+
+        # (p2) dispatch-ahead stress with a jittered fold seam
+        n, k, count = 262_147, 4, 32
+        wires = batches(n, count, k)
+        ref = plain(n, wires)
+        agg, stream = streamed(n, wires, staging_buffers=4, dispatch_ahead=3)
+        real_fold = agg._packed_fold_fn
+        jitter = iter(self.rng.uniform(0.0, 0.004, size=count))
+        sizes, in_flight = [], []
+
+        def slow_fold(acc, staged):
+            time.sleep(float(next(jitter)))
+            sizes.append(int(staged.shape[0]))
+            in_flight.append(stream.in_flight_models)
+            return real_fold(acc, staged)
+
+        agg._packed_fold_fn = slow_fold
+        for w in wires:
+            stream.submit_batch(w)
+        stream.drain()
+        same(agg, ref, f"(p2) depth 3, 4 buffers, jittered seam: streamed == plain over "
+                       f"{count} batches of {k} x {n}")
+        self.check(sizes == [k] * count, "(p2) every batch folded once, in order")
+        self.check(stream.in_flight_models == 0
+                   and all(r.in_use == 0 for r in stream._rings.values()),
+                   "(p2) nothing in flight, every ring buffer back")
+        found["p2_max_in_flight_models"] = max(in_flight)
+        found["p2_ring_buffers"] = stream._rings["packed"].allocated
+        stream.close()
+
+        # (p3) one streaming.fold fault: degrade, stay exact
+        n, k, count = 65_537, 4, 6
+        wires = batches(n, count, k)
+        ref = plain(n, wires)
+        faults.install_plan(faults.FaultPlan.parse("streaming.fold:error,nth=2"))
+        try:
+            agg, stream = streamed(n, wires)
+            for w in wires:
+                stream.submit_batch(w)
+            stream.drain()
+            self.check(stream.degraded, "(p3) a streaming.fold fault degraded the pipeline")
+            same(agg, ref, "(p3) degraded pipeline: aggregate == plain sequential fold")
+            stream.close()
+
+            # (p4) the fault site, then the retry's upload: poisoned for good
+            faults.install_plan(faults.FaultPlan.parse("streaming.fold:error,nth=2"))
+            agg, stream = streamed(n, wires)
+            stream.submit_batch(wires[0])
+            stream.drain()
+
+            def failed_copy(payload):
+                raise RuntimeError("host-to-device copy failed (injected)")
+
+            stream._upload = failed_copy
+            stream.submit_batch(wires[1])
+            poisoned(stream.drain, "(p4) fault on both tries: drain raises StreamingError")
+            poisoned(stream.drain, "(p4) a later drain raises StreamingError again")
+            poisoned(lambda: stream.submit_batch(wires[2]), "(p4) a later submit raises")
+            self.check(stream.degraded and agg.nb_models == k and stream.in_flight_models == 0,
+                       "(p4) the lost batch left flight uncounted")
+            stream.close()
+        finally:
+            faults.clear_plan()
+        self.sync()
+        log(f"[phase P] pipeline checks (p1)-(p4) passed; (p2) producer ran up to "
+            f"{found['p2_max_in_flight_models']} models ahead of the folds, "
+            f"{found['p2_ring_buffers']} ring buffers")
+        return found
+
     # -- phase B: the main path ---------------------------------------------
 
     def phase_b(self) -> dict:
@@ -519,26 +675,42 @@ class Smoke:
         sampled, units = [], []
         wsum = np.zeros(length, dtype=np.float64)
 
+        torch = self.torch
         kernels.reset_launches()
         t_round = time.perf_counter()
         agg = StagedAggregator(pair, length, batch_size=args.batch, device=self.dev)
+        # K1 packed's device time inside the pipeline: CUDA events around
+        # the fold seam, on the stream the worker folds on
+        fold_events = []
+        pipeline_fold = agg._device._packed_fold_fn
+
+        def timed_fold(acc, staged):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            pipeline_fold(acc, staged)
+            end.record()
+            fold_events.append((start, end))
+
+        if self.cuda:
+            agg._device._packed_fold_fn = timed_fold
         for i in range(n_up):
             weights = rng.uniform(-0.9, 0.9, length).astype(np.float32)
             wsum += weights
             t = time.perf_counter()
             obj = masking.mask_update(seeds[i], scalar, weights, pair, device=self.dev)
-            self.sync()
+            self.sync_current_stream()  # the folds in flight on their own stream run on
             walls["participants_mask"] += time.perf_counter() - t
             sampled.append(obj.vect.data[idx].copy())
             units.append(obj.unit.data.copy())
             t = time.perf_counter()
             agg.validate_aggregation(obj)
-            agg.aggregate(obj)
-            self.sync()
+            agg.aggregate(obj)  # every batch-th update: flush submits, does not fold
             walls["update_aggregate"] += time.perf_counter() - t
             del obj, weights
+        ring = agg._stream._rings.get("packed")
+        pipeline = agg._stream
         t = time.perf_counter()
-        final = agg.finalize()
+        final = agg.finalize_inplace()  # the drain
         self.sync()
         walls["finalize"] = time.perf_counter() - t
         t = time.perf_counter()
@@ -584,9 +756,57 @@ class Smoke:
         log(f"[phase B] round of {n_up} updates x {length} params: checks (a)-(d) passed; "
             f"decode max err {err:.3e} <= {tol:.3e}")
         log(f"[phase B] launches {launches}")
-        log("[phase B] wall seconds (synchronized): "
+        log("[phase B] wall seconds: "
             + ", ".join(f"{k} {v:.3f}" for k, v in walls.items()))
-        return {"walls": walls, "launches": launches, "decode_max_err": err}
+        stream = self.pipeline_record(pipeline, ring, fold_events)
+        return {"walls": walls, "launches": launches, "decode_max_err": err, "pipeline": stream}
+
+    def pipeline_record(self, pipeline, ring, fold_events) -> dict:
+        """What the pipeline's last drain window saw in Phase B: per flush,
+        the stage leg (packing into the ring, on the caller's thread) and
+        the fold leg (the worker: upload out of the pinned ring and K1's
+        launch, until the copy completed), how long after ``flush``
+        returned the fold leg ended, K1 packed's device time (CUDA events),
+        the overlap ratio, and the staging ring's buffers, how many came
+        from the process's pinned pool and what pinning the others cost."""
+        import resource
+
+        window = pipeline.last_window or {}
+        folds = {seq: (s, e) for seq, s, e in window.get("fold", [])}
+        flushes = []
+        for i, (seq, s, e) in enumerate(window.get("stage", [])):
+            fs, fe = folds.get(seq, (None, None))
+            flushes.append({
+                "batch": seq, "stage_s": e - s,
+                "fold_s": None if fs is None else fe - fs,
+                "fold_ended_after_submit_s": None if fe is None else fe - e,
+                "k1_device_ms": (fold_events[i][0].elapsed_time(fold_events[i][1])
+                                 if i < len(fold_events) else None),
+            })  # fmt: skip
+        memlock = resource.getrlimit(resource.RLIMIT_MEMLOCK)[0]
+        record = {
+            "flushes": flushes,
+            "overlap_ratio": window.get("overlap_ratio"),
+            "window_wall_s": window.get("wall_seconds"),
+            "stage_s": window.get("stage_seconds"),
+            "fold_s": window.get("fold_seconds"),
+            "ring_buffers": None if ring is None else ring.allocated,
+            "ring_bytes": None if ring is None else ring.nbytes,
+            "ring_pin_s": None if ring is None else ring.pin_seconds,
+            "ring_reused": None if ring is None else ring.reused,
+            "rlimit_memlock": None if memlock == resource.RLIM_INFINITY else memlock,
+        }
+        for f in flushes:
+            log(f"[phase B] flush {f['batch']}: stage {f['stage_s']:.3f} s, fold leg "
+                f"{f['fold_s']:.3f} s, ended {f['fold_ended_after_submit_s']:.3f} s after "
+                f"submit returned; K1 packed {f['k1_device_ms'] or float('nan'):.3f} ms on device")
+        ratio = record["overlap_ratio"]
+        log(f"[phase B] pipeline overlap ratio {'none' if ratio is None else f'{ratio:.3f}'} "
+            f"(window {record['window_wall_s']:.3f} s); staging ring {record['ring_buffers']} "
+            f"buffer(s), {record['ring_bytes']} bytes, {record['ring_reused']} reused from the "
+            f"process's pinned pool, new ones pinned in {record['ring_pin_s']:.3f} s (RLIMIT_MEMLOCK "
+            f"{record['rlimit_memlock'] or 'unlimited'})")
+        return record
 
     # -- device kernel times on the main path -------------------------------
 
@@ -704,6 +924,7 @@ def main() -> int:
         smoke.phase_a_mask_fold()
         smoke.phase_a_look_back()
         timings = smoke.phase_a_main_shapes()
+        pipeline = smoke.phase_pipeline()
         result = smoke.phase_b()
     except Exception as exc:  # every phase failure ends the run without a result
         traceback.print_exc()
@@ -716,7 +937,8 @@ def main() -> int:
         except Exception as exc:  # an extra reading, not a phase: record why it is missing
             smoke.records["profile"] = f"unavailable: {type(exc).__name__}: {exc}"
             log(f"[profile] unavailable: {exc}")
-    smoke.records.update(timings=timings, round=result, seconds=time.perf_counter() - t0)
+    smoke.records.update(timings=timings, pipeline=pipeline, round=result,
+                         seconds=time.perf_counter() - t0)
     if not smoke.cuda:
         _write_records(smoke.records)
         log(f"chip_smoke: rehearsal on {args.device} passed in {time.perf_counter() - t0:.1f} s")

@@ -7,9 +7,15 @@ also runs where JAX is not installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 (``chip_smoke.py`` runs the same comparisons at the main path's sizes.)
+The streaming pipeline's card cases (the dispatch-ahead stress, the
+degrade-once fault and the fault on both tries) use the same seams as
+``chip_smoke.py``'s phase P: the accumulator's fold seam and the
+``streaming.fold`` fault site.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import pytest
@@ -19,6 +25,9 @@ from xaynet_tpu_torch.core.crypto.prng import StreamSampler
 from xaynet_tpu_torch.core.mask.config import BoundType, DataType, GroupType, MaskConfig, ModelType
 from xaynet_tpu_torch.ops import chacha, kernels, limbs
 from xaynet_tpu_torch.ops.fold import to_device_u32, widen
+from xaynet_tpu_torch.parallel.aggregator import DeviceAggregator
+from xaynet_tpu_torch.parallel.streaming import StreamingAggregator, StreamingError
+from xaynet_tpu_torch.resilience import faults
 
 pytestmark = pytest.mark.cuda
 
@@ -188,3 +197,168 @@ def test_launch_counters_count_kernel_launches(cuda):
     kws = to_device_u32(np.zeros((2, 8), np.uint32), cuda)
     kernels.mask_fold(acc, kws, [0, 5], 64, order)
     assert kernels.LAUNCHES == {"fold_planar": 1, "fold_packed": 0, "mask_fold": 2}
+
+
+PIPE_CFG = MaskConfig(GroupType.PRIME, DataType.F32, BoundType.B0, ModelType.M3)
+
+
+def _wire_batches(n: int, count: int, k: int, seed: int) -> list[np.ndarray]:
+    return [np.ascontiguousarray(_elements(PIPE_CFG.order, (k, n), seed + i).transpose(0, 2, 1))
+            for i in range(count)]
+
+
+def _plain_fold(n: int, wires: list) -> DeviceAggregator:
+    ref = DeviceAggregator(PIPE_CFG, n, device="cpu")
+    for w in wires:
+        ref.add_batch(w)
+    return ref
+
+
+@pytest.fixture
+def no_fault_plan():
+    yield
+    faults.clear_plan()
+
+
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "planar"])
+def test_pipeline_dispatch_ahead_stress(cuda, packed):
+    """Depth 3, four ring buffers, a jittered fold seam, 32 batches: the
+    pinned ring's buffers are reused only after their copies completed, so
+    the aggregate equals the plain sequential fold; each batch folds once
+    and every buffer comes back."""
+    n, k, count = 65_539, 4, 32
+    wires = _wire_batches(n, count, k, seed=100)
+    agg = DeviceAggregator(PIPE_CFG, n, device=cuda)
+    stream = StreamingAggregator(agg, staging_buffers=4, dispatch_ahead=3, max_batch=k,
+                                 packed=packed)
+    name = "_packed_fold_fn" if packed else "_fold_fn"
+    real_fold = getattr(agg, name)
+    jitter = iter(np.random.default_rng(3).uniform(0.0, 0.004, size=count))
+    sizes = []
+
+    def slow_fold(acc, staged):
+        time.sleep(float(next(jitter)))
+        sizes.append(int(staged.shape[0]))
+        return real_fold(acc, staged)
+
+    setattr(agg, name, slow_fold)
+    for w in wires:
+        stream.submit_batch(w)
+    stream.drain()
+    ref = _plain_fold(n, wires)
+    assert np.array_equal(agg.snapshot(), ref.snapshot())
+    assert agg.nb_models == ref.nb_models == k * count
+    assert sizes == [k] * count
+    assert stream.in_flight_models == 0
+    assert all(ring.in_use == 0 for ring in stream._rings.values())
+    stream.close()
+
+
+def test_pipeline_fault_degrades_once_and_stays_exact(cuda, no_fault_plan):
+    n, k = 32_771, 4
+    wires = _wire_batches(n, 6, k, seed=200)
+    faults.install_plan(faults.FaultPlan.parse("streaming.fold:error,nth=2"))
+    agg = DeviceAggregator(PIPE_CFG, n, device=cuda)
+    stream = StreamingAggregator(agg, max_batch=k)
+    for w in wires:
+        stream.submit_batch(w)
+    stream.drain()
+    assert stream.degraded
+    ref = _plain_fold(n, wires)
+    assert np.array_equal(agg.snapshot(), ref.snapshot()) and agg.nb_models == ref.nb_models
+    stream.close()
+
+
+def test_pipeline_fault_on_both_tries_poisons(cuda, no_fault_plan):
+    n, k = 32_771, 4
+    wires = _wire_batches(n, 3, k, seed=300)
+    faults.install_plan(faults.FaultPlan.parse("streaming.fold:error,nth=2"))
+    agg = DeviceAggregator(PIPE_CFG, n, device=cuda)
+    stream = StreamingAggregator(agg, max_batch=k)
+    stream.submit_batch(wires[0])
+    stream.drain()
+
+    def failed_copy(payload):
+        raise RuntimeError("host-to-device copy failed (injected)")
+
+    stream._upload = failed_copy
+    stream.submit_batch(wires[1])
+    for _ in range(2):
+        with pytest.raises(StreamingError, match="copy failed"):
+            stream.drain()
+    with pytest.raises(StreamingError):
+        stream.submit_batch(wires[2])
+    assert stream.degraded and agg.nb_models == k and stream.in_flight_models == 0
+    stream.close()
+
+
+def test_pipeline_fold_error_after_launch_poisons_without_retry(cuda):
+    """K1 ran, then the seam raised: the batch may be in ``acc``, so it is
+    not retried (a retry would fold it twice)."""
+    n, k = 32_771, 4
+    wires = _wire_batches(n, 2, k, seed=400)
+    agg = DeviceAggregator(PIPE_CFG, n, device=cuda)
+    stream = StreamingAggregator(agg, max_batch=k)
+    real_fold, calls = agg._packed_fold_fn, []
+
+    def fold_then_raise(acc, staged):
+        calls.append(1)
+        real_fold(acc, staged)
+        raise RuntimeError("K1 fold (packed) failed (injected after the launch)")
+
+    agg._packed_fold_fn = fold_then_raise
+    stream.submit_batch(wires[0])
+    with pytest.raises(StreamingError, match="after the launch"):
+        stream.drain()
+    assert calls == [1] and not stream.degraded and agg.nb_models == 0
+    stream.close()
+
+
+def test_pipeline_pins_each_buffer_once_per_process(cuda):
+    """A closed pipeline's pinned buffers go to the process-wide pool; the
+    next round's ring of the same shape reuses them without pinning, and
+    its aggregate is exact. Each batch drains before the next, so each
+    round's ring holds one buffer (a producer that runs ahead adds more)."""
+    n, k = 40_961, 4
+    wires = _wire_batches(n, 4, k, seed=500)
+    rings = []
+    for _ in range(2):
+        agg = DeviceAggregator(PIPE_CFG, n, device=cuda)
+        stream = StreamingAggregator(agg, max_batch=k)
+        for w in wires:
+            stream.submit_batch(w)
+            stream.drain()
+        assert np.array_equal(agg.snapshot(), _plain_fold(n, wires).snapshot())
+        rings.append(stream._rings["packed"])
+        stream.close()
+    first, second = rings
+    assert first.allocated == first.reused + 1 == 1 and first.pin_seconds > 0.0
+    assert second.allocated == second.reused == 1 and second.pin_seconds == 0.0
+
+
+def test_pipeline_closes_after_poison_with_its_copies_done(cuda):
+    """A fold seam that raises (as a failed launch does) poisons the
+    pipeline; ``close`` still waits out the fold stream and hands the ring
+    buffers back, and a new pipeline reusing them folds exactly."""
+    n, k = 32_771, 4
+    wires = _wire_batches(n, 2, k, seed=600)
+    agg = DeviceAggregator(PIPE_CFG, n, device=cuda)
+    stream = StreamingAggregator(agg, max_batch=k)
+
+    def failed_launch(acc, staged):
+        raise RuntimeError("K1 launch failed (injected)")
+
+    agg._packed_fold_fn = failed_launch
+    stream.submit_batch(wires[0])
+    with pytest.raises(StreamingError, match="injected"):
+        stream.drain()
+    assert stream._rings["packed"].in_use == 0
+    stream.close()
+    agg = DeviceAggregator(PIPE_CFG, n, device=cuda)
+    stream = StreamingAggregator(agg, max_batch=k)
+    for w in wires:
+        stream.submit_batch(w)
+    stream.drain()
+    assert stream._rings["packed"].reused >= 1
+    assert np.array_equal(agg.snapshot(), _plain_fold(n, wires).snapshot())
+    stream.close()

@@ -6,7 +6,9 @@
 - the kernel loader imports where there is no ``nvcc``, and building then
   raises instead of falling back; a built library is reused only for the
   same source and flags;
-- entry points given no device run on CUDA, so without one they raise;
+- entry points given no device run on CUDA, so without one they raise,
+  the streaming pipeline's included, and on a CPU device the pipeline
+  runs without touching CUDA (nothing is pinned);
 - a wrapper handed a tensor that is neither on the CPU nor on a CUDA
   device raises (only CPU tensors take the plain versions).
 """
@@ -30,6 +32,7 @@ from xaynet_tpu_torch.core.mask.config import BoundType, DataType, GroupType, Ma
 from xaynet_tpu_torch.core.mask.model import Scalar
 from xaynet_tpu_torch.ops import kernels, masking
 from xaynet_tpu_torch.parallel.aggregator import DeviceAggregator
+from xaynet_tpu_torch.parallel.streaming import StreamingAggregator
 from xaynet_tpu_torch.server.aggregation import StagedAggregator
 
 REPO = Path(__file__).resolve().parents[1]
@@ -123,6 +126,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     calls = [
         lambda: DeviceAggregator(PAIR.vect, 8),
         lambda: StagedAggregator(PAIR, 8),
+        lambda: StagedAggregator(PAIR, 8, batch_size=2, packed_staging=False),
         lambda: masking.derive_mask_limbs(seed, 8, PAIR),
         lambda: masking.sum_masks([seed], 8, PAIR),
         lambda: masking.mask_update(seed, Scalar(Fraction(1)), np.zeros(8, np.float32), PAIR),
@@ -135,6 +139,22 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
 def test_cpu_device_runs_when_asked(no_cuda):
     agg = StagedAggregator(PAIR, 8, device="cpu")
     assert agg.kernel_used == "plain"
+
+
+def test_pipeline_on_cpu_device_needs_no_cuda(no_cuda, monkeypatch):
+    """The pipeline on a CPU device stages into plain host buffers: it never
+    reaches the CUDA runtime (no pinning), and folds with the plain K1."""
+
+    def no_cudart():
+        raise AssertionError("the CPU path reached the CUDA runtime")
+
+    monkeypatch.setattr(torch.cuda, "cudart", no_cudart)
+    agg = DeviceAggregator(PAIR.vect, 8, device="cpu")
+    stream = StreamingAggregator(agg, max_batch=2)
+    stream.submit_batch(np.zeros((2, 8, agg.n_limbs), np.uint32))
+    stream.drain()
+    stream.close()
+    assert agg.nb_models == 2 and agg.stream is None
 
 
 def test_wrappers_refuse_non_cpu_non_cuda_tensors():

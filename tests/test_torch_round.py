@@ -10,6 +10,12 @@ fold in batches of two through ``xaynet_tpu.server.aggregation.StagedAggregator
 and the mask sum are exact modular arithmetic, and the decode is the same
 double-double arithmetic on both sides.
 
+Unmask runs on the device view (``finalize_inplace``) in both packages;
+``finalize`` gathers a host ``Aggregation`` in both. The pipeline half
+hands the round to Unmask with the drain deferred
+(``finalize_inplace(defer_drain=True)``) and folds a pre-aggregated
+partial (``fold_partial``) in both packages, and compares.
+
 The state-carry half restores a JAX ``snapshot_state()`` (and a
 ``ShardedAggregator.snapshot()``) into the port through
 ``xaynet_tpu_torch.convert``, folds the rest of the round there, and
@@ -25,7 +31,7 @@ import pytest
 import torch
 
 from xaynet_tpu.core.mask.config import BoundType, DataType, GroupType, MaskConfig, ModelType
-from xaynet_tpu.core.mask.masking import Masker
+from xaynet_tpu.core.mask.masking import Aggregation, Masker
 from xaynet_tpu.core.mask.model import Scalar
 from xaynet_tpu.core.mask.object import MaskObject, MaskUnit, MaskVect
 from xaynet_tpu.core.mask.seed import MaskSeed
@@ -33,6 +39,7 @@ from xaynet_tpu.ops import masking_jax
 from xaynet_tpu.parallel.aggregator import ShardedAggregator
 from xaynet_tpu.server.aggregation import StagedAggregator
 from xaynet_tpu_torch import convert
+from xaynet_tpu_torch.core.mask.masking import AggregationError
 from xaynet_tpu_torch.ops import masking as port_masking
 from xaynet_tpu_torch.server.aggregation import StagedAggregator as PortStagedAggregator
 
@@ -90,12 +97,76 @@ def test_round_matches_jax_package(round_inputs, packed):
     assert np.array_equal(port_vect, mask.vect.data)
     assert np.array_equal(port_unit, mask.unit.data)
 
-    view = agg.finalize()
+    view = agg.finalize_inplace()
     port_mask = convert.mask_object(mask)
     view.validate_unmasking(port_mask)
     got = view.unmask_array(port_mask)
     assert np.array_equal(got, model)
     assert float(np.max(np.abs(got - weights.mean(axis=0)))) <= K / CFG.exp_shift + 1e-6
+
+
+def test_finalize_gathers_host_aggregation_as_jax_package(round_inputs):
+    """``finalize()`` drains and gathers the aggregate into a host
+    ``Aggregation`` in both packages: same object, same count, same model."""
+    pair, _weights, seeds, updates = round_inputs
+    _state, mask, model = _jax_round(pair, updates, seeds)
+    jax_agg = StagedAggregator(pair, N, device=True, batch_size=2, kernel="pallas-interpret")
+    port = PortStagedAggregator(convert.config_pair(pair), N, batch_size=2, device=CPU)
+    for obj in updates:
+        jax_agg.aggregate(obj)
+        port.aggregate(convert.mask_object(obj))
+    want, got = jax_agg.finalize(), port.finalize()
+    assert got.nb_models == want.nb_models == K
+    assert np.array_equal(got.object.vect.data, want.object.vect.data)
+    assert np.array_equal(got.object.unit.data, want.object.unit.data)
+    assert np.array_equal(got.unmask_array(convert.mask_object(mask)), model)
+
+
+def test_round_with_deferred_drain_matches_jax_package(round_inputs):
+    """The pipeline rides into Unmask still open in both packages: the
+    views count every update before the drain, and unmask to the same
+    model."""
+    pair, _weights, seeds, updates = round_inputs
+    _state, mask, model = _jax_round(pair, updates, seeds)
+    jax_agg = StagedAggregator(pair, N, device=True, batch_size=2, kernel="pallas-interpret")
+    port = PortStagedAggregator(convert.config_pair(pair), N, batch_size=2, device=CPU)
+    for obj in updates:
+        jax_agg.aggregate(obj)
+        port.aggregate(convert.mask_object(obj))
+    jax_view = jax_agg.finalize_inplace(defer_drain=True)
+    view = port.finalize_inplace(defer_drain=True)
+    assert view.nb_models == jax_view.nb_models == K
+    port_mask = convert.mask_object(mask)
+    view.validate_unmasking(port_mask)
+    got = view.unmask_array(port_mask)
+    assert np.array_equal(got, jax_view.unmask_array(mask))
+    assert np.array_equal(got, model)
+    assert view.nb_models == K
+
+
+def test_fold_partial_matches_jax_package(round_inputs):
+    """Two updates fold one by one, the other three arrive as one partial
+    aggregate of three members; both packages count five models and hold
+    the same aggregate."""
+    pair, _weights, _seeds, updates = round_inputs
+    partial = Aggregation(pair, N)
+    for obj in updates[2:]:
+        partial.aggregate(obj)
+    jax_agg = StagedAggregator(pair, N, device=True, batch_size=2, kernel="pallas-interpret")
+    port = PortStagedAggregator(convert.config_pair(pair), N, batch_size=2, device=CPU)
+    port_partial = convert.mask_object(partial.object)
+    for obj in updates[:2]:
+        jax_agg.aggregate(obj)
+        port.aggregate(convert.mask_object(obj))
+    jax_agg.validate_partial(partial.object, 3)
+    port.validate_partial(port_partial, 3)
+    jax_agg.fold_partial(partial.object, 3)
+    port.fold_partial(port_partial, 3)
+    want, got = jax_agg.snapshot_state(), port.snapshot_state()
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+    assert got[2] == want[2] == K
+    with pytest.raises(AggregationError, match="EmptyPartial"):
+        port.fold_partial(port_partial, 0)
 
 
 def test_round_resumes_from_jax_snapshot(round_inputs):
@@ -122,7 +193,7 @@ def test_round_resumes_from_jax_snapshot(round_inputs):
     unit, vect = masking_jax.sum_masks(seeds, N, pair, kernel="host-threaded")
     mask = MaskObject(MaskVect(pair.vect, np.asarray(vect)), MaskUnit(pair.unit, np.asarray(unit)))
     want_model = jax_agg.finalize_inplace().unmask(mask)
-    got_model = port.finalize().unmask(convert.mask_object(mask))
+    got_model = port.finalize_inplace().unmask(convert.mask_object(mask))
     assert list(got_model) == list(want_model)
 
 

@@ -19,10 +19,12 @@ overrides it), named by a digest of their source and compiler flags.
 Each wrapper decides by the device of its tensors: a CPU tensor runs the
 plain torch version beside it (``*_plain``), a CUDA tensor launches the
 kernel or raises. There is no fallback from the kernel to the plain
-version. ``LAUNCHES`` counts the kernel launches of each wrapper: K1 one
-per batch fold, K2 one per seed and trip (a trip is one pass over a
-provisioned run of keystream candidates; a seed takes one trip except with
-probability < 2^-60, or when a caller shrinks ``chunk_candidates``).
+version. ``LAUNCHES`` counts the kernel launches of each wrapper, under a
+lock (the streaming pipeline's fold worker launches K1 from its own
+thread): K1 one per batch fold, K2 one per seed and trip (a trip is one
+pass over a provisioned run of keystream candidates; a seed takes one
+trip except with probability < 2^-60, or when a caller shrinks
+``chunk_candidates``).
 """
 
 from __future__ import annotations
@@ -59,6 +61,7 @@ NVCC_FLAGS = (
 )  # fmt: skip
 
 LAUNCHES = {"fold_planar": 0, "fold_packed": 0, "mask_fold": 0}
+_LAUNCHES_LOCK = threading.Lock()
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LIB_LOCK = threading.Lock()
@@ -66,8 +69,14 @@ _ORDER_BUFFERS: dict[tuple, tuple] = {}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LAUNCHES_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def _launched(name: str) -> None:
+    with _LAUNCHES_LOCK:
+        LAUNCHES[name] += 1
 
 
 # --- build and load --------------------------------------------------------
@@ -263,7 +272,7 @@ def fold_planar(acc: torch.Tensor, stack: torch.Tensor, order: int) -> torch.Ten
             k, n_limb, n, _kbits(k), pow2, _stream(acc.device),
         )  # fmt: skip
     _check(rc, "K1 fold (planar)", lib)
-    LAUNCHES["fold_planar"] += 1
+    _launched("fold_planar")
     return acc
 
 
@@ -288,7 +297,7 @@ def fold_packed(acc: torch.Tensor, packed: torch.Tensor, order: int) -> torch.Te
             k, bpn, n_limb, n, _kbits(k), pow2, _stream(acc.device),
         )  # fmt: skip
     _check(rc, "K1 fold (packed)", lib)
-    LAUNCHES["fold_packed"] += 1
+    _launched("fold_packed")
     return acc
 
 
@@ -428,7 +437,7 @@ def mask_fold(
                     base.data_ptr() + 8 * b, ends.data_ptr() + 8 * b, scratch.data_ptr(), stream,
                 )  # fmt: skip
                 _check(rc, "K2 mask fold", lib)
-                LAUNCHES["mask_fold"] += 1
+                _launched("mask_fold")
             done = base.cpu().tolist()  # the one sync of a trip
             pending = [b for b in pending if done[b] < count]
             t += 1

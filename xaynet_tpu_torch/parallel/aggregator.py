@@ -7,11 +7,20 @@ this package). The running aggregate is a device-resident planar
 batches by kernel K1 (``ops.fold``), planar or packed byte-planar, and the
 Unmask subtract runs against it in place of a host gather.
 
+On CUDA the accumulator belongs to one stream of its own (``stream``):
+every fold runs there, whichever thread calls it, so the streaming
+pipeline's fold worker and the caller's thread never mutate ``acc``
+unordered. Work the caller made on its own stream is ordered before a fold
+that reads it (:meth:`on_stream`), and readers of ``acc`` wait for the
+folds queued before them.
+
 The reference analogue is rust/xaynet-server/src/state_machine/phases/
 update.rs:119-152, one sequential big-int pass per accepted update.
 """
 
 from __future__ import annotations
+
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -37,19 +46,53 @@ class DeviceAggregator:
 
     ``kernel_used`` reports what folds the batches: ``"cuda"`` (kernel K1)
     on a CUDA device, ``"plain"`` (its plain torch version) on the CPU.
+    ``_fold_fn`` / ``_packed_fold_fn`` are the fold seams (planar and
+    packed batches): every fold goes through them, and a test may replace
+    one on an instance, as with the JAX package's. Both fold in place.
     """
 
     def __init__(self, config: MaskConfig, model_length: int, device=None):
         self.device = resolve_device(device)
         self.config = config
         self.model_length = model_length
+        # one device: no mesh padding (the JAX package pads to the mesh size)
+        self.padded_length = model_length
         self.order = config.order
         self.n_limbs = host_limbs.n_limbs_for_order(config.order)
         # the single-source-of-truth pack width (ops/limbs.wire_width_for)
         self.packed_width = host_limbs.wire_width_for(self.order)
         self.kernel_used = "cuda" if self.device.type == "cuda" else "plain"
-        self.acc = zeros_u32((self.n_limbs, model_length), self.device)
-        self.nb_models = 0
+        self.stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        self.reset()
+
+    def _fold_fn(self, acc: torch.Tensor, staged: torch.Tensor) -> None:
+        fold_planar_batch(acc, staged, self.order)
+
+    def _packed_fold_fn(self, acc: torch.Tensor, staged: torch.Tensor) -> None:
+        fold_packed_batch(acc, staged, self.n_limbs, self.order)
+
+    @contextmanager
+    def on_stream(self, *inputs: torch.Tensor):
+        """Run the enclosed work on the stream that owns ``acc`` (nothing to
+        switch on the CPU). ``inputs`` are device tensors made on the
+        caller's stream: the fold stream waits for the caller's work so far,
+        and their memory is kept from reuse until the fold stream is past
+        them."""
+        if self.stream is None:
+            yield
+            return
+        if inputs:
+            self.stream.wait_stream(torch.cuda.current_stream(self.device))
+            for t in inputs:
+                t.record_stream(self.stream)
+        with torch.cuda.stream(self.stream):
+            yield
+
+    def _after_folds(self) -> None:
+        """Order the caller's stream after every fold queued so far (before
+        the caller reads ``acc``)."""
+        if self.stream is not None:
+            torch.cuda.current_stream(self.device).wait_stream(self.stream)
 
     def packed_staging_usable(self) -> bool:
         """Whether packed byte-planar staging shrinks anything: at the
@@ -69,13 +112,15 @@ class DeviceAggregator:
 
     def add_planar_batch(self, stack_planar: torch.Tensor) -> None:
         """Fold a device-resident planar ``uint32[K, L, model_len]`` batch."""
-        fold_planar_batch(self.acc, stack_planar, self.order)
+        with self.on_stream(stack_planar):
+            self._fold_fn(self.acc, stack_planar)
         self.nb_models += stack_planar.shape[0]
 
     def add_packed_batch(self, packed: torch.Tensor) -> None:
         """Fold a device-resident packed byte-planar ``uint8[K, bpn, model_len]``
         batch (K1's packed variant: limbs assemble inside the fold)."""
-        fold_packed_batch(self.acc, packed, self.n_limbs, self.order)
+        with self.on_stream(packed):
+            self._packed_fold_fn(self.acc, packed)
         self.nb_models += packed.shape[0]
 
     def mask_planar(self, mask_vect) -> torch.Tensor:
@@ -91,11 +136,13 @@ class DeviceAggregator:
     def unmask_limbs(self, mask_vect) -> np.ndarray:
         """Subtract the aggregated mask on the device; returns the unmasked
         host wire ``uint32[model_len, L]`` (the only accumulator download)."""
+        self._after_folds()
         out = mod_sub_planar(self.acc, self.mask_planar(mask_vect), self.order)
         return planar_to_wire(to_numpy_u32(out))
 
     def snapshot(self) -> np.ndarray:
         """Host wire-layout copy of the aggregate (checkpoints / tests)."""
+        self._after_folds()
         return planar_to_wire(to_numpy_u32(self.acc))
 
     def restore(self, wire: np.ndarray, nb_models: int) -> None:
@@ -103,9 +150,13 @@ class DeviceAggregator:
         wire = np.asarray(wire, dtype=np.uint32)
         if wire.shape != (self.model_length, self.n_limbs):
             raise ValueError("snapshot shape does not match the aggregator")
-        self.acc = to_device_u32(wire_to_planar(wire), self.device)
+        # made on the fold stream, so its memory is only ever reused in
+        # that stream's order
+        with self.on_stream():
+            self.acc = to_device_u32(wire_to_planar(wire), self.device)
         self.nb_models = nb_models
 
     def reset(self) -> None:
-        self.acc = zeros_u32((self.n_limbs, self.model_length), self.device)
+        with self.on_stream():
+            self.acc = zeros_u32((self.n_limbs, self.model_length), self.device)
         self.nb_models = 0

@@ -7,18 +7,25 @@ validated updates are staged and folded in batches into the device
 accumulator (``parallel.aggregator.DeviceAggregator``); the tiny unit part
 stays on the host.
 
-Flushes are synchronous: ``flush()`` folds the staged micro-batch before it
-returns. The JAX package streams them through a pipeline instead; the fold
-is an exact modular sum, so the aggregate is byte-identical either way.
-With packed staging (the default, as ``[aggregation] packed_staging``) a
-batch crosses to the device as ``bpn``-byte planes ``uint8[K, bpn, n]`` and
-folds through K1's packed variant.
+Device folds flow through the streaming pipeline (``parallel.streaming``),
+as in the JAX package: ``flush()`` *submits* the staged micro-batch into a
+bounded producer/consumer (ring-buffer staging overlaps the in-flight
+folds) and returns; ``drain()``, at phase end and in
+``finalize``/``finalize_inplace``, blocks for the result. The fold is an
+exact modular sum, so the aggregate is byte-identical to a synchronous
+fold. Updates are staged in their wire layout and packed straight into the
+pipeline's ring at flush. With packed staging (the default, as
+``[aggregation] packed_staging``) a batch crosses to the device as
+``bpn``-byte planes ``uint8[K, bpn, n]`` and folds through K1's packed
+variant.
+
+Journal snapshots (``snapshot_journal``/``restore_journal``) come with the
+phase machine, device-resident staged planars with device wire ingest.
 """
 
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from ..core.mask.config import MaskConfigPair
 from ..core.mask.encode import (
@@ -32,8 +39,8 @@ from ..core.mask.masking import Aggregation, AggregationError, UnmaskingError
 from ..core.mask.model import Model
 from ..core.mask.object import MaskObject, MaskUnit, MaskVect
 from ..ops import limbs as limb_ops
-from ..ops.fold import to_device_u32, wire_to_planar
 from ..parallel.aggregator import DeviceAggregator
+from ..parallel.streaming import StreamingAggregator
 
 
 class DeviceAggregation(Aggregation):
@@ -43,17 +50,30 @@ class DeviceAggregation(Aggregation):
     (``DeviceAggregator.unmask_limbs``) and only the unmasked result crosses
     to the host for the fixed-point decode. ``object`` gathers the masked
     aggregate to the host for checkpoint and test paths.
+
+    With ``stream`` (``StagedAggregator.finalize_inplace(defer_drain=True)``)
+    the pipeline rides into Unmask still open, and folds may still be in
+    flight: ``nb_models`` reads the count atomically with the fold worker,
+    and the unmask drains first. One device has no eager per-shard unmask,
+    so the unmask drains, closes the pipeline, then subtracts.
     """
 
     def __init__(self, config: MaskConfigPair, object_size: int, device: DeviceAggregator,
-                 unit_acc):
+                 unit_acc, stream: StreamingAggregator | None = None):
         # deliberately NOT calling super().__init__: it would allocate an
         # empty host MaskObject of the full model size just to carry configs
-        self.nb_models = device.nb_models
+        self._nb_models = device.nb_models
         self.object_size = object_size
         self._config = config
         self._device = device
         self._unit_acc = np.asarray(unit_acc)
+        self._stream = stream
+
+    @property
+    def nb_models(self) -> int:
+        if self._stream is not None:
+            return self._stream.counted_models()
+        return self._nb_models
 
     @property
     def config(self) -> MaskConfigPair:
@@ -62,6 +82,8 @@ class DeviceAggregation(Aggregation):
     @property
     def object(self) -> MaskObject:
         """Gathered host aggregate (checkpoints/tests only)."""
+        if self._stream is not None:
+            self._stream.drain()
         return MaskObject(
             MaskVect(self._config.vect, self._device.snapshot()),
             MaskUnit(self._config.unit, self._unit_acc),
@@ -81,7 +103,20 @@ class DeviceAggregation(Aggregation):
         if not mask.is_valid():
             raise UnmaskingError("InvalidMask")
 
+    def _settle_stream(self) -> None:
+        """Close a deferred-drain pipeline and pin the final model count."""
+        stream, self._stream = self._stream, None
+        if stream is not None:
+            stream.close()
+            self._nb_models = self._device.nb_models
+
     def _unmasked_limbs(self, mask_obj: MaskObject) -> tuple[np.ndarray, int]:
+        if self._stream is not None:
+            try:
+                # fold errors surface here, as they would have at the drain
+                self._stream.drain()
+            finally:
+                self._settle_stream()
         n_vect = self._device.unmask_limbs(mask_obj.vect.data)
         ol_u = limb_ops.order_limbs_for(self._config.unit.order)
         n_unit = limb_ops.mod_sub(
@@ -107,7 +142,8 @@ class DeviceAggregation(Aggregation):
 
 class StagedAggregator:
     """Stages validated masked updates and folds them in batches on the
-    device (``cuda`` unless ``device`` says otherwise)."""
+    device (``cuda`` unless ``device`` says otherwise), through the
+    streaming pipeline."""
 
     def __init__(
         self,
@@ -120,10 +156,14 @@ class StagedAggregator:
         self.config = config
         self.object_size = object_size
         self.batch_size = max(1, batch_size)
-        self._device = DeviceAggregator(config.vect, object_size, device=device)
-        self._packed = packed_staging and self._device.packed_staging_usable()
-        self._staged_vect: list[np.ndarray] = []
+        self._staged_vect: list[np.ndarray] = []  # wire uint32[model_len, L]
         self._staged_unit: list[np.ndarray] = []
+        self._device = DeviceAggregator(config.vect, object_size, device=device)
+        # flush() submits micro-batches here; drain()/finalize() sync
+        self._stream = StreamingAggregator(
+            self._device, max_batch=self.batch_size, packed=packed_staging
+        )
+        # the tiny unit part stays on the host
         self._unit_acc = np.zeros(limb_ops.n_limbs_for_order(config.unit.order), dtype=np.uint32)
 
     @property
@@ -133,7 +173,15 @@ class StagedAggregator:
 
     @property
     def nb_models(self) -> int:
-        return len(self._staged_vect) + self._device.nb_models
+        # staged + (in-flight + folded, read atomically with the fold
+        # worker's handoff): an accepted update counts from the moment it
+        # is staged
+        return len(self._staged_vect) + self._stream.counted_models()
+
+    @property
+    def pending(self) -> int:
+        """Updates staged but not yet submitted."""
+        return len(self._staged_vect)
 
     def validate_aggregation(self, obj: MaskObject) -> None:
         """Per-update protocol validation (same checks as the reference,
@@ -151,6 +199,42 @@ class StagedAggregator:
         if not obj.is_valid():
             raise AggregationError("InvalidObject")
 
+    def validate_partial(self, obj: MaskObject, members: int) -> None:
+        """Protocol validation for an edge PARTIAL aggregate of ``members``
+        updates: the checks of one update, but the model-count headroom must
+        fit every member (the envelope folds entirely or not at all)."""
+        if members < 1:
+            raise AggregationError("EmptyPartial")
+        if self.config.vect != obj.vect.config:
+            raise AggregationError("ModelMismatch")
+        if self.config.unit != obj.unit.config:
+            raise AggregationError("ScalarMismatch")
+        if self.object_size != len(obj.vect):
+            raise AggregationError("ModelMismatch")
+        if self.nb_models + members > self.config.vect.max_nb_models:
+            raise AggregationError("TooManyModels")
+        if self.nb_models + members > self.config.unit.max_nb_models:
+            raise AggregationError("TooManyScalars")
+        if not obj.is_valid():
+            raise AggregationError("InvalidObject")
+
+    def fold_partial(self, obj: MaskObject, members: int) -> None:
+        """Fold a pre-aggregated partial of ``members`` updates as one row
+        and advance ``nb_models`` by ``members``. Staged updates flush and
+        everything drains first, so the count adjustment cannot race the
+        fold worker."""
+        if members < 1:
+            raise AggregationError("EmptyPartial")
+        self.drain()
+        self._stream.submit_batch([obj.vect.data])
+        self._stream.drain()
+        # the partial counts as `members` models, not the one row folded
+        self._device.nb_models += members - 1
+        order_limbs = limb_ops.order_limbs_for(self.config.unit.order)
+        self._unit_acc = limb_ops.mod_add(
+            self._unit_acc[None, :], np.asarray(obj.unit.data)[None, :], order_limbs
+        )[0]
+
     def stage(self, obj: MaskObject) -> None:
         """Stage an update without folding (caller controls flush timing)."""
         self._staged_vect.append(np.asarray(obj.vect.data, dtype=np.uint32))
@@ -162,34 +246,38 @@ class StagedAggregator:
             self.flush()
 
     def flush(self) -> None:
-        """Fold the staged micro-batch into the device accumulator (before
-        returning)."""
+        """Submit the staged micro-batch into the streaming pipeline and
+        return without waiting for the fold (the pipeline's ring and
+        dispatch-ahead bounds are the backpressure); :meth:`drain`
+        synchronizes."""
         if not self._staged_vect:
             return
         rows, self._staged_vect = self._staged_vect, []
         units, self._staged_unit = np.stack(self._staged_unit), []
-        dev = self._device
-        if self._packed:
-            packed = np.empty((len(rows), dev.packed_width, self.object_size), dtype=np.uint8)
-            for i, row in enumerate(rows):
-                limb_ops.pack_wire(row, dev.packed_width, out=packed[i])
-            rows.clear()
-            dev.add_packed_batch(torch.from_numpy(packed).to(dev.device))
-        else:
-            planar = np.stack([wire_to_planar(r) for r in rows])
-            rows.clear()
-            dev.add_planar_batch(to_device_u32(planar, dev.device))
+        # the wire rows are packed straight into the pipeline's staging ring
+        # and folded by its worker while this thread goes back to staging
+        step = self._stream.max_batch
+        for start in range(0, len(rows), step):
+            self._stream.submit_batch(rows[start : start + step])
+        rows.clear()
         order_limbs = limb_ops.order_limbs_for(self.config.unit.order)
         batch_unit = limb_ops.batch_mod_sum(units[:, None, :], order_limbs)[0]
         self._unit_acc = limb_ops.mod_add(
             self._unit_acc[None, :], batch_unit[None, :], order_limbs
         )[0]
 
+    def drain(self) -> None:
+        """Flush, then block until every in-flight fold has completed (the
+        phase-transition synchronization point)."""
+        self.flush()
+        self._stream.drain()
+
     def snapshot_state(self) -> tuple[np.ndarray, np.ndarray, int]:
         """Exact host copy of the aggregate: ``(vect wire uint32[model_len,
         L], unit uint32[L_unit], nb_models)``, as the JAX package's
-        ``StagedAggregator.snapshot_state`` (``convert`` reads either)."""
-        self.flush()
+        ``StagedAggregator.snapshot_state`` (``convert`` reads either).
+        Drains first."""
+        self.drain()
         return self._device.snapshot(), np.array(self._unit_acc), self._device.nb_models
 
     def restore_state(self, vect: np.ndarray, unit: np.ndarray, nb_models: int) -> None:
@@ -199,10 +287,31 @@ class StagedAggregator:
         self._device.restore(np.ascontiguousarray(vect, dtype=np.uint32), nb_models)
         self._unit_acc = np.ascontiguousarray(unit, dtype=np.uint32)
 
-    def finalize(self) -> DeviceAggregation:
-        """The Unmask handoff: fold what is staged and return the
-        :class:`DeviceAggregation` view, which unmasks on the device (the
-        JAX package's ``finalize_inplace``; its ``finalize`` gathers the
-        accumulator to the host first)."""
-        self.flush()
+    def finalize(self) -> Aggregation:
+        """The protocol-level host ``Aggregation``: drains, closes the
+        pipeline and GATHERS the accumulator to the host (for snapshot and
+        test callers; :meth:`finalize_inplace` is the Unmask handoff that
+        keeps it on the device)."""
+        self.drain()
+        self._stream.close()
+        agg = Aggregation(self.config, self.object_size)
+        agg.object = MaskObject(
+            MaskVect(self.config.vect, self._device.snapshot()),
+            MaskUnit(self.config.unit, self._unit_acc),
+        )
+        agg.nb_models = self._device.nb_models
+        return agg
+
+    def finalize_inplace(self, defer_drain: bool = False) -> DeviceAggregation:
+        """The Unmask handoff WITHOUT gathering the accumulator: a
+        :class:`DeviceAggregation` view that subtracts the mask on the
+        device. With ``defer_drain`` the pipeline rides into Unmask still
+        open: the staged remainder is submitted and the drain barrier moves
+        into the unmask."""
+        if defer_drain:
+            self.flush()
+            return DeviceAggregation(self.config, self.object_size, self._device,
+                                     self._unit_acc, stream=self._stream)
+        self.drain()
+        self._stream.close()
         return DeviceAggregation(self.config, self.object_size, self._device, self._unit_acc)

@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py            # the full run: 25M-element round, 16 updates
 
-Builds the two hand-written CUDA kernels from ``xaynet_tpu_torch/csrc`` with
-``nvcc`` (into ``build/xaynet_tpu_torch/``, timed as set-up), then:
+Builds the hand-written CUDA kernels from ``xaynet_tpu_torch/csrc`` with
+``nvcc`` (one process per source, started together, into
+``build/xaynet_tpu_torch/``, timed as set-up), then:
 
 - **Phase A** holds every kernel byte-exact against its plain torch version
   on the card: K1 (the batch fold, planar and packed) over K in {1, 8, 64}
@@ -19,7 +20,16 @@ Builds the two hand-written CUDA kernels from ``xaynet_tpu_torch/csrc`` with
   shapes the main path gives it, beside its plain version, and checked
   there too. K2's bound counts the xors and rotates its ChaCha20 blocks
   need, on the ALU pipe; the built keystream loop's instructions per pipe
-  (from its SASS) are recorded beside it.
+  (from its SASS) are recorded beside it. K3 (the v1 wire unpack + validity
+  check) and K4 (the v2 byte-planar validity check) are held byte-exact,
+  planar rows and per-update verdicts, on the shipped config and three more
+  (the 2^96 boundary among them) at K in {1, 3, 8, 64} and a ragged length,
+  with invalid elements (all 0xFF bytes, the order itself) at the first, a
+  middle and the last element of chosen updates and ``order - 1`` (valid)
+  at the edges of the others; then both on one 64-update batch at the main
+  length (9.6e9 bytes, so every offset past 2^32 is exercised), made on the
+  card, each update against the plain version alone; K4 also on elements
+  that tie the order's bytes down to each plane.
 - **Phase P** holds the Update fold's streaming pipeline
   (``parallel/streaming.py``) on the card at small sizes, shipped config:
   (p1) streamed and plain sequential folds of the same batches give
@@ -45,7 +55,27 @@ Builds the two hand-written CUDA kernels from ``xaynet_tpu_torch/csrc`` with
   16/exp_shift + 1e-6, and that the launch counters show every kernel ran.
   It reports each flush's stage and fold seconds, the pipeline's overlap
   ratio, K1 packed's device time inside the pipeline and what pinning the
-  staging ring cost.
+  staging ring cost. Outside its timed walls it serializes each masked
+  update for Phase W: even-indexed ones in wire format v1, odd ones in v2.
+- **Phase W** is the Update phase with device wire ingest, on Phase B's 16
+  updates plus a 17th whose element block holds one all-0xFF element (in
+  the middle of the second group): each message parses lazily
+  (``parse_mask_object(lazy_vect=True)``), ``prevalidate_wire_batch`` runs
+  per group of ``batch`` updates (K3 over the v1 members, K4 over the v2
+  ones), then ``validate_aggregation`` + ``aggregate`` per update (flushes
+  fold the device rows with K1 on the caller's thread, packed and planar),
+  then ``finalize_inplace`` and ``unmask_array`` with Phase B's mask. It
+  checks that the corrupted update is rejected with ``InvalidObject``, that
+  ``nb_models == 16``, that the accumulator and the decoded model are
+  byte-identical to Phase B's, that K3, K4 and both K1 variants ran as many
+  times as the groups and flush chunks need, and that no update was parsed
+  on the host; and prints its walls beside Phase B's. Then, on the same
+  uploaded blocks, K3 and K4 are held byte-exact against their plain
+  versions at each shape the phase launched them (4-5 updates), and timed
+  there: the kernel line's K3 and K4 times and bounds are the means over
+  Phase W's launches, K4's bound counting only the bytes its verdict needs
+  from this data (every top byte, and the sectors of lower planes where an
+  element still ties the order).
 
 Prints what it found on earlier lines; on its last lines the card's name
 and power limit, the kernel table as one JSON object, and
@@ -58,7 +88,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import subprocess
 import sys
 import time
@@ -181,8 +210,11 @@ class Smoke:
         self.cuda = self.dev.type == "cuda"
         self.rng = np.random.default_rng(args.seed)
         self.records: dict = {"checks": []}
-        self.max_err = {"fold_planar": 0, "fold_packed": 0, "mask_fold": 0}
+        self.max_err = dict.fromkeys(
+            ("fold_planar", "fold_packed", "mask_fold", "wire_unpack", "packed_check"), 0
+        )
         self.sass = None
+        self.phase_b_out: dict | None = None  # Phase B's wires and results, for Phase W
 
     # -- helpers ------------------------------------------------------------
 
@@ -517,6 +549,168 @@ class Smoke:
             log(f"[phase A] {name} at main shape {t['shape']}: {t['ms']:.3f} ms (plain {t['plain_ms']:.1f} ms)")
         return timings
 
+    def phase_a_wire(self) -> None:
+        """K3 and K4 against their plain versions over four configs and K in
+        {1, 3, 8, 64} at a ragged length, with planted invalid elements
+        (module docstring). The verdicts are also held against the planted
+        pattern: updates 0, K/2 and K-1 rejected (K >= 3), the others not;
+        at the 2^96 boundary none. With K >= 8, update 1 also holds
+        ``order + 256^b`` and update 2 ``order - 256^b`` for every plane b,
+        so K4 decides elements at each plane (update 1 rejected)."""
+        from xaynet_tpu_torch.core.mask.config import (
+            BoundType, DataType, GroupType, MaskConfig, ModelType,
+        )  # fmt: skip
+        from xaynet_tpu_torch.ops import kernels, limbs
+
+        torch = self.torch
+        cfgs = [
+            ("prime L2 bpn6", MaskConfig(GroupType.PRIME, DataType.F32, BoundType.B0, ModelType.M3)),
+            ("L2 bpn7", MaskConfig(GroupType.INTEGER, DataType.F32, BoundType.B0, ModelType.M6)),
+            ("L3 2^96", MaskConfig(GroupType.POWER2, DataType.I32, BoundType.BMAX, ModelType.M9)),
+            ("prime L4 bpn13", MaskConfig(GroupType.PRIME, DataType.F64, BoundType.B6, ModelType.M3)),
+        ]
+        n = 100_003  # ragged: no multiple of the block, rows not 16-byte aligned
+        n_cases = 0
+        for label, cfg in cfgs:
+            order, bpn = cfg.order, cfg.bytes_per_number
+            n_limb = limbs.n_limbs_for_order(order)
+            pow2 = order == 1 << (32 * n_limb)
+            for k in (1, 3, 8, 64):
+                stack = self.elements(order, n_limb, (k, n))  # planar [K, L, n]
+                edge = limbs.int_to_limbs(order - 1, n_limb)
+                stack[:, :, 0] = stack[:, :, n - 1] = edge  # valid edges
+                want_bad = set()
+                if k >= 3:
+                    ones = limbs.int_to_limbs((1 << (8 * bpn)) - 1, n_limb)
+                    stack[0, :, 0] = ones
+                    stack[k - 1, :, n - 1] = ones
+                    if not pow2:
+                        stack[k // 2, :, n // 2] = limbs.int_to_limbs(order, n_limb)
+                        want_bad = {0, k // 2, k - 1}
+                if k >= 8 and order < 1 << (8 * bpn):
+                    # decided at plane b, the planes above tying the order's:
+                    # order + 256^b (invalid) in update 1, order - 256^b in 2
+                    for b in range(bpn):
+                        up = order + (1 << (8 * b))
+                        if up < 1 << (8 * bpn):
+                            stack[1, :, 1 + b] = limbs.int_to_limbs(up, n_limb)
+                            want_bad.add(1)
+                        stack[2, :, 1 + b] = limbs.int_to_limbs(order - (1 << (8 * b)), n_limb)
+                packed_np = limbs.pack_planar(stack, bpn)  # [K, bpn, n]
+                wire_np = np.ascontiguousarray(packed_np.transpose(0, 2, 1)).reshape(k, n * bpn)
+                del stack
+                raw = torch.from_numpy(wire_np).to(self.dev)
+                packed = torch.from_numpy(packed_np).to(self.dev)
+                what = f"{label} K={k} n={n}"
+                planar, bad = kernels.wire_unpack(raw, order)
+                want_planar, want = kernels.wire_unpack_plain(raw, order)
+                self.compare("wire_unpack", planar, want_planar, what + " planar")
+                self.compare("wire_unpack", bad, want, what + " verdicts")
+                got = kernels.packed_check(packed, order)
+                self.compare("packed_check", got, kernels.packed_check_plain(packed, order),
+                             what + " verdicts")
+                rejected = {i for i, b in enumerate(bad.view(torch.int32).tolist()) if b}
+                self.check(rejected == want_bad, f"wire: {what} rejects updates {sorted(want_bad)}")
+                self.check(torch.equal(got.view(torch.int32), bad.view(torch.int32)),
+                           f"wire: {what} K4 and K3 agree")
+                if k == 8:  # K4 from bases that are not 16-byte aligned
+                    buf = torch.empty(packed.numel() + 16, dtype=torch.uint8, device=self.dev)
+                    for off in (1, 7, 15):
+                        shifted = buf[off : off + packed.numel()].view(packed.shape)
+                        shifted.copy_(packed)
+                        self.compare("packed_check", kernels.packed_check(shifted, order), got,
+                                     f"{what} verdicts, base + {off} bytes")
+                    del buf, shifted
+                del raw, packed, planar, bad, want_planar, want, got
+                n_cases += 1
+        self.sync()
+        log(f"[phase A] K3 and K4 byte-exact vs plain in {n_cases} cases "
+            "(planted invalid elements rejected, order - 1 accepted)")
+
+    def phase_a_wire_main(self) -> None:
+        """One batch of 64 updates at the main length, made on the card with
+        valid elements (top byte below the order's) plus three planted
+        invalid ones: K3 over it as interleaved blocks ``uint8[64, n * bpn]``
+        and K4 over the same bytes as planes ``uint8[64, bpn, n]`` (valid
+        either way), each update against the plain version alone. Then both
+        kernels timed over its first ``batch`` updates beside their plain
+        versions: no element there ties the order's top byte, so K4 reads
+        the top plane only (a reading kept in the records; the kernel line
+        times K3 and K4 at Phase W's launches, on its data)."""
+        from xaynet_tpu_torch.core.mask.config import (
+            BoundType, DataType, GroupType, MaskConfig, ModelType,
+        )  # fmt: skip
+        from xaynet_tpu_torch.ops import kernels, limbs
+
+        torch = self.torch
+        cfg = MaskConfig(GroupType.PRIME, DataType.F32, BoundType.B0, ModelType.M3)
+        order, bpn = cfg.order, cfg.bytes_per_number
+        n_limb = limbs.n_limbs_for_order(order)
+        n, k_all, k = self.args.length, 64, self.args.batch
+        gen = torch.Generator(device=self.dev)
+        gen.manual_seed(self.args.seed)
+        raw = torch.randint(0, 256, (k_all, n * bpn), dtype=torch.uint8, device=self.dev,
+                            generator=gen)
+        # below the order's top byte, as an element's top byte (K3) and as
+        # the top plane (K4)
+        top = order.to_bytes(bpn, "little")[-1]
+        low = (1 << (top.bit_length() - 1)) - 1
+        raw.view(k_all, n, bpn)[:, :, bpn - 1].bitwise_and_(low)
+        raw.view(k_all, bpn, n)[:, bpn - 1].bitwise_and_(low)
+        plants = {0: 0, k_all // 2: n // 2, k_all - 1: n - 1}  # update -> element
+        for row, col in plants.items():
+            value = (1 << (8 * bpn)) - 1 if row != k_all // 2 else order
+            raw[row, col * bpn : (col + 1) * bpn] = torch.tensor(
+                list(value.to_bytes(bpn, "little")), dtype=torch.uint8)
+        planar, bad = kernels.wire_unpack(raw, order)
+        packed = raw.view(k_all, bpn, n)
+        bad4 = kernels.packed_check(packed, order)
+        what = f"64 updates x {n} ({raw.numel()} bytes)"
+        for r in range(k_all):
+            want_planar, want = kernels.wire_unpack_plain(raw[r : r + 1], order)
+            self.compare("wire_unpack", planar[r : r + 1], want_planar, f"{what}: update {r} planar")
+            self.compare("wire_unpack", bad[r : r + 1], want, f"{what}: update {r} verdict")
+            self.compare("packed_check", bad4[r : r + 1],
+                         kernels.packed_check_plain(packed[r : r + 1], order),
+                         f"{what}: update {r} K4 verdict")
+            del want_planar, want
+        rejected = {i for i, b in enumerate(bad.view(torch.int32).tolist()) if b}
+        self.check(rejected == set(plants), f"wire: {what} rejects exactly updates {sorted(plants)}")
+        del planar, bad, bad4
+        if self.cuda:
+            torch.cuda.empty_cache()
+        past = " (byte offsets past 2^32)" if raw.numel() > 1 << 32 else ""
+        log(f"[phase A] K3 and K4 byte-exact vs plain over {what}{past}")
+
+        batch = raw[:k]  # the main path's group: contiguous, valid
+        got_planar, got_bad = kernels.wire_unpack(batch, order)
+        want_planar, want_bad = kernels.wire_unpack_plain(batch, order)
+        self.compare("wire_unpack", got_planar, want_planar, f"main shape uint8[{k}, {n * bpn}]")
+        self.compare("wire_unpack", got_bad, want_bad, f"main shape uint8[{k}, {n * bpn}] verdicts")
+        del got_planar, want_planar
+        planes = batch.view(k, bpn, n)
+        self.compare("packed_check", kernels.packed_check(planes, order),
+                     kernels.packed_check_plain(planes, order), f"main shape uint8[{k}, {bpn}, {n}]")
+        timed = self.records["wire_synthetic"] = {}
+        timed["wire_unpack"] = {
+            "ms": self.time_ms(lambda: kernels.wire_unpack(batch, order), 10),
+            "plain_ms": self.time_ms(lambda: kernels.wire_unpack_plain(batch, order), 2),
+            "bytes": batch.numel() + k * n_limb * n * 4 + 4 * k,
+            "shape": f"uint8[{k},{n * bpn}] into uint32[{k},{n_limb},{n}]",
+        }
+        timed["packed_check"] = {
+            "ms": self.time_ms(lambda: kernels.packed_check(planes, order), 10),
+            "plain_ms": self.time_ms(lambda: kernels.packed_check_plain(planes, order), 2),
+            "bytes": planes.numel() // bpn + 4 * k,  # the top plane decides
+            "shape": f"uint8[{k},{bpn},{n}]",
+        }
+        del raw, batch, planes
+        if self.cuda:
+            torch.cuda.empty_cache()
+        for name, t in timed.items():
+            log(f"[phase A] {name} over {t['shape']}, no ties with the order's top byte: "
+                f"{t['ms']:.3f} ms (plain {t['plain_ms']:.1f} ms)")
+
     # -- phase P: the streaming pipeline ------------------------------------
 
     def phase_pipeline(self) -> dict:
@@ -660,6 +854,7 @@ class Smoke:
         )  # fmt: skip
         from xaynet_tpu_torch.core.mask.model import Scalar
         from xaynet_tpu_torch.core.mask.object import MaskObject, MaskUnit, MaskVect
+        from xaynet_tpu_torch.core.mask.serialization import serialize_mask_object
         from xaynet_tpu_torch.ops import kernels, limbs, masking
         from xaynet_tpu_torch.server.aggregation import StagedAggregator
 
@@ -672,7 +867,8 @@ class Smoke:
         scalar = Scalar(Fraction(1, n_up))
         idx = np.sort(rng.choice(length, size=min(2048, length), replace=False))
         walls = {"participants_mask": 0.0, "update_aggregate": 0.0}
-        sampled, units = [], []
+        sampled, units, wires = [], [], []
+        serialize_s = 0.0
         wsum = np.zeros(length, dtype=np.float64)
 
         torch = self.torch
@@ -702,6 +898,10 @@ class Smoke:
             walls["participants_mask"] += time.perf_counter() - t
             sampled.append(obj.vect.data[idx].copy())
             units.append(obj.unit.data.copy())
+            # Phase W's input, outside the walls: v1 for even, v2 for odd updates
+            t = time.perf_counter()
+            wires.append(serialize_mask_object(obj, planar_vect=i % 2 == 1))
+            serialize_s += time.perf_counter() - t
             t = time.perf_counter()
             agg.validate_aggregation(obj)
             agg.aggregate(obj)  # every batch-th update: flush submits, does not fold
@@ -725,7 +925,8 @@ class Smoke:
         model = final.unmask_array(mask)
         self.sync()
         walls["unmask_array"] = time.perf_counter() - t
-        walls["round_total"] = time.perf_counter() - t_round
+        # the serialization for Phase W is not part of Phase B's round
+        walls["round_total"] = time.perf_counter() - t_round - serialize_s
         launches = dict(kernels.LAUNCHES)
 
         # (a) aggregate == python big-int modular sums at sampled positions
@@ -759,7 +960,246 @@ class Smoke:
         log("[phase B] wall seconds: "
             + ", ".join(f"{k} {v:.3f}" for k, v in walls.items()))
         stream = self.pipeline_record(pipeline, ring, fold_events)
-        return {"walls": walls, "launches": launches, "decode_max_err": err, "pipeline": stream}
+        log(f"[phase B] serialized the {n_up} updates for Phase W in {serialize_s:.3f} s "
+            "(outside the walls)")
+        self.phase_b_out = {"wires": wires, "vect": got.vect.data, "unit": got.unit.data,
+                            "model": model, "mask": mask}
+        return {"walls": walls, "launches": launches, "decode_max_err": err, "pipeline": stream,
+                "serialize_s": serialize_s}
+
+    # -- phase W: the Update phase with device wire ingest --------------------
+
+    def phase_w(self, walls_b: dict, timings: dict) -> dict:
+        """Phase B's updates again, from their wire bytes through device wire
+        ingest (module docstring), checked against Phase B's results; then
+        K3 and K4 at the shapes the phase launched them (into ``timings``)."""
+        from xaynet_tpu_torch.core.mask.config import (
+            BoundType, DataType, GroupType, MaskConfig, ModelType,
+        )  # fmt: skip
+        from xaynet_tpu_torch.core.mask.masking import AggregationError
+        from xaynet_tpu_torch.core.mask.serialization import VECT_HEADER_LENGTH, parse_mask_object
+        from xaynet_tpu_torch.ops import kernels
+        from xaynet_tpu_torch.server.aggregation import StagedAggregator
+
+        args = self.args
+        b, self.phase_b_out = self.phase_b_out, None
+        cfg = MaskConfig(GroupType.PRIME, DataType.F32, BoundType.B0, ModelType.M3)
+        pair, length, bpn, batch = cfg.pair(), args.length, cfg.bytes_per_number, args.batch
+        wires = b["wires"]
+        n_up = len(wires)
+        # the 17th update: update 0's v1 wire with its middle element all 0xFF
+        corrupt = bytearray(wires[0])
+        at = VECT_HEADER_LENGTH + bpn * (length // 2)
+        corrupt[at : at + bpn] = b"\xff" * bpn
+        groups = [list(range(s, min(s + batch, n_up))) for s in range(0, n_up, batch)]
+        groups[-1].insert(len(groups[-1]) // 2, n_up)  # inside the last group
+        messages = [*wires, bytes(corrupt)]
+        del corrupt
+
+        walls = dict.fromkeys(("parse", "prevalidate", "update_aggregate"), 0.0)
+        objs, rejected = {}, []
+        kernels.reset_launches()
+        agg = StagedAggregator(pair, length, batch_size=batch, device=self.dev)
+        for group in groups:
+            t = time.perf_counter()
+            for i in group:
+                objs[i] = parse_mask_object(messages[i], lazy_vect=True)[0]
+            walls["parse"] += time.perf_counter() - t
+            t = time.perf_counter()
+            agg.prevalidate_wire_batch([objs[i] for i in group])
+            walls["prevalidate"] += time.perf_counter() - t
+            t = time.perf_counter()
+            for i in group:
+                try:
+                    agg.validate_aggregation(objs[i])
+                except AggregationError as e:
+                    rejected.append((i, e.kind))
+                    continue
+                agg.aggregate(objs[i])
+            walls["update_aggregate"] += time.perf_counter() - t
+        t = time.perf_counter()
+        final = agg.finalize_inplace()
+        self.sync()
+        walls["finalize"] = time.perf_counter() - t
+        launches = dict(kernels.LAUNCHES)
+        t = time.perf_counter()
+        model = final.unmask_array(b["mask"])
+        self.sync()
+        walls["unmask_array"] = time.perf_counter() - t
+
+        self.check(rejected == [(n_up, "InvalidObject")],
+                   f"(w1) the corrupted update alone rejected with InvalidObject ({rejected})")
+        self.check(final.nb_models == n_up, f"(w2) nb_models == {n_up}")
+        got = final.object
+        self.check(np.array_equal(got.vect.data, b["vect"]) and np.array_equal(got.unit.data, b["unit"]),
+                   "(w3) accumulator byte-identical to Phase B's")
+        self.check(model.dtype == b["model"].dtype and model.tobytes() == b["model"].tobytes(),
+                   "(w4) unmask_array with Phase B's mask == Phase B's model, byte for byte")
+        self.check(not any(o.vect.materialized for o in objs.values()),
+                   "(w5) no update was parsed on the host")
+        # launches: one K3 / K4 per group and batch-sized chunk of its v1 / v2
+        # members; one K1 per flush and 8-row chunk of its planar / packed rows
+        v2 = {i for i in range(n_up) if i % 2 == 1}
+        want = dict.fromkeys(kernels.LAUNCHES, 0)
+        for group in groups:
+            n2 = sum(i in v2 for i in group)
+            want["wire_unpack"] += -(-(len(group) - n2) // batch)
+            want["packed_check"] += -(-n2 // batch)
+        staged = []
+        for i in [i for g in groups for i in g if i < n_up] + [None]:
+            if i is not None:
+                staged.append(i in v2)
+            if staged and (len(staged) == batch or i is None):
+                want["fold_packed"] += -(-sum(staged) // 8)
+                want["fold_planar"] += -(-(len(staged) - sum(staged)) // 8)
+                staged = []
+        if self.cuda:
+            self.check(launches == want, f"(w6) launches {launches} == {want}")
+            self.check(all(launches[k] > 0 for k in
+                           ("wire_unpack", "packed_check", "fold_planar", "fold_packed")),
+                       "(w6) K3, K4 and both K1 variants ran on Phase W's path")
+        walls["ingest_total"] = walls["prevalidate"] + walls["update_aggregate"] + walls["finalize"]
+        parts = self.phase_w_kernels([[objs[i] for i in g] for g in groups], cfg.order, timings)
+        if self.cuda:
+            self.check(all(len(timings[k]["launches"]) == launches[k]
+                           for k in ("wire_unpack", "packed_check")),
+                       "(w7) K3 and K4 held against plain at every shape Phase W launched them")
+        log(f"[phase W] {n_up} wire updates + 1 corrupted, groups {[len(g) for g in groups]}: "
+            "checks (w1)-(w6) passed")
+        log(f"[phase W] launches {launches}")
+        log("[phase W] wall seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in walls.items())
+            + f"; Phase B in this run: update_aggregate {walls_b['update_aggregate']:.3f}, "
+            f"finalize {walls_b['finalize']:.3f}")
+        for layout, part in parts.items():
+            log(f"[phase W] prevalidate of group 1's {part['members']} {layout} members, again "
+                f"outside the walls: np.stack {part['stack_s']:.3f} s, upload of {part['bytes']} "
+                f"bytes {part['upload_s']:.3f} s, kernel + verdict fetch {part['kernel_fetch_s']:.4f} s")
+        for name in ("wire_unpack", "packed_check"):
+            for r in timings[name]["launches"]:
+                log(f"[phase W] {name} at group {r['group']}'s {r['shape']}: {r['ms']:.3f} ms, device "
+                    f"{r['device_ms'] or float('nan'):.3f} ms, bound {r['bytes'] / MEM_BYTES_PER_S * 1e3:.3f} "
+                    f"ms ({r['bytes']} bytes), plain {r['plain_ms']:.1f} ms")
+        return {"walls": walls, "launches": launches, "groups": [len(g) for g in groups],
+                "prevalidate_parts": parts}
+
+    def phase_w_kernels(self, groups: list[list], order: int, timings: dict) -> dict:
+        """K3 and K4 at every shape Phase W launched them, on its data: each
+        group's v1 and v2 members stacked and uploaded as
+        ``DeviceAggregator.validate_wire_updates`` / ``validate_planar_updates``
+        do (this mirrors their steps to time them apart: host ``np.stack``,
+        pageable upload, kernel and verdict fetch; returned for group 1),
+        the launch held byte-exact against its plain version (planar rows
+        and verdicts), timed beside it (CUDA events, and device time from the
+        profiler), and its bytes counted from these inputs (K4: only those
+        its verdict needs, :meth:`k4_bytes`). ``timings`` gets each kernel's
+        launches and their means, which the kernel line reads."""
+        from xaynet_tpu_torch.ops import kernels
+
+        torch = self.torch
+        runs = {"wire_unpack": [], "packed_check": []}
+        parts = {}
+        for g, objs in enumerate(groups, 1):
+            for planar in (False, True):
+                blocks = [o.vect.planar_block if planar else np.asarray(o.vect.wire_block)
+                          for o in objs if o.vect.planar is planar]
+                if not blocks:
+                    continue
+                t = time.perf_counter()
+                block = np.stack(blocks)
+                stack_s = time.perf_counter() - t
+                t = time.perf_counter()
+                staged = torch.from_numpy(block).to(self.dev)
+                self.sync()
+                upload_s = time.perf_counter() - t
+                t = time.perf_counter()
+                name = "packed_check" if planar else "wire_unpack"
+                what = f"Phase W group {g}'s {len(blocks)} {'v2' if planar else 'v1'} members"
+                if planar:
+                    bad = kernels.packed_check(staged, order)
+                    bad.view(torch.int32).tolist()
+                    fetch_s = time.perf_counter() - t
+                    self.compare(name, bad, kernels.packed_check_plain(staged, order), what)
+                    run, plain = (lambda: kernels.packed_check(staged, order),
+                                  lambda: kernels.packed_check_plain(staged, order))
+                    need = self.k4_bytes(staged, order)
+                else:
+                    rows, bad = kernels.wire_unpack(staged, order)
+                    bad.view(torch.int32).tolist()
+                    fetch_s = time.perf_counter() - t
+                    want_rows, want_bad = kernels.wire_unpack_plain(staged, order)
+                    self.compare(name, rows, want_rows, what + ": planar rows")
+                    self.compare(name, bad, want_bad, what + ": verdicts")
+                    need = {"bytes": staged.numel() + 4 * rows.numel() + 4 * len(blocks)}
+                    del rows, want_rows
+                    run, plain = (lambda: kernels.wire_unpack(staged, order),
+                                  lambda: kernels.wire_unpack_plain(staged, order))
+                runs[name].append({
+                    "group": g, "shape": list(staged.shape), **need,
+                    "ms": self.time_ms(run, 10), "plain_ms": self.time_ms(plain, 2),
+                    "device_ms": self.device_ms(run, name + "_kernel"),
+                })  # fmt: skip
+                if g == 1:
+                    parts["v2" if planar else "v1"] = {
+                        "members": len(blocks), "bytes": block.nbytes, "stack_s": stack_s,
+                        "upload_s": upload_s, "kernel_fetch_s": fetch_s,
+                    }  # fmt: skip
+                del block, staged, bad, run, plain
+        for name, launched in runs.items():
+            if not launched:
+                continue
+
+            def mean(key, launched=launched):
+                return sum(r[key] for r in launched) / len(launched)
+
+            timings[name] = {"ms": mean("ms"), "plain_ms": mean("plain_ms"), "bytes": mean("bytes"),
+                             "shape": " and ".join(str(r["shape"]) for r in launched),
+                             "launches": launched}
+            if all(r["device_ms"] is not None for r in launched):
+                timings[name]["device_ms"] = mean("device_ms")
+        if self.cuda:
+            torch.cuda.empty_cache()
+        return parts
+
+    def k4_bytes(self, planes, order: int) -> dict:
+        """The bytes K4's verdict needs from ``planes`` (``uint8[K, bpn, n]``):
+        every element's top byte, and on each lower plane the 32-byte sectors
+        (the least a read from device memory moves) that hold an element
+        whose bytes above that plane all equal the order's, so that it is
+        decided there or below; plus the verdicts written. ``all_bytes``
+        counts every byte, as a kernel without the early exit reads them."""
+        torch = self.torch
+        k, bpn, n = planes.shape
+        order_bytes = order.to_bytes(bpn, "little")
+        tied = planes[:, bpn - 1] == order_bytes[-1]
+        elements, sectors = [], []
+        for b in range(bpn - 2, -1, -1):
+            at = tied.nonzero()
+            elements.append(len(at))
+            addr = planes.data_ptr() + (at[:, 0] * bpn + b) * n + at[:, 1]
+            sectors.append(int(torch.unique(addr // 32).numel()))
+            tied &= planes[:, b] == order_bytes[b]
+        top = k * n
+        return {"bytes": top + 32 * sum(sectors) + 4 * k, "top_plane_bytes": top,
+                "lower_plane_elements": elements, "lower_plane_sectors": sectors,
+                "all_bytes": planes.numel() + 4 * k}
+
+    def device_ms(self, fn, kernel: str) -> float | None:
+        """Device time of the kernels whose name holds ``kernel`` over one
+        call of ``fn`` (torch.profiler / CUPTI); None off the card or where
+        the profiler shows none (an extra reading, not a check)."""
+        if not self.cuda:
+            return None
+        from torch.profiler import ProfilerActivity, profile
+
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                self.torch.cuda.synchronize()
+        except Exception as exc:
+            log(f"[profile] {kernel} unavailable: {exc}")
+            return None
+        us = sum(_device_us(ev) for ev in prof.key_averages() if kernel in ev.key)
+        return us / 1e3 if us else None
 
     def pipeline_record(self, pipeline, ring, fold_events) -> dict:
         """What the pipeline's last drain window saw in Phase B: per flush,
@@ -819,6 +1259,9 @@ class Smoke:
             "fold_packed": ("xaynet_tpu_torch/csrc/fold.cu", "xaynet_tpu/ops/fold_pallas.py:125"),
             "fold_planar": ("xaynet_tpu_torch/csrc/fold.cu", "xaynet_tpu/ops/fold_pallas.py:125"),
             "mask_fold": ("xaynet_tpu_torch/csrc/mask_fold.cu", "xaynet_tpu/ops/fold_pallas.py:201"),
+            # the XLA program X4 of the JAX package's wire ingest
+            "wire_unpack": ("xaynet_tpu_torch/csrc/wire.cu", "xaynet_tpu/parallel/aggregator.py:99"),
+            "packed_check": ("xaynet_tpu_torch/csrc/wire.cu", "xaynet_tpu/parallel/aggregator.py:122"),
         }
         # K2's operations: the xors and rotates of each ChaCha block the
         # data needs, on the ALU pipe
@@ -834,7 +1277,7 @@ class Smoke:
         if self.sass:  # what the built loop issues on its busier pipe: a diagnostic
             issued = max(self.sass["alu"], self.sass["fma"])
             self.records["k2_bound"]["sass_busier_pipe_ms"] = k2["blocks"] * issued / int_rate * 1e3
-        for name in ("fold_packed", "fold_planar", "mask_fold"):
+        for name in meta:
             t = timings[name]
             bytes_ms = t["bytes"] / MEM_BYTES_PER_S * 1e3
             ops_ms = t.get("ops", 0) / int_rate * 1e3
@@ -856,35 +1299,45 @@ class Smoke:
         return rows
 
     def device_profile(self, timings: dict) -> None:
-        """Device time of each kernel (and memset) by name over one K2 seed
-        and one K1 packed fold at the main shapes (torch.profiler / CUPTI)."""
+        """Device time of each kernel (and fill) by name over one call of
+        each at the main shapes: K1 packed (8 updates) and planar (1), one
+        K2 seed (torch.profiler / CUPTI). K3 and K4 are profiled at Phase
+        W's launches (:meth:`phase_w_kernels`)."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
 
+        from xaynet_tpu_torch.core.mask.config import (
+            BoundType, DataType, GroupType, MaskConfig, ModelType,
+        )  # fmt: skip
         from xaynet_tpu_torch.ops import kernels
-
-        n = self.args.length
         from xaynet_tpu_torch.ops.fold import zeros_u32
 
+        n, k = self.args.length, self.args.batch
+        order = MaskConfig(GroupType.PRIME, DataType.F32, BoundType.B0, ModelType.M3).order
         acc = zeros_u32((2, n), self.dev)
-        packed = torch.zeros((self.args.batch, 6, n), dtype=torch.uint8, device=self.dev)
+        packed = torch.zeros((k, 6, n), dtype=torch.uint8, device=self.dev)
+        one = zeros_u32((1, 2, n), self.dev)
         kws = torch.zeros((1, 8), dtype=torch.int32, device=self.dev).view(torch.uint32)
-        order = 20_000_000_000_021
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             kernels.fold_packed(acc, packed, order)
+            kernels.fold_planar(acc, one, order)
             kernels.mask_fold(acc, kws, [6], n, order)
             torch.cuda.synchronize()
         rows = []
         for ev in prof.key_averages():
-            dev_us = getattr(ev, "device_time_total", None)
-            if dev_us is None:
-                dev_us = getattr(ev, "cuda_time_total", 0)
+            dev_us = _device_us(ev)
             if dev_us and any(k in ev.key for k in ("kernel", "mf_", "fold", "Memset")):
                 rows.append({"kernel": ev.key, "device_ms": dev_us / 1e3, "calls": ev.count})
         self.records["profile"] = rows
         for r in rows:
             log(f"[profile] {r['kernel'][:60]}: {r['device_ms']:.3f} ms over {r['calls']} call(s)")
-        del acc, packed
+        names = {"fold_packed": "fold_packed_kernel", "fold_planar": "fold_planar_kernel",
+                 "mask_fold": "mf_mask_fold_kernel"}
+        for name, kernel in names.items():
+            hits = [r["device_ms"] for r in rows if kernel in r["kernel"]]
+            if hits and name in timings:
+                timings[name]["device_ms"] = sum(hits)
+        del acc, packed, one
 
 
 def main() -> int:
@@ -923,9 +1376,12 @@ def main() -> int:
         smoke.phase_a_fold()
         smoke.phase_a_mask_fold()
         smoke.phase_a_look_back()
+        smoke.phase_a_wire()
         timings = smoke.phase_a_main_shapes()
+        smoke.phase_a_wire_main()
         pipeline = smoke.phase_pipeline()
         result = smoke.phase_b()
+        wire = smoke.phase_w(result["walls"], timings)
     except Exception as exc:  # every phase failure ends the run without a result
         traceback.print_exc()
         print(f"chip_smoke: FAILED: {type(exc).__name__}: {exc}", file=sys.stderr)
@@ -937,13 +1393,16 @@ def main() -> int:
         except Exception as exc:  # an extra reading, not a phase: record why it is missing
             smoke.records["profile"] = f"unavailable: {type(exc).__name__}: {exc}"
             log(f"[profile] unavailable: {exc}")
-    smoke.records.update(timings=timings, pipeline=pipeline, round=result,
+    smoke.records.update(timings=timings, pipeline=pipeline, round=result, wire_round=wire,
                          seconds=time.perf_counter() - t0)
     if not smoke.cuda:
         _write_records(smoke.records)
         log(f"chip_smoke: rehearsal on {args.device} passed in {time.perf_counter() - t0:.1f} s")
         return 0
-    table = smoke.kernel_table(timings, result["launches"])
+    # launches per path: K1 and K2 on Phase B's round, K3 and K4 on Phase W's
+    launches = {**result["launches"],
+                **{k: wire["launches"][k] for k in ("wire_unpack", "packed_check")}}
+    table = smoke.kernel_table(timings, launches)
     smoke.records["kernels"] = table
     _write_records(smoke.records)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
@@ -955,6 +1414,13 @@ def main() -> int:
         "count": torch.cuda.device_count(),
     }}))  # fmt: skip
     return 0
+
+
+def _device_us(ev) -> float:
+    """Device microseconds of a profiler row (the attribute's name moved
+    between torch versions)."""
+    us = getattr(ev, "device_time_total", None)
+    return getattr(ev, "cuda_time_total", 0) if us is None else us
 
 
 def _write_records(records: dict) -> None:

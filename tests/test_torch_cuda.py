@@ -196,7 +196,141 @@ def test_launch_counters_count_kernel_launches(cuda):
     kernels.fold_planar(acc, to_device_u32(_elements(order, (2, 64), 1), cuda), order)
     kws = to_device_u32(np.zeros((2, 8), np.uint32), cuda)
     kernels.mask_fold(acc, kws, [0, 5], 64, order)
-    assert kernels.LAUNCHES == {"fold_planar": 1, "fold_packed": 0, "mask_fold": 2}
+    assert kernels.LAUNCHES == {
+        "fold_planar": 1, "fold_packed": 0, "mask_fold": 2, "wire_unpack": 0, "packed_check": 0
+    }
+
+
+WIRE_ORDERS = {
+    "L2 prime": ORDERS["L2"],
+    "L2 bpn7": MaskConfig(GroupType.INTEGER, DataType.F32, BoundType.B0, ModelType.M6).order,
+    "L3-2^96": ORDERS["L3-2^96"],
+    "L4 bpn13": MaskConfig(GroupType.PRIME, DataType.F64, BoundType.B6, ModelType.M3).order,
+    "L67": ORDERS["L67"],
+}
+
+
+def _wire_case(order: int, k: int, n: int, seed: int) -> np.ndarray:
+    """Wire limbs ``uint32[k, n, L]`` of valid elements, with an all-0xFF
+    element first in update 0, the order in the middle of update k // 2 and
+    order - 1 last in update k - 1."""
+    n_limb, bpn = limbs.n_limbs_for_order(order), limbs.wire_width_for(order)
+    rows = np.ascontiguousarray(_elements(order, (k, n), seed).transpose(0, 2, 1))
+    rows[0, 0] = limbs.int_to_limbs((1 << (8 * bpn)) - 1, n_limb)
+    if order != 1 << (32 * n_limb):
+        rows[k // 2, n // 2] = limbs.int_to_limbs(order, n_limb)
+        rows[k - 1, n - 1] = limbs.int_to_limbs(order - 1, n_limb)
+    return rows
+
+
+@pytest.mark.parametrize("k", [1, 3, 8, 64])
+@pytest.mark.parametrize("name", list(WIRE_ORDERS))
+def test_wire_kernels_match_plain(cuda, name, k):
+    """K3 and K4 against their plain versions on the card, byte-exact, with
+    invalid elements at the first and middle element of chosen updates."""
+    order = WIRE_ORDERS[name]
+    n = 4099 if k < 64 else 1031
+    bpn = limbs.wire_width_for(order)
+    rows = _wire_case(order, k, n, seed=k)
+    raw = np.stack([np.ascontiguousarray(r.view(np.uint8).reshape(n, -1)[:, :bpn]).reshape(-1)
+                    for r in rows])
+    raw_dev = torch.from_numpy(raw).to(cuda)
+    planar, bad = kernels.wire_unpack(raw_dev, order)
+    want_planar, want_bad = kernels.wire_unpack_plain(raw_dev, order)
+    assert _same(planar, want_planar) and _same(bad, want_bad)
+    packed = torch.from_numpy(np.ascontiguousarray(raw.reshape(k, n, bpn).transpose(0, 2, 1)))
+    packed = packed.to(cuda)
+    got = kernels.packed_check(packed, order)
+    assert _same(got, kernels.packed_check_plain(packed, order))
+    assert _same(got, bad)
+    if order != 1 << (32 * limbs.n_limbs_for_order(order)):
+        assert bool(bad[0]) and bool(bad[k // 2])
+
+
+@pytest.mark.parametrize("name", [n for n in WIRE_ORDERS if n != "L3-2^96"])
+def test_packed_check_decides_at_every_plane(cuda, name):
+    """K4 walks down the planes while an element ties the order: elements
+    ``order + 256^b`` (invalid) and ``order - 256^b`` (valid), whose planes
+    above b equal the order's, are decided at plane b, for every b."""
+    order = WIRE_ORDERS[name]
+    n_limb, bpn = limbs.n_limbs_for_order(order), limbs.wire_width_for(order)
+    n = 5000
+    rows = np.ascontiguousarray(_elements(order, (2 * bpn + 1, n), seed=7).transpose(0, 2, 1))
+    want = [0] * (2 * bpn + 1)
+    for b in range(bpn):
+        up = order + (1 << (8 * b))
+        if up < 1 << (8 * bpn):
+            rows[2 * b, (37 * b + 5) % n] = limbs.int_to_limbs(up, n_limb)
+            want[2 * b] = 1
+        rows[2 * b + 1, (37 * b + 5) % n] = limbs.int_to_limbs(order - (1 << (8 * b)), n_limb)
+    raw = np.stack([np.ascontiguousarray(r.view(np.uint8).reshape(n, -1)[:, :bpn]) for r in rows])
+    packed = torch.from_numpy(np.ascontiguousarray(raw.transpose(0, 2, 1))).to(cuda)
+    got = kernels.packed_check(packed, order)
+    assert _same(got, kernels.packed_check_plain(packed, order))
+    assert [int(v != 0) for v in got.view(torch.int32).tolist()] == want
+    # the same bytes from a base that is not 16-byte aligned
+    buf = torch.empty(packed.numel() + 16, dtype=torch.uint8, device=cuda)
+    for off in (1, 7, 15):
+        shifted = buf[off : off + packed.numel()].view(packed.shape)
+        shifted.copy_(packed)
+        assert _same(kernels.packed_check(shifted, order), got)
+
+
+def test_wire_launch_counters(cuda):
+    order = ORDERS["L2"]
+    raw = torch.zeros((3, 6 * 100), dtype=torch.uint8, device=cuda)
+    kernels.reset_launches()
+    kernels.wire_unpack(raw, order)
+    kernels.packed_check(raw.view(3, 6, 100), order)
+    kernels.packed_check(raw.view(3, 12, 50)[:, :12].contiguous(), ORDERS["L3-2^96"])
+    assert kernels.LAUNCHES["wire_unpack"] == 1
+    assert kernels.LAUNCHES["packed_check"] == 1  # none at the 2^(32L) boundary
+
+
+def test_staged_wire_ingest_on_card_matches_cpu(cuda):
+    """Lazy v1/v2 updates through StagedAggregator on the card and on the
+    CPU: same aggregate, same rejection, no host element parse, and K3, K4
+    and K1 launched once per group and chunk."""
+    from xaynet_tpu_torch.core.mask.masking import AggregationError, Masker
+    from xaynet_tpu_torch.core.mask.model import Scalar
+    from xaynet_tpu_torch.core.mask.serialization import parse_mask_object, serialize_mask_object
+    from xaynet_tpu_torch.server.aggregation import StagedAggregator
+
+    cfg = PIPE_CFG
+    n, total = 3001, 6
+    rng = np.random.default_rng(8)
+    wires = []
+    for i in range(total):
+        _, masked = Masker(cfg.pair()).mask(Scalar(1, total), rng.uniform(-1, 1, n).astype(np.float32))
+        wires.append(serialize_mask_object(masked, planar_vect=i % 2 == 1))
+    corrupt = bytearray(wires[0])
+    corrupt[8 + 6 * 1500 : 8 + 6 * 1501] = b"\xff" * 6
+    wires.insert(3, bytes(corrupt))
+    results = {}
+    for dev in ("cpu", cuda):
+        agg = StagedAggregator(cfg.pair(), n, batch_size=4, device=dev)
+        objs = [parse_mask_object(w, lazy_vect=True)[0] for w in wires]
+        kernels.reset_launches()
+        agg.prevalidate_wire_batch(objs)
+        rejected = []
+        for i, obj in enumerate(objs):
+            try:
+                agg.validate_aggregation(obj)
+            except AggregationError as e:
+                rejected.append((i, e.kind))
+                continue
+            agg.aggregate(obj)
+        vect, unit, nb = agg.snapshot_state()
+        assert not any(o.vect.materialized for o in objs)
+        results[str(dev)] = (vect, unit, nb, rejected, dict(kernels.LAUNCHES))
+    cpu, card = results["cpu"], results[str(cuda)]
+    assert np.array_equal(cpu[0], card[0]) and np.array_equal(cpu[1], card[1])
+    assert cpu[2] == card[2] == total and cpu[3] == card[3] == [(3, "InvalidObject")]
+    launches = card[4]
+    # v1 members 0, 2, corrupt, 4 in one group; v2 members 1, 3, 5 in another
+    assert launches["wire_unpack"] == 1 and launches["packed_check"] == 1
+    # flushes at 4 staged: [0(v1), 1(v2), 2(v1), 3(v2)] and [4(v1), 5(v2)]
+    assert launches["fold_planar"] == 2 and launches["fold_packed"] == 2
 
 
 PIPE_CFG = MaskConfig(GroupType.PRIME, DataType.F32, BoundType.B0, ModelType.M3)

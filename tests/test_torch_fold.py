@@ -213,4 +213,6 @@ def test_kernel_launch_counter_untouched_on_cpu():
     kernels.reset_launches()
     acc0, stack = _case(CFG_L2.order, 2, 16, seed=1)
     _port_fold(acc0, stack, CFG_L2.order)
-    assert kernels.LAUNCHES == {"fold_planar": 0, "fold_packed": 0, "mask_fold": 0}
+    assert kernels.LAUNCHES == {
+        "fold_planar": 0, "fold_packed": 0, "mask_fold": 0, "wire_unpack": 0, "packed_check": 0
+    }

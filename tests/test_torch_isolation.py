@@ -170,3 +170,56 @@ def test_wrappers_refuse_non_cpu_non_cuda_tensors():
     kw = torch.empty((1, 8), dtype=torch.uint32, device="meta")
     with pytest.raises(ValueError, match="expected CUDA tensors"):
         kernels.mask_fold(acc, kw, [0], 16, PAIR.vect.order)
+
+
+@pytest.mark.parametrize(
+    "module",
+    [
+        "xaynet_tpu_torch.core.mask.serialization",
+        "xaynet_tpu_torch.core.mask.object",
+        "xaynet_tpu_torch.parallel.aggregator",
+        "xaynet_tpu_torch.server.aggregation",
+    ],
+)
+def test_wire_ingest_modules_import_alone_without_jax(module):
+    """Each module on the wire-ingest path, imported alone in a fresh
+    interpreter, pulls in neither ``jax`` nor the JAX package."""
+    assert module in _port_modules()
+    code = (
+        "import importlib, json, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
+        " or k == 'xaynet_tpu' or k.startswith('xaynet_tpu.'))\n"
+        "print(json.dumps(bad))\n"
+    )
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+@pytest.mark.parametrize("name", sorted(kernels.SOURCES))
+def test_each_kernel_source_keys_only_its_library(name, tmp_path, monkeypatch):
+    """Every kernel source (``wire.cu`` among them) is in its library's
+    digest: editing it renames that library and no other, so an edited
+    kernel always rebuilds."""
+    assert kernels.SOURCES["wire"] == "wire.cu"
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for src in kernels.SOURCES.values():
+        (csrc / src).write_bytes((kernels.CSRC / src).read_bytes())
+    monkeypatch.setattr(kernels, "CSRC", csrc)
+    before = {n: kernels.library_stem(n) for n in kernels.SOURCES}
+    src = csrc / kernels.SOURCES[name]
+    src.write_text(src.read_text() + "\n// edited\n")
+    after = {n: kernels.library_stem(n) for n in kernels.SOURCES}
+    assert [n for n in kernels.SOURCES if after[n] != before[n]] == [name]
+
+
+def test_wire_wrappers_refuse_non_cpu_non_cuda_tensors():
+    order = PAIR.vect.order
+    raw = torch.empty((1, 96), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="expected CUDA tensors"):
+        kernels.wire_unpack(raw, order)
+    packed = torch.empty((1, 6, 16), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="expected CUDA tensors"):
+        kernels.packed_check(packed, order)

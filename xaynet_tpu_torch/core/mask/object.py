@@ -70,6 +70,67 @@ class MaskVect:
         )
 
 
+class LazyWireMaskVect(MaskVect):
+    """A ``MaskVect`` parsed from wire with limb materialization DEFERRED.
+
+    Carries the raw fixed-width element block (``wire_block``, a zero-copy
+    uint8 view of the message) so a device-ingest coordinator unpacks and
+    validity-checks it on the card (``DeviceAggregator.validate_wire_updates``
+    / ``validate_planar_updates``) without ever running the host element
+    parse. Any host access to ``data`` materializes the limbs exactly like
+    the eager parse would have; ``is_valid()`` then applies the same element
+    rule. The eager parse rejects invalid elements with ``DecodeError`` at
+    parse time; the lazy path defers that rejection to
+    ``validate_aggregation`` (device) or the first host materialization —
+    the same update rejected, one stage later.
+    """
+
+    def __init__(
+        self, config: MaskConfig, wire_block: np.ndarray, count: int, planar: bool = False
+    ):
+        self.config = config
+        self.wire_block = wire_block  # uint8[count * bytes_per_number]
+        self._count = count
+        # wire format v2: the block is byte-planar (bpn planes of count
+        # bytes) instead of interleaved — already the packed staging layout
+        self.planar = planar
+        self._data: np.ndarray | None = None
+        # the device row cached by StagedAggregator.validate_aggregation /
+        # prevalidate_wire_batch (planar uint32[L, n] for v1, packed
+        # uint8[bpn, n] for v2) so stage() never re-uploads; _wire_invalid
+        # is a cached REJECTED verdict from a batch prevalidation
+        # (validate_aggregation raises on it without another device trip)
+        self._staged_planar = None
+        self._wire_invalid = False
+
+    @property
+    def materialized(self) -> bool:
+        return self._data is not None
+
+    @property
+    def planar_block(self) -> np.ndarray:
+        """Zero-copy ``uint8[bpn, count]`` view of a v2 planar element block
+        (the layout the device validity check and K1's packed fold read)."""
+        if not self.planar:
+            raise ValueError("planar_block on an interleaved (v1) wire vect")
+        return np.asarray(self.wire_block).reshape(self.config.bytes_per_number, self._count)
+
+    @property  # type: ignore[override]
+    def data(self) -> np.ndarray:
+        if self._data is None:
+            block = np.asarray(self.wire_block)
+            bpn = self.config.bytes_per_number
+            if self.planar:
+                from .serialization import planar_to_interleaved
+
+                block = planar_to_interleaved(block, self._count, bpn)
+            self._data = limb_ops.bytes_le_to_limbs(block, self._count, bpn)
+        return self._data
+
+    def __len__(self) -> int:
+        return self._count
+
+
 @dataclass
 class MaskUnit:
     """A single finite-group element (the masked scalar) with its config."""

@@ -10,6 +10,16 @@ JAX package (``xaynet_tpu/ops/fold_pallas.py``):
 - **K2** ``csrc/mask_fold.cu`` — the fused Sum2 keystream -> reject -> fold
   (``mask_fold_planar_pallas``), :func:`mask_fold`.
 
+Two more replace the XLA program of the JAX package's device wire ingest
+(``xaynet_tpu/parallel/aggregator.py`` ``_build_wire_unpack`` /
+``_build_planar_ok``):
+
+- **K3** ``csrc/wire.cu`` — unpack of v1 interleaved wire element blocks
+  ``uint8[K, n*bpn]`` into planar ``uint32[K, L, n]`` with a per-update
+  validity verdict, :func:`wire_unpack`;
+- **K4** ``csrc/wire.cu`` — the verdict alone over v2 byte-planar blocks
+  ``uint8[K, bpn, n]``, :func:`packed_check`.
+
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface and loaded with ctypes, at first use (never at
 import: this module imports on machines without ``nvcc``). Libraries go to
@@ -24,7 +34,7 @@ lock (the streaming pipeline's fold worker launches K1 from its own
 thread): K1 one per batch fold, K2 one per seed and trip (a trip is one
 pass over a provisioned run of keystream candidates; a seed takes one
 trip except with probability < 2^-60, or when a caller shrinks
-``chunk_candidates``).
+``chunk_candidates``), K3 and K4 one per group of wire updates.
 """
 
 from __future__ import annotations
@@ -44,9 +54,12 @@ import torch
 from . import chacha
 from . import limbs as host_limbs
 from .fold import (
+    MAX_LAZY_BATCH,
     _int_to_limbs_list,
     check_fold_args,
+    narrow,
     p_cond_sub_const,
+    p_lt_const,
     p_mod_add,
     store_,
     to_device_u32,
@@ -54,13 +67,13 @@ from .fold import (
 )
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = {"fold": "fold.cu", "mask_fold": "mask_fold.cu"}
+SOURCES = {"fold": "fold.cu", "mask_fold": "mask_fold.cu", "wire": "wire.cu"}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )  # fmt: skip
 
-LAUNCHES = {"fold_planar": 0, "fold_packed": 0, "mask_fold": 0}
+LAUNCHES = {"fold_planar": 0, "fold_packed": 0, "mask_fold": 0, "wire_unpack": 0, "packed_check": 0}
 _LAUNCHES_LOCK = threading.Lock()
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -149,13 +162,18 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.xn_fold_planar.restype = i
         lib.xn_fold_packed.argtypes = [p, p, p, i, i, i, ll, i, i, p]
         lib.xn_fold_packed.restype = i
-    else:
+    elif name == "mask_fold":
         lib.xn_mask_fold_trip.argtypes = [p, ll, ll, i, i, i, i, p, p, p, ll, ll, p, p, p, p]
         lib.xn_mask_fold_trip.restype = i
+    else:
+        lib.xn_wire_unpack.argtypes = [p, p, p, p, i, i, i, ll, i, p]
+        lib.xn_wire_unpack.restype = i
+        lib.xn_packed_check.argtypes = [p, p, p, i, i, i, ll, p]
+        lib.xn_packed_check.restype = i
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library ``name`` (``fold`` or ``mask_fold``), built on
+    """The loaded library ``name`` (a key of :data:`SOURCES`), built on
     first use."""
     with _LIB_LOCK:
         lib = _LIBS.get(name)
@@ -442,3 +460,127 @@ def mask_fold(
             pending = [b for b in pending if done[b] < count]
             t += 1
     return acc, ends
+
+
+# --- K3 and K4: device wire ingest -----------------------------------------
+
+
+def _wire_widths(order: int) -> tuple[int, int]:
+    """(limbs, wire bytes per element) of ``order``; the unpack fills every
+    limb from the wire bytes, so the two must agree (L == ceil(bpn / 4))."""
+    n_limb, bpn = host_limbs.n_limbs_for_order(order), host_limbs.wire_width_for(order)
+    if host_limbs.n_limbs_for_bytes(bpn) != n_limb:
+        raise ValueError(f"wire width {bpn} does not fill {n_limb} limbs")
+    return n_limb, bpn
+
+
+def _check_batch(t: torch.Tensor, ok: bool, want: str) -> None:
+    """Wire blocks must be ``uint8`` of the ``want`` shape (``ok``), at most
+    ``MAX_LAZY_BATCH`` updates (the grid's update axis)."""
+    if t.dtype != torch.uint8 or not ok:
+        raise ValueError(f"expected {want}, got {t.dtype}{list(t.shape)}")
+    if t.shape[0] > MAX_LAZY_BATCH:
+        raise ValueError(f"batch of {t.shape[0]} exceeds {MAX_LAZY_BATCH} updates")
+
+
+def _bad_rows(limbs_of, n_limb: int, k: int, order: int, device) -> torch.Tensor:
+    """Per-update verdict ``uint32[K]``: 1 where any element (limb j of every
+    update from ``limbs_of(j)``, int64 ``[K, n]``) is >= ``order``, else 0.
+    Every bit pattern is valid at the boundary order ``2^(32L)``."""
+    if order == 1 << (32 * n_limb):
+        return torch.zeros(k, dtype=torch.int32, device=device).view(torch.uint32)
+    planar = torch.stack([limbs_of(j) for j in range(n_limb)])  # [L, K, n]
+    lt = p_lt_const(planar, _int_to_limbs_list(order, n_limb))
+    return (~lt).any(dim=1).to(torch.int32).view(torch.uint32)
+
+
+def wire_unpack_plain(raw: torch.Tensor, order: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch K3, any device: interleaved wire element blocks
+    ``uint8[K, n*bpn]`` -> ``(planar uint32[K, L, n], bad uint32[K])``."""
+    n_limb, bpn = _wire_widths(order)
+    k, n = raw.shape[0], raw.shape[1] // bpn
+    b = raw.reshape(k, n, bpn)
+
+    def limb(j: int) -> torch.Tensor:
+        x = torch.zeros((k, n), dtype=torch.int64, device=raw.device)
+        for i in range(min(4, bpn - 4 * j)):
+            x |= b[:, :, 4 * j + i].to(torch.int64) << (8 * i)
+        return x
+
+    limbs = [limb(j) for j in range(n_limb)]
+    bad = _bad_rows(lambda j: limbs[j], n_limb, k, order, raw.device)
+    return narrow(torch.stack(limbs, dim=1)), bad
+
+
+def packed_check_plain(packed: torch.Tensor, order: int) -> torch.Tensor:
+    """Plain torch K4, any device: byte-planar blocks ``uint8[K, bpn, n]`` ->
+    ``bad uint32[K]``."""
+    n_limb, bpn = _wire_widths(order)
+    k, n = packed.shape[0], packed.shape[2]
+
+    def limb(j: int) -> torch.Tensor:
+        x = torch.zeros((k, n), dtype=torch.int64, device=packed.device)
+        for i in range(min(4, bpn - 4 * j)):
+            x |= packed[:, 4 * j + i].to(torch.int64) << (8 * i)
+        return x
+
+    return _bad_rows(limb, n_limb, k, order, packed.device)
+
+
+def wire_unpack(raw: torch.Tensor, order: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3: unpack K v1 wire element blocks ``uint8[K, n*bpn]`` (``bpn``
+    little-endian bytes per element) into planar ``uint32[K, L, n]`` and
+    check every element against ``order``. Returns ``(planar, bad)``, ``bad``
+    a ``uint32[K]`` nonzero for each update with an element >= ``order``
+    (the planar rows of such updates are unpacked all the same, and are the
+    caller's to drop)."""
+    n_limb, bpn = _wire_widths(order)
+    _check_batch(raw, raw.ndim == 2 and raw.shape[1] % bpn == 0, f"uint8[K, n * {bpn}]")
+    if raw.device.type == "cpu":
+        return wire_unpack_plain(raw, order)
+    _require_cuda(raw)
+    dev = raw.device
+    k, n = raw.shape[0], raw.shape[1] // bpn
+    planar = torch.empty((k, n_limb, n), dtype=torch.int32, device=dev).view(torch.uint32)
+    bad = torch.zeros(k, dtype=torch.int32, device=dev).view(torch.uint32)
+    if k == 0 or n == 0:
+        return planar, bad
+    _, _, order_limbs = _order_buffers(order, n_limb, dev)
+    check = int(order != 1 << (32 * n_limb))
+    lib = load("wire")
+    with torch.cuda.device(dev):
+        rc = lib.xn_wire_unpack(
+            raw.data_ptr(), planar.data_ptr(), bad.data_ptr(), order_limbs.data_ptr(),
+            k, bpn, n_limb, n, check, _stream(dev),
+        )  # fmt: skip
+    _check(rc, "K3 wire unpack", lib)
+    _launched("wire_unpack")
+    return planar, bad
+
+
+def packed_check(packed: torch.Tensor, order: int) -> torch.Tensor:
+    """K4: check K v2 byte-planar element blocks ``uint8[K, bpn, n]`` against
+    ``order``; returns ``bad uint32[K]``, nonzero for each update with an
+    element >= ``order``. An order of ``2^(8 bpn)`` (the boundary
+    ``2^(32L)`` among them) lies above every ``bpn``-byte pattern, so
+    nothing is launched for it."""
+    n_limb, bpn = _wire_widths(order)
+    _check_batch(packed, packed.ndim == 3 and packed.shape[1] == bpn, f"uint8[K, {bpn}, n]")
+    if packed.device.type == "cpu":
+        return packed_check_plain(packed, order)
+    _require_cuda(packed)
+    dev = packed.device
+    k, _, n = packed.shape
+    bad = torch.zeros(k, dtype=torch.int32, device=dev).view(torch.uint32)
+    if k == 0 or n == 0 or order >= 1 << (8 * bpn):
+        return bad
+    _, _, order_limbs = _order_buffers(order, n_limb, dev)
+    lib = load("wire")
+    with torch.cuda.device(dev):
+        rc = lib.xn_packed_check(
+            packed.data_ptr(), bad.data_ptr(), order_limbs.data_ptr(),
+            k, bpn, n_limb, n, _stream(dev),
+        )  # fmt: skip
+    _check(rc, "K4 packed check", lib)
+    _launched("packed_check")
+    return bad

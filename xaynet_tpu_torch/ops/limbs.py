@@ -136,6 +136,13 @@ def bytes_le_to_limbs(buf: bytes | np.ndarray, count: int, bytes_per_number: int
     return padded.view("<u4").astype(_U32, copy=False)
 
 
+def limbs_to_bytes_le(arr: np.ndarray, bytes_per_number: int) -> bytes:
+    """Serialize ``uint32[n, L]`` limbs as fixed-width little-endian integers."""
+    arr = np.ascontiguousarray(np.asarray(arr, dtype=_U32))
+    raw = arr.astype("<u4", copy=False).view(np.uint8).reshape(arr.shape[0], -1)
+    return raw[:, :bytes_per_number].tobytes()
+
+
 def lt_const(a: np.ndarray, order_limbs: np.ndarray) -> np.ndarray:
     """Lexicographic ``a < order`` per element, over the trailing limb axis."""
     shape = a.shape[:-1]

@@ -14,6 +14,12 @@ unordered. Work the caller made on its own stream is ordered before a fold
 that reads it (:meth:`on_stream`), and readers of ``acc`` wait for the
 folds queued before them.
 
+Device wire ingest: ``validate_wire_updates`` / ``validate_planar_updates``
+take raw wire element blocks (v1 interleaved, v2 byte-planar), upload a
+group in one copy and unpack + validity-check it on the card (kernels K3
+and K4), so a coordinator never parses elements on the host; accepted rows
+stay on the device until a flush folds them.
+
 The reference analogue is rust/xaynet-server/src/state_machine/phases/
 update.rs:119-152, one sequential big-int pass per accepted update.
 """
@@ -27,6 +33,7 @@ import torch
 
 from ..core.mask.config import MaskConfig
 from ..device import resolve_device
+from ..ops import kernels
 from ..ops import limbs as host_limbs
 from ..ops.fold import (
     MAX_LAZY_BATCH,
@@ -122,6 +129,53 @@ class DeviceAggregator:
         with self.on_stream(packed):
             self._packed_fold_fn(self.acc, packed)
         self.nb_models += packed.shape[0]
+
+    @staticmethod
+    def _verdicts(bad: torch.Tensor) -> list[bool]:
+        """The group's acceptance, fetched to the host (its one sync)."""
+        return [v == 0 for v in bad.view(torch.int32).tolist()]
+
+    def validate_wire_updates(self, raws) -> list:
+        """Unpack and validity-check a GROUP of raw v1 wire updates in one
+        device round trip: one upload, one K3 launch, one fetch of the
+        verdicts. Returns a list parallel to ``raws``: the device planar
+        ``uint32[L, model_len]`` row of each accepted update, ``None`` for
+        each with an element >= the group order (reference ordering: the
+        caller validates BEFORE the seed-dict insert, update.rs:119-152).
+        Kernels here compile once, not per shape, so unlike the JAX package
+        the group is not padded to a power of two."""
+        if not raws:
+            return []
+        block = np.stack([np.asarray(r) for r in raws])
+        if block.dtype != np.uint8 or block.ndim != 2 or block.shape[1] != (
+            self.model_length * self.packed_width
+        ):
+            raise ValueError("expected uint8[K, model_len * bytes_per_number]")
+        if block.shape[0] > MAX_LAZY_BATCH:
+            raise ValueError("batch too large for lazy-carry fold")
+        planar, bad = kernels.wire_unpack(torch.from_numpy(block).to(self.device), self.order)
+        return [planar[i] if ok else None for i, ok in enumerate(self._verdicts(bad))]
+
+    def validate_planar_updates(self, raws) -> list:
+        """Wire-v2 twin of :meth:`validate_wire_updates`: one upload, one K4
+        launch and one fetch of the verdicts for a group of byte-planar
+        element blocks. The upload IS the packed layout, and the returned
+        rows are slices of it (``uint8[bpn, model_len]``), ``None`` for the
+        members with an element >= the group order. Not padded to a power
+        of two either."""
+        if not raws:
+            return []
+        block = np.stack([np.asarray(r) for r in raws])
+        if block.dtype != np.uint8 or block.ndim != 3 or block.shape[1:] != (
+            self.packed_width,
+            self.model_length,
+        ):
+            raise ValueError("expected uint8[K, bytes_per_number, model_len]")
+        if block.shape[0] > MAX_LAZY_BATCH:
+            raise ValueError("batch too large for lazy-carry fold")
+        staged = torch.from_numpy(block).to(self.device)
+        bad = kernels.packed_check(staged, self.order)
+        return [staged[i] if ok else None for i, ok in enumerate(self._verdicts(bad))]
 
     def mask_planar(self, mask_vect) -> torch.Tensor:
         """An aggregated host mask (wire ``[n, L]`` or planar ``[L, n]``) as a

@@ -38,13 +38,18 @@ the batch, so the pipeline is poisoned without a retry. A failed retry
 poisons too. Poison is permanent: every later ``submit``/``drain`` raises
 :class:`StreamingError` naming the batch and the cause.
 
+Rows that device wire ingest already validated on the card
+(``DeviceAggregator.validate_wire_updates`` / ``validate_planar_updates``)
+are not queued: ``fold_planar_rows_now`` / ``fold_packed_rows_now`` fold
+them on the caller's thread, on the accumulator's stream.
+
 One device has no shards, so the JAX package's shard plan, per-shard
 workers and eager per-shard unmask have no counterpart here. Raw wire
-batches with deferred acceptance (``submit_wire_batch``) come with device
-wire ingest; the JAX package's registry gauges, spans, flight dumps,
-tenant page pool and scheduler slots are not part of the port: stage and
-fold seconds and the overlap ratio of the last drain window are plain
-attributes (``last_window``).
+batches with deferred acceptance (``submit_wire_batch``) are not ported
+yet; the JAX package's registry gauges, spans, flight dumps, tenant page
+pool and scheduler slots are not part of the port: stage and fold seconds
+and the overlap ratio of the last drain window are plain attributes
+(``last_window``).
 """
 
 from __future__ import annotations
@@ -460,6 +465,51 @@ class StreamingAggregator:
         self._batch_seq += 1
         self._stage_log.append((self._batch_seq, t0, time.monotonic()))
         self._dispatch((buf, view, kind, k, self._batch_seq))
+
+    def fold_planar_rows_now(self, rows: list) -> None:
+        """Fold device-resident, validity-checked planar ``uint32[L, n]``
+        rows (v1 wire ingest) on the CALLER's thread, in chunks of 8.
+
+        Not queued: the rows already occupy device memory, so parking them
+        behind ``dispatch_ahead`` would hold several batches on the card at
+        once. Queued work finishes first (``agg.acc`` has one mutator at a
+        time); each chunk is stacked and folded by K1 on the accumulator's
+        stream, after the caller's stream, and the references to it are
+        dropped, so the card holds the staged rows plus one chunk's copy."""
+        self._fold_rows_now(rows, packed=False)
+
+    def fold_packed_rows_now(self, rows: list) -> None:
+        """Fold device-resident, validity-checked PACKED byte-planar
+        ``uint8[bpn, n]`` rows (v2 wire ingest) on the CALLER's thread
+        through K1's packed variant: same rationale and accounting as
+        :meth:`fold_planar_rows_now`, and no uint32 planar ever exists."""
+        self._fold_rows_now(rows, packed=True)
+
+    def _fold_rows_now(self, rows: list, packed: bool) -> None:
+        if not rows:
+            return
+        self._queue.join()
+        err = self._poisoned()
+        if err is not None:
+            raise self._poison_error() from err
+        if self._closed:
+            raise StreamingError("pipeline is closed")
+        agg = self.agg
+        fold = agg._packed_fold_fn if packed else agg._fold_fn
+        rows = list(rows)
+        while rows:
+            piece, rows = rows[:8], rows[8:]
+            with agg.on_stream(*piece):
+                staged = torch.stack(piece)
+                try:
+                    fold(agg.acc, staged)
+                except Exception as e:
+                    # K1 folds in place: acc may hold part of the chunk
+                    self._poison(e, None, 0, settled=True)
+                    raise self._poison_error() from e
+                del staged
+            with self._lock:
+                agg.nb_models += len(piece)
 
     # -- fold worker -------------------------------------------------------
 

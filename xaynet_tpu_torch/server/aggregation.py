@@ -19,13 +19,25 @@ pipeline's ring at flush. With packed staging (the default, as
 ``bpn``-byte planes ``uint8[K, bpn, n]`` and folds through K1's packed
 variant.
 
+Device wire ingest: an update parsed lazily from the wire
+(``LazyWireMaskVect``, ``core.mask.serialization.parse_mask_object(...,
+lazy_vect=True)``) is unpacked and validity-checked on the device at
+``validate_aggregation`` (or, a micro-batch at a time, at
+``prevalidate_wire_batch``); its elements are never parsed on the host.
+The accepted row stays on the device (planar for wire v1, packed for v2),
+is staged as it is, and ``flush`` folds such rows on the caller's thread
+(``fold_planar_rows_now`` / ``fold_packed_rows_now``) while host rows go
+through the pipeline's ring. The kind of object passed in decides the
+route; there is no switch.
+
 Journal snapshots (``snapshot_journal``/``restore_journal``) come with the
-phase machine, device-resident staged planars with device wire ingest.
+phase machine.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..core.mask.config import MaskConfigPair
 from ..core.mask.encode import (
@@ -37,7 +49,7 @@ from ..core.mask.encode import (
 )
 from ..core.mask.masking import Aggregation, AggregationError, UnmaskingError
 from ..core.mask.model import Model
-from ..core.mask.object import MaskObject, MaskUnit, MaskVect
+from ..core.mask.object import LazyWireMaskVect, MaskObject, MaskUnit, MaskVect
 from ..ops import limbs as limb_ops
 from ..parallel.aggregator import DeviceAggregator
 from ..parallel.streaming import StreamingAggregator
@@ -156,7 +168,9 @@ class StagedAggregator:
         self.config = config
         self.object_size = object_size
         self.batch_size = max(1, batch_size)
-        self._staged_vect: list[np.ndarray] = []  # wire uint32[model_len, L]
+        # host wire rows uint32[model_len, L], or device rows validated by
+        # wire ingest (planar uint32[L, model_len], packed uint8[bpn, model_len])
+        self._staged_vect: list = []
         self._staged_unit: list[np.ndarray] = []
         self._device = DeviceAggregator(config.vect, object_size, device=device)
         # flush() submits micro-batches here; drain()/finalize() sync
@@ -196,8 +210,64 @@ class StagedAggregator:
             raise AggregationError("TooManyModels")
         if self.nb_models >= self.config.unit.max_nb_models:
             raise AggregationError("TooManyScalars")
-        if not obj.is_valid():
+        vect = obj.vect
+        if isinstance(vect, LazyWireMaskVect) and not vect.materialized:
+            # device wire ingest: unpack + element validity on the device,
+            # the accepted row cached on the object so stage() never uploads
+            # again; before the caller's seed-dict insert (update.rs:119-152).
+            # A prevalidate_wire_batch may already have cached the verdict.
+            row = vect._staged_planar
+            if row is None and not vect._wire_invalid:
+                if vect.planar:
+                    row = self._device.validate_planar_updates([vect.planar_block])[0]
+                else:
+                    row = self._device.validate_wire_updates([vect.wire_block])[0]
+            if row is None or not obj.unit.is_valid():
+                raise AggregationError("InvalidObject")
+            vect._staged_planar = row
+        elif not obj.is_valid():
             raise AggregationError("InvalidObject")
+
+    def prevalidate_wire_batch(self, objs) -> None:
+        """Device validation of a micro-batch about to be processed member by
+        member: one upload, one kernel launch and one fetch of the verdicts
+        per layout and ``batch_size`` chunk
+        (``DeviceAggregator.validate_wire_updates`` /
+        ``validate_planar_updates``), where the per-member path pays a
+        device round trip each. The verdicts are cached on the vect objects
+        and ``validate_aggregation`` consumes them in order, so the
+        validate-before-seed-dict-insert sequence is unchanged. Members that
+        are not lazy wire vects, are already validated, or carry the wrong
+        config or element count are left to the per-member path (which
+        rejects a mismatched one alone)."""
+        want_bytes = self.object_size * self.config.vect.bytes_per_number
+        lazies = [
+            obj.vect
+            for obj in objs
+            if isinstance(obj.vect, LazyWireMaskVect)
+            and not obj.vect.materialized
+            and obj.vect._staged_planar is None
+            and not obj.vect._wire_invalid
+            and obj.vect.config == self.config.vect
+            and np.asarray(obj.vect.wire_block).size == want_bytes
+        ]
+        # v1 (interleaved) and v2 (byte-planar) members take different
+        # kernels, so they validate in separate groups
+        for planar_wire in (False, True):
+            group = [v for v in lazies if v.planar is planar_wire]
+            for start in range(0, len(group), self.batch_size):
+                chunk = group[start : start + self.batch_size]
+                if planar_wire:
+                    rows = self._device.validate_planar_updates([v.planar_block for v in chunk])
+                else:
+                    rows = self._device.validate_wire_updates(
+                        [np.asarray(v.wire_block) for v in chunk]
+                    )
+                for vect, row in zip(chunk, rows):
+                    if row is None:
+                        vect._wire_invalid = True
+                    else:
+                        vect._staged_planar = row
 
     def validate_partial(self, obj: MaskObject, members: int) -> None:
         """Protocol validation for an edge PARTIAL aggregate of ``members``
@@ -236,8 +306,12 @@ class StagedAggregator:
         )[0]
 
     def stage(self, obj: MaskObject) -> None:
-        """Stage an update without folding (caller controls flush timing)."""
-        self._staged_vect.append(np.asarray(obj.vect.data, dtype=np.uint32))
+        """Stage an update without folding (caller controls flush timing):
+        the device row that wire ingest validated, else the host wire row."""
+        row = obj.vect._staged_planar if isinstance(obj.vect, LazyWireMaskVect) else None
+        if row is None:
+            row = np.asarray(obj.vect.data, dtype=np.uint32)
+        self._staged_vect.append(row)
         self._staged_unit.append(np.asarray(obj.unit.data, dtype=np.uint32))
 
     def aggregate(self, obj: MaskObject) -> None:
@@ -246,20 +320,30 @@ class StagedAggregator:
             self.flush()
 
     def flush(self) -> None:
-        """Submit the staged micro-batch into the streaming pipeline and
-        return without waiting for the fold (the pipeline's ring and
+        """Fold the staged micro-batch: device rows from wire ingest on this
+        thread (packed v2 rows through K1's packed variant, planar v1 rows
+        through its planar one), host rows submitted into the streaming
+        pipeline without waiting for their fold (the pipeline's ring and
         dispatch-ahead bounds are the backpressure); :meth:`drain`
         synchronizes."""
         if not self._staged_vect:
             return
         rows, self._staged_vect = self._staged_vect, []
         units, self._staged_unit = np.stack(self._staged_unit), []
-        # the wire rows are packed straight into the pipeline's staging ring
-        # and folded by its worker while this thread goes back to staging
+        packed = [r for r in rows if torch.is_tensor(r) and r.dtype == torch.uint8]
+        planar = [r for r in rows if torch.is_tensor(r) and r.dtype != torch.uint8]
+        host = [r for r in rows if not torch.is_tensor(r)]
+        rows.clear()  # consumed as they fold: each list frees its rows
+        self._stream.fold_packed_rows_now(packed)
+        packed.clear()
+        self._stream.fold_planar_rows_now(planar)
+        planar.clear()
+        # host wire rows are packed straight into the pipeline's staging
+        # ring and folded by its worker while this thread goes back to staging
         step = self._stream.max_batch
-        for start in range(0, len(rows), step):
-            self._stream.submit_batch(rows[start : start + step])
-        rows.clear()
+        for start in range(0, len(host), step):
+            self._stream.submit_batch(host[start : start + step])
+        host.clear()
         order_limbs = limb_ops.order_limbs_for(self.config.unit.order)
         batch_unit = limb_ops.batch_mod_sum(units[:, None, :], order_limbs)[0]
         self._unit_acc = limb_ops.mod_add(

@@ -76,6 +76,26 @@ Builds the hand-written CUDA kernels from ``xaynet_tpu_torch/csrc`` with
   Phase W's launches, K4's bound counting only the bytes its verdict needs
   from this data (every top byte, and the sectors of lower planes where an
   element still ties the order).
+- **Phase R** is a round through the port's coordinator: ``serve()`` on an
+  event loop in a thread, no device given (CUDA), a temporary config with
+  the shipped mask config and aggregation knobs (batch 64, packed staging,
+  no wire ingest), count windows of 1 sum, 3 updates and 1 sum2, the
+  filesystem model store, 25,000,000 parameters, bound to a free port on
+  127.0.0.1. A minimal participant on the port's ``core/message``, crypto
+  modules and ``ops/masking`` (``coordinator_round``) drives it over the
+  socket: ``GET /params``, eligible keys, the sum message, ``GET /sums``,
+  three updates masked on the card (K2 + K1) and sent in 64 MiB parts,
+  ``GET /seeds``, ``sum_masks`` (K2), the sum2 message, ``GET /model``. It
+  checks the decoded model byte-identical to the same updates folded and
+  unmasked (with the same mask) by the plain versions on the CPU and
+  within ``n_updates / exp_shift + 1e-6`` of the mean, that the update
+  phase's aggregator folded on CUDA and its flush launched K1 packed, and
+  the participants' launches; it prints the walls from the first update
+  POST (update phase closed, sum2 closed, model available), the
+  coordinator's decrypt/parse seconds, whether the ``cryptography`` wheel
+  is present and the process's peak host RSS. Then ``python -m
+  xaynet_tpu_torch.server.runner -c <cfg>`` at length 1000 must answer
+  ``GET /params`` and exit 0 on SIGTERM with "coordinator stopped" logged.
 
 Prints what it found on earlier lines; on its last lines the card's name
 and power limit, the kernel table as one JSON object, and
@@ -100,6 +120,9 @@ import numpy as np
 HERE = Path(__file__).resolve().parent
 OUT_DIR = Path("chiprun_out")
 
+# Phase R's participants split a message into parts of at most this many
+# bytes: a 150 MB update goes as 3 parts, through the multipart reader
+PHASE_R_PART_BYTES = 64 << 20
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 # Hopper SM: 64 lanes a clock on each integer pipe, the ALU pipe (logic,
 # shifts, IADD3, compares) and the FMA pipe's IMAD side (H100 architecture
@@ -198,6 +221,268 @@ def k2_keystream_sass(lib: Path, n_limb: int) -> dict | None:
         kinds["alu" if base in ALU_OPCODES else "fma" if base in FMA_OPCODES else "other"] += n
     return {"alu": kinds["alu"], "fma": kinds["fma"], "other": kinds["other"],
             "by_opcode": dict(per_block.most_common())}
+
+
+# -- Phase R: the port's coordinator, and a minimal participant over HTTP ----
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def write_coordinator_config(path: Path, port: int, length: int, model_dir: Path,
+                             n_updates: int = 3, device_fold: bool = True) -> Path:
+    """A coordinator config: the shipped mask config, probabilities and
+    aggregation knobs (``configs/config.toml``; batch 64, packed staging),
+    the device fold on, count windows with min = max (1 sum, ``n_updates``
+    updates, 1 sum2), the filesystem model store (and the flight recorder's
+    dumps) in ``model_dir``."""
+    window = 'time = {{ min = 0.0, max = 900.0 }}\ncount = {{ min = {n}, max = {n} }}'
+    path.write_text(
+        f'[api]\nbind_address = "127.0.0.1:{port}"\n'
+        f'[pet.sum]\nprob = 0.01\n{window.format(n=1)}\n'
+        f'[pet.update]\nprob = 0.1\n{window.format(n=n_updates)}\n'
+        f'[pet.sum2]\n{window.format(n=1)}\n'
+        '[mask]\ngroup_type = "prime"\ndata_type = "f32"\nbound_type = "b0"\n'
+        'model_type = "m3"\n'
+        f"[model]\nlength = {length}\n"
+        f"[aggregation]\ndevice = {str(device_fold).lower()}\nbatch_size = 64\n"
+        "packed_staging = true\n"
+        f'[storage]\nbackend = "filesystem"\nmodel_dir = "{model_dir}"\n'
+        f'[metrics]\nflight_dir = "{model_dir / "flight"}"\n'
+    )
+    return path
+
+
+def http_call(base: str, method: str, path: str, body: bytes = b"",
+              timeout: float = 900.0) -> tuple[int, bytes]:
+    import http.client
+    from urllib.parse import urlparse
+
+    url = urlparse(base)
+    conn = http.client.HTTPConnection(url.hostname, url.port, timeout=timeout)
+    try:
+        conn.request(method, path, body=body or None, headers={"Connection": "close"})
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def coordinator_phase(base: str) -> str | None:
+    """The phase ``GET /healthz`` reports (None while nothing answers)."""
+    try:
+        status, body = http_call(base, "GET", "/healthz", timeout=60)
+    except OSError:
+        return None
+    return json.loads(body)["phase"] if status == 200 else None
+
+
+def wait_for(pred, timeout: float, what: str, poll: float = 0.01):
+    deadline = time.perf_counter() + timeout
+    while time.perf_counter() < deadline:
+        value = pred()
+        if value:
+            return value
+        time.sleep(poll)
+    raise Failure(f"timed out after {timeout:.0f} s waiting for {what}")
+
+
+def eligible_keys(seed: bytes, sum_prob: float, update_prob: float, want: str, start: int):
+    """A signing keypair whose task this round is ``want`` ("sum" or
+    "update"): the rule of the SDK's ``simulation.keys_for_task``."""
+    from xaynet_tpu_torch.core.crypto.sign import SigningKeyPair, is_eligible
+
+    for i in range(start, start + 100_000):
+        keys = SigningKeyPair.derive_from_seed(i.to_bytes(32, "little"))
+        if is_eligible(keys.sign(seed + b"sum").as_bytes(), sum_prob):
+            role = "sum"
+        elif is_eligible(keys.sign(seed + b"update").as_bytes(), update_prob):
+            role = "update"
+        else:
+            role = "none"
+        if role == want:
+            return keys
+    raise Failure(f"no {want} key in 100000 tries")
+
+
+def sealed_parts(params, keys, payload, max_message_size: int | None) -> list[bytes]:
+    """Sign the message, split it into parts of at most ``max_message_size``
+    bytes and seal each for the coordinator (the SDK's send)."""
+    from xaynet_tpu_torch.core.crypto.encrypt import PublicEncryptKey
+    from xaynet_tpu_torch.core.message.encoder import MessageEncoder
+    from xaynet_tpu_torch.core.message.message import Message
+
+    message = Message(participant_pk=keys.public, coordinator_pk=params.pk, payload=payload)
+    encoder = MessageEncoder(message, keys.secret, max_message_size)
+    coordinator = PublicEncryptKey(params.pk)
+    return [coordinator.encrypt(encoder.part(i)) for i in range(encoder.n_parts)]
+
+
+def post_parts(base: str, parts: list[bytes]) -> list[float]:
+    """POST each part; the seconds each took, until its answer."""
+    seconds = []
+    for part in parts:
+        t = time.perf_counter()
+        status, body = http_call(base, "POST", "/message", part)
+        seconds.append(time.perf_counter() - t)
+        if status != 200:
+            raise Failure(f"POST /message answered {status}: {body[:200]!r}")
+    return seconds
+
+
+def task_signature(keys, seed: bytes, task: str) -> bytes:
+    """A participant's signature of the round seed and its task."""
+    return keys.sign(seed + task.encode()).as_bytes()
+
+
+class InProcessCoordinator:
+    """The port's ``serve(settings, device=device)`` on an event loop in a
+    thread of this process; :meth:`stop` cancels it (its clean shutdown)."""
+
+    def __init__(self, settings, device=None):
+        import asyncio
+        import threading
+
+        from xaynet_tpu_torch.server import runner
+
+        self.error: BaseException | None = None
+        self._loop = asyncio.new_event_loop()
+        self._task = None
+        ready = threading.Event()
+
+        def run() -> None:
+            import torch
+
+            if torch.cuda.is_available():
+                torch.cuda.set_device(0)  # the thread's current device
+            asyncio.set_event_loop(self._loop)
+            self._task = self._loop.create_task(runner.serve(settings, device=device))
+            ready.set()
+            try:
+                self._loop.run_until_complete(self._task)
+            except BaseException as exc:  # re-raised by stop()
+                self.error = exc
+            finally:
+                self._loop.run_until_complete(self._loop.shutdown_default_executor())
+                self._loop.close()
+
+        self._thread = threading.Thread(target=run, name="xn-coordinator", daemon=True)
+        self._thread.start()
+        ready.wait()
+
+    def stop(self, timeout: float = 120.0) -> None:
+        if self._thread.is_alive():
+            self._loop.call_soon_threadsafe(self._task.cancel)
+            self._thread.join(timeout)
+        if self._thread.is_alive():
+            raise Failure(f"the coordinator did not stop within {timeout:.0f} s")
+        if self.error is not None:
+            raise self.error
+
+
+def coordinator_round(base: str, weights: list, device, max_message_size: int | None,
+                      rng: np.random.Generator, timeout: float = 900.0) -> dict:
+    """One PET round against the coordinator at ``base``, with one sum
+    participant and one update participant per entry of ``weights``, on the
+    port's copies of the protocol only: ``core/message``, the crypto
+    modules, ``ops/masking.mask_update`` (K2 + K1 on ``device``) and
+    ``sum_masks`` (K2). Each update's parts are signed and sealed before the
+    first is posted, so the walls from the first update POST are the
+    coordinator's (plus the sum participant's Sum2 step, timed alone).
+    Returns the decoded global model, the masked updates, the Sum2 mask and
+    the walls."""
+    from xaynet_tpu_torch.core.common import RoundParameters
+    from xaynet_tpu_torch.core.crypto.encrypt import EncryptKeyPair, PublicEncryptKey
+    from xaynet_tpu_torch.core.mask.model import Scalar
+    from xaynet_tpu_torch.core.mask.object import MaskObject, MaskUnit, MaskVect
+    from xaynet_tpu_torch.core.mask.seed import EncryptedMaskSeed, MaskSeed
+    from xaynet_tpu_torch.core.message.payloads import Sum, Sum2, Update
+    from xaynet_tpu_torch.ops import masking
+
+    walls: dict = {}
+    status, body = http_call(base, "GET", "/params")
+    if status != 200:
+        raise Failure(f"GET /params answered {status}")
+    params = RoundParameters.from_dict(json.loads(body))
+    pair, length, seed = params.mask_config, params.model_length, params.seed.as_bytes()
+    n_up = len(weights)
+    if length != len(weights[0]):
+        raise Failure(f"round model length {length} != {len(weights[0])}")
+    summer = eligible_keys(seed, params.sum, params.update, "sum", 0)
+    updaters = [eligible_keys(seed, params.sum, params.update, "update", (20 + i) * 1000)
+                for i in range(n_up)]
+    sum_sig = task_signature(summer, seed, "sum")
+
+    # the update participants mask on the card (K2 derives the mask, K1 adds)
+    t = time.perf_counter()
+    seeds = [rng.bytes(32) for _ in range(n_up)]
+    scalar = Scalar(Fraction(1, n_up))
+    updates = [masking.mask_update(s, scalar, w, pair, device=device)
+               for s, w in zip(seeds, weights)]
+    walls["participants_mask"] = time.perf_counter() - t
+
+    # the sum participant's ephemeral key; the sum phase closes on it
+    ephm = EncryptKeyPair.generate()
+    post_parts(base, sealed_parts(params, summer, Sum(sum_sig, ephm.public.as_bytes()),
+                                  max_message_size))
+    wait_for(lambda: coordinator_phase(base) == "update", timeout, "the update phase")
+    status, body = http_call(base, "GET", "/sums")
+    if status != 200:
+        raise Failure(f"GET /sums answered {status}")
+    sum_dict = {bytes.fromhex(k): bytes.fromhex(v) for k, v in json.loads(body).items()}
+
+    t = time.perf_counter()
+    messages = []
+    for keys, s, obj in zip(updaters, seeds, updates):
+        local = {spk: MaskSeed(s).encrypt(PublicEncryptKey(epk)) for spk, epk in sum_dict.items()}
+        payload = Update(task_signature(keys, seed, "sum"), task_signature(keys, seed, "update"),
+                         obj, local, wire_planar=params.wire_format >= 2)
+        messages.append(sealed_parts(params, keys, payload, max_message_size))
+    walls["participants_sign_seal"] = time.perf_counter() - t
+    parts_per_update = [len(m) for m in messages]
+
+    cpu0 = time.process_time()
+    t0 = walls["t0"] = time.perf_counter()
+    walls["update_part_posts"] = [post_parts(base, parts) for parts in messages]
+    walls["update_posts"] = time.perf_counter() - t0
+    # this process's CPU seconds (every thread: the participant and an
+    # in-process coordinator) while the updates went in
+    walls["update_posts_process_cpu"] = time.process_time() - cpu0
+    del messages
+    wait_for(lambda: coordinator_phase(base) != "update", timeout, "the update phase to close")
+
+    # the sum participant: its seeds, then sum_masks on the card (K2)
+    t = time.perf_counter()
+    status, body = http_call(base, "GET", "/seeds?pk=" + summer.public.hex())
+    if status != 200:
+        raise Failure(f"GET /seeds answered {status}")
+    enc = json.loads(body)
+    mask_seeds = [EncryptedMaskSeed(bytes.fromhex(v)).decrypt(ephm.secret, ephm.public).as_bytes()
+                  for v in enc.values()]
+    unit_m, vect_m = masking.sum_masks(mask_seeds, length, pair, device=device)
+    mask = MaskObject(MaskVect(pair.vect, vect_m), MaskUnit(pair.unit, unit_m))
+    sum2_parts = sealed_parts(params, summer, Sum2(sum_sig, mask), max_message_size)
+    walls["sum2_participant"] = time.perf_counter() - t
+    post_parts(base, sum2_parts)
+    del sum2_parts
+    wait_for(lambda: coordinator_phase(base) != "sum2", timeout, "the sum2 phase to close")
+
+    def model():
+        status, body = http_call(base, "GET", "/model")
+        return body if status == 200 else None
+
+    body = wait_for(model, timeout, "the global model", poll=0.05)
+    walls["model_available"] = time.perf_counter() - t0
+    return {"model": np.frombuffer(body, dtype="<f8").copy(), "updates": updates,
+            "mask": mask, "walls": walls, "parts_per_update": parts_per_update,
+            "n_seeds": len(mask_seeds)}
+
+
 
 
 class Smoke:
@@ -1250,7 +1535,231 @@ class Smoke:
 
     # -- device kernel times on the main path -------------------------------
 
-    def kernel_table(self, timings: dict, launches: dict) -> list[dict]:
+    # -- phase R: a round through the port's coordinator ----------------------
+
+    def phase_r(self) -> dict:
+        """One PET round through the port's coordinator (``serve()`` in a
+        thread, CUDA) over the socket, at the main length, with 3 update
+        participants and one sum participant (``coordinator_round``); checks
+        the model against the same inputs folded and unmasked by the plain
+        versions on the CPU and against the mean, that the coordinator's
+        flush launched K1 packed and that its aggregator folded on CUDA."""
+        import logging
+        import os
+        import resource
+        import shutil
+        import tempfile
+
+        from xaynet_tpu_torch.core.crypto import encrypt
+        from xaynet_tpu_torch.ops import kernels
+        from xaynet_tpu_torch.server import settings as settings_mod
+        from xaynet_tpu_torch.server.aggregation import StagedAggregator
+        from xaynet_tpu_torch.server.phases import update as update_phase
+        from xaynet_tpu_torch.telemetry.registry import get_registry
+
+        args = self.args
+        length, n_up = args.length, 3
+        rng = np.random.default_rng(args.seed + 3)
+        weights = [rng.uniform(-0.9, 0.9, length).astype(np.float32) for _ in range(n_up)]
+        work = Path(tempfile.mkdtemp(prefix="xn_phase_r_"))
+        built, rings = [], {}  # the update phase's aggregators, their staging rings
+        real_build = update_phase.build_staged_aggregator
+
+        def spy(shared):
+            agg = real_build(shared)
+            stream, close = agg._stream, agg._stream.close
+
+            def keep_rings_then_close():  # close() hands the rings back to the pool
+                rings.update(stream._rings)
+                close()
+
+            stream.close = keep_rings_then_close
+            built.append(agg)
+            return agg
+
+        class PhaseMarks(logging.Handler):
+            """The coordinator's phase transitions, on this process's clock."""
+
+            def __init__(self):
+                super().__init__()
+                self.marks = []
+
+            def emit(self, record):
+                msg = record.getMessage()
+                if "entering" in msg or "full close" in msg:
+                    self.marks.append((time.perf_counter(), msg))
+
+        def pipeline_seconds() -> dict:
+            family = get_registry().get("xaynet_message_pipeline_seconds")
+            return {stage: family.labels(stage=stage).sum for stage in ("decrypt_parse", "total")}
+
+        port = free_port()
+        base = f"http://127.0.0.1:{port}"
+        host_load = {"loadavg": os.getloadavg(), "cpus": len(os.sched_getaffinity(0))}
+        cfg = write_coordinator_config(work / "config.toml", port, length, work / "models", n_up)
+        settings = settings_mod.Settings.load(str(cfg), env={})
+        self.check(settings.aggregation.device and settings.aggregation.batch_size == 64
+                   and settings.aggregation.packed_staging and not settings.aggregation.wire_ingest,
+                   "(r0) Phase R's config: device fold, batch 64, packed staging, no wire ingest")
+        update_phase.build_staged_aggregator = spy
+        marks = PhaseMarks()
+        logging.getLogger("xaynet.coordinator").addHandler(marks)
+        # no device: CUDA (the CPU rehearsal names its device)
+        coordinator = InProcessCoordinator(settings, None if self.cuda else self.dev)
+        try:
+            t = time.perf_counter()
+            wait_for(lambda: coordinator_phase(base) == "sum", 120, "the coordinator's sum phase")
+            start_s = time.perf_counter() - t
+            before = pipeline_seconds()
+            kernels.reset_launches()
+            out = coordinator_round(base, weights, self.dev, PHASE_R_PART_BYTES, rng, timeout=300)
+            launches = dict(kernels.LAUNCHES)
+            after = pipeline_seconds()
+        finally:
+            update_phase.build_staged_aggregator = real_build
+            coordinator.stop()
+            logging.getLogger("xaynet.coordinator").removeHandler(marks)
+            shutil.rmtree(work, ignore_errors=True)
+        peak_rss_gib = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+        model, walls = out["model"], out["walls"]
+        pipeline = {k: after[k] - before[k] for k in after}
+
+        def mark(prefix: str, text: str) -> float | None:
+            """Seconds from the first update POST to the coordinator's log line."""
+            hits = [t for t, msg in marks.marks if msg.startswith(prefix) and text in msg]
+            return hits[0] - walls["t0"] if hits else None
+
+        phases = {
+            "update_full_close": mark("round 1", "update: full close"),
+            # the flush is submitted; [overlap] sum2_drain runs the drain in sum2
+            "update_closed": mark("round 1", "entering sum2 phase"),
+            "sum2_closed": mark("round 1", "entering unmask phase"),
+            "unmask_done": mark("round 2", "entering idle phase"),
+            "model_available": walls["model_available"],
+        }
+        ring = rings.get("packed")
+        window = (built[0]._stream.last_window or {}) if built else {}
+        drain = {
+            "ring_bytes": None if ring is None else ring.nbytes,
+            "ring_pin_s": None if ring is None else ring.pin_seconds,
+            "ring_reused": None if ring is None else ring.reused,
+            "stage_s": window.get("stage_seconds"),
+            "fold_s": window.get("fold_seconds"),
+        }
+
+        # the same inputs through the plain versions on the CPU: the fold of
+        # the three masked updates and the unmask with the Sum2 mask
+        t = time.perf_counter()
+        ref = StagedAggregator(out["mask"].config, length, batch_size=n_up, device="cpu")
+        for obj in out["updates"]:
+            ref.validate_aggregation(obj)
+            ref.aggregate(obj)
+        ref_model = ref.finalize_inplace().unmask_array(out["mask"])
+        plain_s = time.perf_counter() - t
+        self.check(model.shape == (length,) and bool(np.all(np.isfinite(model))),
+                   "(r1) global model finite, of the model length")
+        self.check(model.tobytes() == ref_model.tobytes(),
+                   "(r2) global model byte-identical to the plain CPU fold + unmask of its inputs")
+        mean = np.sum([w.astype(np.float64) for w in weights], axis=0) / n_up
+        tol = n_up / out["mask"].config.vect.exp_shift + 1e-6
+        err = float(np.max(np.abs(model - mean)))
+        self.check(err <= tol, f"(r3) |model - mean| = {err:.3e} <= {tol:.3e}")
+        used = [a.kernel_used for a in built]
+        self.check(used == ["cuda" if self.cuda else "plain"],
+                   f"(r4) the update phase folded on {self.dev.type} (kernel_used {used})")
+        if self.cuda:
+            self.check(launches["fold_packed"] == 1,
+                       f"(r5) the coordinator's flush launched K1 packed once "
+                       f"({launches['fold_packed']})")
+            self.check(launches["fold_planar"] == n_up and launches["mask_fold"] == 2 * n_up,
+                       f"(r6) participants: K1 planar {launches['fold_planar']} == {n_up}, "
+                       f"K2 {launches['mask_fold']} == {2 * n_up} (masking and Sum2)")
+        self.check(out["n_seeds"] == n_up, f"(r7) the sum participant got {n_up} seeds")
+        have_wheel = bool(encrypt._HAVE_CRYPTO)
+        log(f"[phase R] round through the coordinator, {n_up} updates x {length} params: "
+            f"checks (r0)-(r8) passed; decode max err {err:.3e} <= {tol:.3e}")
+        self.check(all(v is not None for v in phases.values()),
+                   f"(r8) the coordinator logged every phase of round 1 ({len(marks.marks)} lines)")
+        log(f"[phase R] walls from the first update POST (coordinator's log): update window full "
+            f"{phases['update_full_close']:.3f} s, update phase closed (flush submitted; drain overlapped into sum2) "
+            f"{phases['update_closed']:.3f} s, sum2 closed {phases['sum2_closed']:.3f} s, unmask "
+            f"done {phases['unmask_done']:.3f} s, model available (GET /model) "
+            f"{phases['model_available']:.3f} s; update POSTs {walls['update_posts']:.3f} s, "
+            f"{out['parts_per_update']} parts each; the sum participant's Sum2 step "
+            f"{walls['sum2_participant']:.3f} s inside")
+        log(f"[phase R] update POSTs per part (s): "
+            f"{[[round(x, 3) for x in u] for u in walls['update_part_posts']]}; this process's "
+            f"CPU seconds meanwhile {walls['update_posts_process_cpu']:.3f}; host load average "
+            f"{host_load['loadavg']} on {host_load['cpus']} CPUs before the round")
+        log(f"[phase R] the update phase's flush: ring {drain['ring_bytes']} bytes pinned in "
+            f"{drain['ring_pin_s']} s (reused {drain['ring_reused']}), stage {drain['stage_s']} s, "
+            f"fold {drain['fold_s']} s")
+        log(f"[phase R] coordinator message pipeline: decrypt_parse {pipeline['decrypt_parse']:.3f} s "
+            f"of {pipeline['total']:.3f} s handling; participants: mask "
+            f"{walls['participants_mask']:.3f} s, sign + seal {walls['participants_sign_seal']:.3f} s; "
+            f"coordinator up in {start_s:.3f} s; plain CPU reference {plain_s:.3f} s")
+        log(f"[phase R] cryptography wheel present: {have_wheel} "
+            f"({'native' if have_wheel else 'pure-python fallback'} sealed boxes and signatures); "
+            f"peak host RSS of this process so far {peak_rss_gib:.2f} GiB")
+        log(f"[phase R] launches {launches}")
+        return {"walls": walls, "phases": phases, "drain": drain, "launches": launches,
+                "host_load": host_load,
+                "pipeline_seconds": pipeline,
+                "cryptography_wheel": have_wheel, "decode_max_err": err,
+                "parts_per_update": out["parts_per_update"], "peak_rss_gib": peak_rss_gib,
+                "coordinator_start_s": start_s, "plain_reference_s": plain_s}
+
+    def phase_r_cli(self) -> dict:
+        """``python -m xaynet_tpu_torch.server.runner -c <cfg>`` at a small
+        length: ``GET /params`` answers, SIGTERM stops it with exit code 0
+        and "coordinator stopped" in its log."""
+        import signal
+        import shutil
+        import tempfile
+
+        length = 1000
+        work = Path(tempfile.mkdtemp(prefix="xn_runner_"))
+        port = free_port()
+        base = f"http://127.0.0.1:{port}"
+        # the CPU rehearsal's runner folds on the host (it has no card)
+        cfg = write_coordinator_config(work / "config.toml", port, length, work / "models",
+                                       device_fold=self.cuda)
+        log_path = work / "runner.log"
+        t = time.perf_counter()
+        with open(log_path, "wb") as out:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "xaynet_tpu_torch.server.runner", "-c", str(cfg)],
+                cwd=HERE, stdout=out, stderr=subprocess.STDOUT,
+            )  # fmt: skip
+        try:
+            def params():
+                if proc.poll() is not None:
+                    raise Failure(f"the runner exited early with {proc.returncode}")
+                try:
+                    status, body = http_call(base, "GET", "/params", timeout=30)
+                except OSError:
+                    return None
+                return json.loads(body) if status == 200 else None
+
+            answered = wait_for(params, 120, "the runner's GET /params", poll=0.1)
+            up_s = time.perf_counter() - t
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            text = log_path.read_text(errors="replace")
+            shutil.rmtree(work, ignore_errors=True)
+        self.records["runner_log_tail"] = text[-4000:]
+        self.check(answered["model_length"] == length, "(r9) the runner's GET /params answers")
+        self.check(rc == 0 and "coordinator stopped" in text,
+                   f"(r10) SIGTERM stops the runner: exit code {rc}, 'coordinator stopped' logged")
+        log(f"[phase R] runner CLI: GET /params answered {up_s:.1f} s after the start; "
+            f"SIGTERM -> exit code {rc}, 'coordinator stopped' logged")
+        return {"params_after_s": up_s, "exit_code": rc}
+
+    def kernel_table(self, timings: dict, launches: dict, round_launches: dict) -> list[dict]:
         torch = self.torch
         props = torch.cuda.get_device_properties(0)
         int_rate = props.multi_processor_count * INT32_LANES_PER_SM * max_sm_clock_hz()
@@ -1288,6 +1797,8 @@ class Smoke:
                 "source": source,
                 "replaces": replaces,
                 "launches": launches[name],
+                # Phase R's run: the round through the coordinator
+                "launches_coordinator_round": round_launches[name],
                 "max_abs_err": self.max_err[name],
                 "ms": t["ms"],
                 "plain_ms": t["plain_ms"],
@@ -1382,6 +1893,8 @@ def main() -> int:
         pipeline = smoke.phase_pipeline()
         result = smoke.phase_b()
         wire = smoke.phase_w(result["walls"], timings)
+        coordinator = smoke.phase_r()
+        coordinator["runner_cli"] = smoke.phase_r_cli()
     except Exception as exc:  # every phase failure ends the run without a result
         traceback.print_exc()
         print(f"chip_smoke: FAILED: {type(exc).__name__}: {exc}", file=sys.stderr)
@@ -1394,7 +1907,7 @@ def main() -> int:
             smoke.records["profile"] = f"unavailable: {type(exc).__name__}: {exc}"
             log(f"[profile] unavailable: {exc}")
     smoke.records.update(timings=timings, pipeline=pipeline, round=result, wire_round=wire,
-                         seconds=time.perf_counter() - t0)
+                         coordinator_round=coordinator, seconds=time.perf_counter() - t0)
     if not smoke.cuda:
         _write_records(smoke.records)
         log(f"chip_smoke: rehearsal on {args.device} passed in {time.perf_counter() - t0:.1f} s")
@@ -1402,7 +1915,7 @@ def main() -> int:
     # launches per path: K1 and K2 on Phase B's round, K3 and K4 on Phase W's
     launches = {**result["launches"],
                 **{k: wire["launches"][k] for k in ("wire_unpack", "packed_check")}}
-    table = smoke.kernel_table(timings, launches)
+    table = smoke.kernel_table(timings, launches, coordinator["launches"])
     smoke.records["kernels"] = table
     _write_records(smoke.records)
     log(f"[done] {time.perf_counter() - t0:.1f} s")

@@ -10,7 +10,8 @@ also runs where JAX is not installed:
 The streaming pipeline's card cases (the dispatch-ahead stress, the
 degrade-once fault and the fault on both tries) use the same seams as
 ``chip_smoke.py``'s phase P: the accumulator's fold seam and the
-``streaming.fold`` fault site.
+``streaming.fold`` fault site. The coordinator round uses the minimal
+participant of ``chip_smoke.py``'s phase R.
 """
 
 from __future__ import annotations
@@ -496,3 +497,39 @@ def test_pipeline_closes_after_poison_with_its_copies_done(cuda):
     assert stream._rings["packed"].reused >= 1
     assert np.array_equal(agg.snapshot(), _plain_fold(n, wires).snapshot())
     stream.close()
+
+
+def test_coordinator_round_on_card(cuda, tmp_path):
+    """A small round through the port's coordinator (``serve()`` with no
+    device, so CUDA) over the socket, with ``chip_smoke.py``'s minimal
+    participant: K1 packed folds the update phase's flush, and the model is
+    byte-identical to the plain CPU fold + unmask of the same inputs."""
+    import chip_smoke
+    from xaynet_tpu_torch.server.aggregation import StagedAggregator
+    from xaynet_tpu_torch.server.settings import Settings
+
+    length, n_up = 10_000, 3
+    port = chip_smoke.free_port()
+    base = f"http://127.0.0.1:{port}"
+    cfg = chip_smoke.write_coordinator_config(tmp_path / "config.toml", port, length,
+                                              tmp_path / "models", n_up)
+    coordinator = chip_smoke.InProcessCoordinator(Settings.load(str(cfg), env={}))
+    rng = np.random.default_rng(5)
+    weights = [rng.uniform(-0.9, 0.9, length).astype(np.float32) for _ in range(n_up)]
+    try:
+        chip_smoke.wait_for(lambda: chip_smoke.coordinator_phase(base) == "sum", 60, "sum")
+        kernels.reset_launches()
+        out = chip_smoke.coordinator_round(base, weights, "cuda", 4096, rng, timeout=120)
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        coordinator.stop()
+    assert out["parts_per_update"][0] > 1  # multipart
+    assert launches["fold_packed"] == 1
+    ref = StagedAggregator(out["mask"].config, length, batch_size=n_up, device="cpu")
+    for obj in out["updates"]:
+        ref.validate_aggregation(obj)
+        ref.aggregate(obj)
+    want = ref.finalize_inplace().unmask_array(out["mask"])
+    assert out["model"].tobytes() == want.tobytes()
+    mean = np.sum([w.astype(np.float64) for w in weights], axis=0) / n_up
+    assert np.max(np.abs(out["model"] - mean)) <= n_up / out["mask"].config.vect.exp_shift + 1e-6

@@ -10,11 +10,15 @@
   the streaming pipeline's included, and on a CPU device the pipeline
   runs without touching CUDA (nothing is pinned);
 - a wrapper handed a tensor that is neither on the CPU nor on a CUDA
-  device raises (only CPU tensors take the plain versions).
+  device raises (only CPU tensors take the plain versions);
+- the coordinator (``server.runner.serve``, ``StateMachineInitializer``, the
+  ``python -m xaynet_tpu_torch.server.runner`` CLI) with ``[aggregation]
+  device`` true or false and no device given refuses to run without CUDA.
 """
 
 from __future__ import annotations
 
+import asyncio
 import json
 import os
 import pkgutil
@@ -32,8 +36,12 @@ from xaynet_tpu_torch.core.mask.config import BoundType, DataType, GroupType, Ma
 from xaynet_tpu_torch.core.mask.model import Scalar
 from xaynet_tpu_torch.ops import kernels, masking
 from xaynet_tpu_torch.parallel.aggregator import DeviceAggregator
+from xaynet_tpu_torch.device import DeviceUnavailable
 from xaynet_tpu_torch.parallel.streaming import StreamingAggregator
+from xaynet_tpu_torch.server import runner
 from xaynet_tpu_torch.server.aggregation import StagedAggregator
+from xaynet_tpu_torch.server.settings import Settings
+from xaynet_tpu_torch.server.state_machine import StateMachineInitializer
 
 REPO = Path(__file__).resolve().parents[1]
 PAIR = MaskConfig(GroupType.PRIME, DataType.F32, BoundType.B0, ModelType.M3).pair()
@@ -172,29 +180,67 @@ def test_wrappers_refuse_non_cpu_non_cuda_tensors():
         kernels.mask_fold(acc, kw, [0], 16, PAIR.vect.order)
 
 
-@pytest.mark.parametrize(
-    "module",
-    [
+# the wire-ingest path and the coordinator's: every module of the port's
+# host and server packages, each imported on its own
+_ALONE = sorted(
+    {
         "xaynet_tpu_torch.core.mask.serialization",
         "xaynet_tpu_torch.core.mask.object",
         "xaynet_tpu_torch.parallel.aggregator",
         "xaynet_tpu_torch.server.aggregation",
-    ],
-)
-def test_wire_ingest_modules_import_alone_without_jax(module):
-    """Each module on the wire-ingest path, imported alone in a fresh
-    interpreter, pulls in neither ``jax`` nor the JAX package."""
-    assert module in _port_modules()
-    code = (
-        "import importlib, json, sys\n"
-        f"importlib.import_module({module!r})\n"
-        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
-        " or k == 'xaynet_tpu' or k.startswith('xaynet_tpu.'))\n"
-        "print(json.dumps(bad))\n"
-    )
-    proc = _run(code)
+    }
+    | {
+        m
+        for m in _port_modules()
+        if m.split(".")[1:2] in (["server"], ["core"], ["storage"], ["telemetry"],
+                                 ["resilience"], ["utils"])
+    }
+)  # fmt: skip
+
+_IMPORT_EACH_ALONE = """
+import importlib, json, os, sys
+import numpy, torch
+out = {}
+for m in MODULES:
+    r, w = os.pipe()
+    pid = os.fork()
+    if pid == 0:
+        os.close(r)
+        try:
+            importlib.import_module(m)
+            bad = sorted(k for k in sys.modules if k == "jax" or k.startswith("jax.")
+                         or k == "xaynet_tpu" or k.startswith("xaynet_tpu."))
+        except BaseException as err:
+            bad = ["import failed: %r" % (err,)]
+        os.write(w, json.dumps(bad).encode())
+        os._exit(0)
+    os.close(w)
+    with os.fdopen(r) as f:
+        out[m] = json.loads(f.read())
+    os.waitpid(pid, 0)
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def imported_alone() -> dict:
+    """Module -> what importing it alone pulled in of ``jax`` and the JAX
+    package (or its import error). One fresh interpreter imports torch and
+    numpy, then forks a child per module, so each child starts from an
+    interpreter that holds nothing of the port."""
+    proc = _run(f"MODULES = {_ALONE!r}\n" + _IMPORT_EACH_ALONE)
     assert proc.returncode == 0, proc.stderr
-    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("module", _ALONE)
+def test_wire_ingest_modules_import_alone_without_jax(module, imported_alone):
+    """Each module on the wire-ingest path and the coordinator's, every
+    module of the port's ``server``, ``core``, ``storage``, ``telemetry``,
+    ``resilience`` and ``utils`` among them, imported alone, pulls in
+    neither ``jax`` nor the JAX package."""
+    assert module in _port_modules()
+    assert imported_alone[module] == []
 
 
 @pytest.mark.parametrize("name", sorted(kernels.SOURCES))
@@ -223,3 +269,77 @@ def test_wire_wrappers_refuse_non_cpu_non_cuda_tensors():
     packed = torch.empty((1, 6, 16), dtype=torch.uint8, device="meta")
     with pytest.raises(ValueError, match="expected CUDA tensors"):
         kernels.packed_check(packed, order)
+
+
+def _device_round_settings() -> Settings:
+    settings = Settings.default()
+    settings.model.length = 8
+    settings.aggregation.device = True
+    return settings
+
+
+def test_coordinator_device_round_without_cuda_raises(no_cuda):
+    settings = _device_round_settings()
+    store = runner.init_store(settings)
+    with pytest.raises(DeviceUnavailable, match="no CUDA device"):
+        StateMachineInitializer(settings, store)
+    with pytest.raises(DeviceUnavailable, match="no CUDA device"):
+        asyncio.run(runner.serve(settings))
+    # [aggregation] device = false (the JAX package's host fold) runs on
+    # CUDA as well in the port: no device given still means the card
+    settings.aggregation.device = False
+    with pytest.raises(DeviceUnavailable, match="no CUDA device"):
+        StateMachineInitializer(settings, store)
+    with pytest.raises(DeviceUnavailable, match="no CUDA device"):
+        asyncio.run(runner.serve(settings))
+    # a CPU device runs when asked
+    for flag in (False, True):
+        settings.aggregation.device = flag
+        assert StateMachineInitializer(settings, store, device="cpu").device.type == "cpu"
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _assert_cli_refuses_without_cuda(cfg: Path) -> None:
+    """``python -m xaynet_tpu_torch.server.runner -c cfg`` with no card
+    exits with an error and never listens."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")  # no card, whatever the machine
+    proc = subprocess.run(
+        [sys.executable, "-m", "xaynet_tpu_torch.server.runner", "-c", str(cfg)],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120,
+    )  # fmt: skip
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+    assert "REST API listening" not in proc.stderr
+
+
+def test_runner_cli_refuses_device_round_without_cuda(tmp_path):
+    """``python -m xaynet_tpu_torch.server.runner`` with ``device = true``
+    exits with an error where there is no CUDA, instead of serving."""
+    cfg = tmp_path / "config.toml"
+    cfg.write_text(
+        f'[api]\nbind_address = "127.0.0.1:{_free_port()}"\n'
+        "[model]\nlength = 8\n[aggregation]\ndevice = true\n"
+    )
+    _assert_cli_refuses_without_cuda(cfg)
+
+
+def test_runner_cli_refuses_shipped_config_without_cuda(tmp_path):
+    """The shipped config (``[aggregation] device = false``, the JAX
+    package's host fold) starts the port's coordinator on CUDA too: with no
+    card the CLI exits with an error instead of folding on the CPU."""
+    shipped = (REPO / "configs" / "config.toml").read_text()
+    assert 'bind_address = "127.0.0.1:8081"' in shipped
+    assert Settings.load(str(REPO / "configs" / "config.toml"), env={}).aggregation.device is False
+    cfg = tmp_path / "config.toml"
+    cfg.write_text(
+        shipped.replace('"127.0.0.1:8081"', f'"127.0.0.1:{_free_port()}"')
+        .replace('"./global_models"', f'"{tmp_path / "models"}"')
+    )
+    _assert_cli_refuses_without_cuda(cfg)

@@ -414,8 +414,8 @@ def test_fault_plan_decides_as_jax_package(spec):
     for site in ("streaming.fold", "t:t1:streaming.fold", "streaming.other"):
         for _ in range(20):
             a, b = ours.decide(site), theirs.decide(site)
-            assert a == (None if b is None else b.index)
-            assert b is None or b.kind == "error"
+            assert (a is None) == (b is None)
+            assert a is None or (a.index, a.kind) == (b.index, b.kind) == (b.index, "error")
 
 
 def test_maybe_fail_raises_and_clears(no_fault_plans):

@@ -1,10 +1,12 @@
-"""PyTorch/CUDA port of the xaynet-tpu device path.
+"""PyTorch/CUDA port of xaynet-tpu.
 
-One PET round's device work — the Update fold, the Sum2 mask derive+fold and
-the Unmask subtract — on an NVIDIA H100, with the two fold kernels written
-by hand in CUDA C++ (``csrc/``). The layout mirrors the JAX package
-(``core/mask``, ``core/crypto``, ``ops``, ``parallel``, ``server``) so each
-module's counterpart is found at the same path; this package imports
+The coordinator (``server``: REST API, phase machine, ``python -m
+xaynet_tpu_torch.server.runner``) and one PET round's device work — the
+Update fold, the Sum2 mask derive+fold and the Unmask subtract — on an
+NVIDIA H100, with the device kernels written by hand in CUDA C++
+(``csrc/``). The layout mirrors the JAX package (``core``, ``ops``,
+``parallel``, ``resilience``, ``server``, ``storage``, ``telemetry``) so
+each module's counterpart is found at the same path; this package imports
 ``torch`` and numpy only and keeps its own copy of every host module it
 needs.
 

@@ -18,7 +18,7 @@ from .config import (
 from .masking import Aggregation, AggregationError, Masker, UnmaskingError
 from .model import Model, ModelCastError, PrimitiveCastError, Scalar
 from .object import InvalidMaskObjectError, MaskObject, MaskUnit, MaskVect
-from .seed import MASK_SEED_LENGTH, MaskSeed
+from .seed import ENCRYPTED_MASK_SEED_LENGTH, MASK_SEED_LENGTH, EncryptedMaskSeed, MaskSeed
 
 __all__ = [
     "MASK_CONFIG_LENGTH",
@@ -41,6 +41,8 @@ __all__ = [
     "MaskObject",
     "MaskUnit",
     "MaskVect",
+    "ENCRYPTED_MASK_SEED_LENGTH",
     "MASK_SEED_LENGTH",
+    "EncryptedMaskSeed",
     "MaskSeed",
 ]

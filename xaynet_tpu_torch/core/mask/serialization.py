@@ -1,8 +1,7 @@
 """Wire serialization of mask objects (numpy only).
 
-Port of ``xaynet_tpu/core/mask/serialization.py`` without the stream
-parsers (the multipart message reader is their only caller). Layouts
-(reference: rust/xaynet-core/src/mask/object/serialization/):
+Port of ``xaynet_tpu/core/mask/serialization.py``. Layouts (reference:
+rust/xaynet-core/src/mask/object/serialization/):
 
 - ``MaskVect``: config(4) ‖ count(u32 BE) ‖ count fixed-width little-endian
   integers of ``bytes_per_number`` each (vect.rs:24-80);
@@ -132,6 +131,59 @@ def parse_mask_vect(data: bytes, offset: int = 0, lazy: bool = False) -> tuple[M
     if not vect.is_valid():
         raise DecodeError("mask vector element >= group order")
     return vect, end - offset
+
+
+def parse_mask_vect_stream(reader, lazy: bool = False) -> MaskVect:
+    """Streaming MaskVect parse from a ``ChunkReader`` (the multipart
+    message reader): the element block is copied chunk by chunk into one
+    staging array, so peak memory is about one element block.
+
+    ``lazy=True`` gathers the element bytes with one byte copy into a
+    ``LazyWireMaskVect`` (no limb conversion, no host validity), as
+    ``parse_mask_vect(lazy=True)`` does for a single-part message.
+    """
+    head = reader.read(VECT_HEADER_LENGTH)
+    config = _config_at(head, 0)
+    (word,) = struct.unpack_from(">I", head, MASK_CONFIG_LENGTH)
+    count, planar = _split_count_word(word)
+    bpn = config.bytes_per_number
+    nbytes = count * bpn
+    if nbytes > reader.remaining:
+        raise DecodeError("mask vector data truncated")
+    if lazy or planar:
+        # a plane-major block cannot feed the element-major segments below
+        raw = np.empty(nbytes, dtype=np.uint8)
+        reader.read_into(raw)
+        if lazy:
+            return LazyWireMaskVect(config, raw, count, planar=planar)
+        limbs = limb_ops.bytes_le_to_limbs(planar_to_interleaved(raw, count, bpn), count, bpn)
+    else:
+        # fixed-size wire segments go straight into the limb array, so the
+        # transient staging stays bounded
+        limbs = np.empty((count, limb_ops.n_limbs_for_bytes(bpn)), dtype=np.uint32)
+        seg_elems = max(1, (2 << 20) // max(bpn, 1))
+        for s in range(0, count, seg_elems):
+            k = min(seg_elems, count - s)
+            staging = np.empty(k * bpn, dtype=np.uint8)
+            reader.read_into(staging)
+            limbs[s : s + k] = limb_ops.bytes_le_to_limbs(staging, k, bpn)
+    vect = MaskVect(config, limbs)
+    if not vect.is_valid():
+        raise DecodeError("mask vector element >= group order")
+    return vect
+
+
+def parse_mask_unit_stream(reader) -> MaskUnit:
+    """Streaming MaskUnit parse from a ``ChunkReader``."""
+    config = _config_at(reader.read(MASK_CONFIG_LENGTH), 0)
+    bpn = config.bytes_per_number
+    if bpn > reader.remaining:
+        raise DecodeError("mask unit data truncated")
+    limbs = limb_ops.bytes_le_to_limbs(np.frombuffer(reader.read(bpn), dtype=np.uint8), 1, bpn)
+    unit = MaskUnit(config, limbs[0])
+    if not unit.is_valid():
+        raise DecodeError("mask unit element >= group order")
+    return unit
 
 
 def serialize_mask_unit(unit: MaskUnit) -> bytes:

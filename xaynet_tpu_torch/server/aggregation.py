@@ -30,11 +30,22 @@ is staged as it is, and ``flush`` folds such rows on the caller's thread
 through the pipeline's ring. The kind of object passed in decides the
 route; there is no switch.
 
-Journal snapshots (``snapshot_journal``/``restore_journal``) come with the
-phase machine.
+The port has no host fold beside this one: the JAX package's host
+branch (``[aggregation] device = false``) is the same pipeline on a CPU
+device here, where every kernel wrapper takes its plain version. Every
+method that reaches the device may be called from any thread (the phases
+run flushes, drains and snapshots in the event loop's executor): it makes
+the accumulator's CUDA device current first.
+
+``build_staged_aggregator(shared)`` is the one way a phase builds the
+round's aggregator from settings, on the device the runner resolved
+(``Shared.device``).
 """
 
 from __future__ import annotations
+
+import contextlib
+import functools
 
 import numpy as np
 import torch
@@ -53,6 +64,41 @@ from ..core.mask.object import LazyWireMaskVect, MaskObject, MaskUnit, MaskVect
 from ..ops import limbs as limb_ops
 from ..parallel.aggregator import DeviceAggregator
 from ..parallel.streaming import StreamingAggregator
+from ..resilience.checkpoint import AggSnapshot
+
+
+def build_staged_aggregator(shared) -> "StagedAggregator":
+    """The ONE way a phase builds the round's aggregator from settings,
+    shared by the update phase and the journal-resume factories re-entering
+    sum2/unmask, so a resumed round folds and unmasks with the
+    configuration it crashed under. ``shared.device`` is the torch device
+    the runner resolved."""
+    settings = shared.settings
+    return StagedAggregator(
+        config=shared.state.round_params.mask_config,
+        object_size=shared.state.round_params.model_length,
+        batch_size=settings.aggregation.batch_size,
+        packed_staging=settings.aggregation.packed_staging,
+        dispatch_ahead=settings.aggregation.dispatch_ahead,
+        staging_buffers=settings.aggregation.staging_buffers,
+        device=shared.device,
+    )
+
+
+def _device_context(dev: torch.device):
+    """Make ``dev`` the current CUDA device of the calling thread."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+
+
+def _on_device(method):
+    """Run the method with the aggregator's CUDA device current."""
+
+    @functools.wraps(method)
+    def wrapper(self, *args, **kwargs):
+        with _device_context(self._device.device):
+            return method(self, *args, **kwargs)
+
+    return wrapper
 
 
 class DeviceAggregation(Aggregation):
@@ -92,6 +138,12 @@ class DeviceAggregation(Aggregation):
         return self._config
 
     @property
+    def torch_device(self) -> torch.device:
+        """The device the accumulator lies on (the Unmask timing syncs it)."""
+        return self._device.device
+
+    @property
+    @_on_device
     def object(self) -> MaskObject:
         """Gathered host aggregate (checkpoints/tests only)."""
         if self._stream is not None:
@@ -122,6 +174,7 @@ class DeviceAggregation(Aggregation):
             stream.close()
             self._nb_models = self._device.nb_models
 
+    @_on_device
     def _unmasked_limbs(self, mask_obj: MaskObject) -> tuple[np.ndarray, int]:
         if self._stream is not None:
             try:
@@ -155,7 +208,8 @@ class DeviceAggregation(Aggregation):
 class StagedAggregator:
     """Stages validated masked updates and folds them in batches on the
     device (``cuda`` unless ``device`` says otherwise), through the
-    streaming pipeline."""
+    streaming pipeline (``dispatch_ahead`` and ``staging_buffers`` are its
+    depths, as ``[aggregation]`` sets them)."""
 
     def __init__(
         self,
@@ -163,6 +217,8 @@ class StagedAggregator:
         object_size: int,
         batch_size: int = 64,
         packed_staging: bool = True,
+        dispatch_ahead: int = 2,
+        staging_buffers: int = 3,
         device=None,
     ):
         self.config = config
@@ -175,14 +231,18 @@ class StagedAggregator:
         self._device = DeviceAggregator(config.vect, object_size, device=device)
         # flush() submits micro-batches here; drain()/finalize() sync
         self._stream = StreamingAggregator(
-            self._device, max_batch=self.batch_size, packed=packed_staging
+            self._device,
+            staging_buffers=staging_buffers,
+            dispatch_ahead=dispatch_ahead,
+            max_batch=self.batch_size,
+            packed=packed_staging,
         )
         # the tiny unit part stays on the host
         self._unit_acc = np.zeros(limb_ops.n_limbs_for_order(config.unit.order), dtype=np.uint32)
 
     @property
     def kernel_used(self) -> str:
-        """What folds the batches: ``cuda`` (K1) or ``plain`` (CPU)."""
+        """What folds the batches: ``cuda`` (K1) or ``plain`` (CPU tensors)."""
         return self._device.kernel_used
 
     @property
@@ -197,6 +257,7 @@ class StagedAggregator:
         """Updates staged but not yet submitted."""
         return len(self._staged_vect)
 
+    @_on_device
     def validate_aggregation(self, obj: MaskObject) -> None:
         """Per-update protocol validation (same checks as the reference,
         masking.rs:253-279) without materializing a probe accumulator."""
@@ -228,6 +289,7 @@ class StagedAggregator:
         elif not obj.is_valid():
             raise AggregationError("InvalidObject")
 
+    @_on_device
     def prevalidate_wire_batch(self, objs) -> None:
         """Device validation of a micro-batch about to be processed member by
         member: one upload, one kernel launch and one fetch of the verdicts
@@ -288,6 +350,7 @@ class StagedAggregator:
         if not obj.is_valid():
             raise AggregationError("InvalidObject")
 
+    @_on_device
     def fold_partial(self, obj: MaskObject, members: int) -> None:
         """Fold a pre-aggregated partial of ``members`` updates as one row
         and advance ``nb_models`` by ``members``. Staged updates flush and
@@ -319,6 +382,7 @@ class StagedAggregator:
         if len(self._staged_vect) >= self.batch_size:
             self.flush()
 
+    @_on_device
     def flush(self) -> None:
         """Fold the staged micro-batch: device rows from wire ingest on this
         thread (packed v2 rows through K1's packed variant, planar v1 rows
@@ -350,12 +414,14 @@ class StagedAggregator:
             self._unit_acc[None, :], batch_unit[None, :], order_limbs
         )[0]
 
+    @_on_device
     def drain(self) -> None:
         """Flush, then block until every in-flight fold has completed (the
         phase-transition synchronization point)."""
         self.flush()
         self._stream.drain()
 
+    @_on_device
     def snapshot_state(self) -> tuple[np.ndarray, np.ndarray, int]:
         """Exact host copy of the aggregate: ``(vect wire uint32[model_len,
         L], unit uint32[L_unit], nb_models)``, as the JAX package's
@@ -364,13 +430,34 @@ class StagedAggregator:
         self.drain()
         return self._device.snapshot(), np.array(self._unit_acc), self._device.nb_models
 
+    def snapshot_journal(self) -> AggSnapshot:
+        """Exact host copy of the aggregate for a journal entry, in wire
+        layout (one device: no per-shard planes). Drains first."""
+        vect, unit, nb_models = self.snapshot_state()
+        return AggSnapshot(nb_models=nb_models, unit=unit, vect=vect)
+
+    def restore_journal(self, ckpt) -> None:
+        """Restore a journal entry (``RoundCheckpoint``) into an EMPTY
+        aggregator. An entry the JAX package wrote shard by shard (per-shard
+        ``planes``) is joined into the one accumulator
+        (``RoundCheckpoint.wire_vect``). An empty entry (``nb_models == 0``:
+        the sealed-sum-dict entry of the Sum -> Update transition) restores
+        to the zero accumulator the constructor built."""
+        if ckpt.nb_models == 0:
+            return
+        self.restore_state(ckpt.wire_vect(), ckpt.unit, ckpt.nb_models)
+
+    @_on_device
     def restore_state(self, vect: np.ndarray, unit: np.ndarray, nb_models: int) -> None:
         """Restore a snapshot into an EMPTY aggregator (resume)."""
         if self.nb_models:
             raise RuntimeError("restore_state requires an empty aggregator")
-        self._device.restore(np.ascontiguousarray(vect, dtype=np.uint32), nb_models)
-        self._unit_acc = np.ascontiguousarray(unit, dtype=np.uint32)
+        vect = np.ascontiguousarray(vect, dtype=np.uint32)
+        unit = np.ascontiguousarray(unit, dtype=np.uint32)
+        self._device.restore(vect, nb_models)
+        self._unit_acc = unit
 
+    @_on_device
     def finalize(self) -> Aggregation:
         """The protocol-level host ``Aggregation``: drains, closes the
         pipeline and GATHERS the accumulator to the host (for snapshot and
@@ -386,12 +473,14 @@ class StagedAggregator:
         agg.nb_models = self._device.nb_models
         return agg
 
-    def finalize_inplace(self, defer_drain: bool = False) -> DeviceAggregation:
+    @_on_device
+    def finalize_inplace(self, defer_drain: bool = False) -> Aggregation:
         """The Unmask handoff WITHOUT gathering the accumulator: a
         :class:`DeviceAggregation` view that subtracts the mask on the
-        device. With ``defer_drain`` the pipeline rides into Unmask still
-        open: the staged remainder is submitted and the drain barrier moves
-        into the unmask."""
+        device. With
+        ``defer_drain`` the pipeline rides into Unmask still open: the
+        staged remainder is submitted and the drain barrier moves into the
+        unmask."""
         if defer_drain:
             self.flush()
             return DeviceAggregation(self.config, self.object_size, self._device,

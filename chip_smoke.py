@@ -81,19 +81,26 @@ Builds the hand-written CUDA kernels from ``xaynet_tpu_torch/csrc`` with
   the shipped mask config and aggregation knobs (batch 64, packed staging,
   no wire ingest), count windows of 1 sum, 3 updates and 1 sum2, the
   filesystem model store, 25,000,000 parameters, bound to a free port on
-  127.0.0.1. A minimal participant on the port's ``core/message``, crypto
-  modules and ``ops/masking`` (``coordinator_round``) drives it over the
-  socket: ``GET /params``, eligible keys, the sum message, ``GET /sums``,
-  three updates masked on the card (K2 + K1) and sent in 64 MiB parts,
-  ``GET /seeds``, ``sum_masks`` (K2), the sum2 message, ``GET /model``. It
-  checks the decoded model byte-identical to the same updates folded and
-  unmasked (with the same mask) by the plain versions on the CPU and
-  within ``n_updates / exp_shift + 1e-6`` of the mean, that the update
-  phase's aggregator folded on CUDA and its flush launched K1 packed, and
-  the participants' launches; it prints the walls from the first update
-  POST (update phase closed, sum2 closed, model available), the
-  coordinator's decrypt/parse seconds, whether the ``cryptography`` wheel
-  is present and the process's peak host RSS. Then ``python -m
+  127.0.0.1. The port's participant SDK drives it over the socket
+  (``sdk_round``): one sum and three update participants, each a
+  ``StateMachine`` with an ``HttpClient`` and no device (CUDA), roles
+  pinned with ``keys_for_task``; each update participant masks on the card
+  (K2 + K1) and sends in 64 MiB parts, the sum participant sums the masks
+  (K2). It checks the decoded model byte-identical to the updates and mask
+  the participants sent, folded and unmasked by the plain versions on the
+  CPU, and within ``n_updates / exp_shift + 1e-6`` of the mean; that the
+  update phase's aggregator folded on CUDA and its flush launched K1
+  packed once; and the participants' launches (K1 planar 3, K2 6). It
+  prints the walls from the first update POST (update phase closed, sum2
+  closed, model available), the per-part POST seconds and the process's
+  CPU seconds meanwhile, the flush's staging buffer (rows, bytes, pinning
+  seconds), the coordinator's decrypt/parse seconds, whether the
+  ``cryptography`` wheel is present and the process's peak host RSS.
+- **Phase R-wire** is the same round with device wire ingest, the packed
+  upload format (the SDK sends wire v2), the ``file`` coordinator store
+  and the round journal: it also checks that the coordinator's K4 checked
+  each update (K3 not launched) and that journal entries and the store's
+  state file were written. Then ``python -m
   xaynet_tpu_torch.server.runner -c <cfg>`` at length 1000 must answer
   ``GET /params`` and exit 0 on SIGTERM with "coordinator stopped" logged.
 
@@ -235,13 +242,22 @@ def free_port() -> int:
 
 
 def write_coordinator_config(path: Path, port: int, length: int, model_dir: Path,
-                             n_updates: int = 3, device_fold: bool = True) -> Path:
+                             n_updates: int = 3, device_fold: bool = True,
+                             wire: bool = False) -> Path:
     """A coordinator config: the shipped mask config, probabilities and
     aggregation knobs (``configs/config.toml``; batch 64, packed staging),
     the device fold on, count windows with min = max (1 sum, ``n_updates``
     updates, 1 sum2), the filesystem model store (and the flight recorder's
-    dumps) in ``model_dir``."""
+    dumps) in ``model_dir``. With ``wire``: device wire ingest, the packed
+    upload format (wire v2, so participants send byte planes), the ``file``
+    coordinator store and the round journal in ``model_dir``."""
     window = 'time = {{ min = 0.0, max = 900.0 }}\ncount = {{ min = {n}, max = {n} }}'
+    wire_keys = (
+        "wire_ingest = true\n"
+        '[ingest]\nwire_format = "packed"\n'
+        "[resilience]\ncheckpoint_enabled = true\n"
+    ) if wire else ""
+    store = 'coordinator = "file"\n' if wire else ""
     path.write_text(
         f'[api]\nbind_address = "127.0.0.1:{port}"\n'
         f'[pet.sum]\nprob = 0.01\n{window.format(n=1)}\n'
@@ -252,7 +268,8 @@ def write_coordinator_config(path: Path, port: int, length: int, model_dir: Path
         f"[model]\nlength = {length}\n"
         f"[aggregation]\ndevice = {str(device_fold).lower()}\nbatch_size = 64\n"
         "packed_staging = true\n"
-        f'[storage]\nbackend = "filesystem"\nmodel_dir = "{model_dir}"\n'
+        f"{wire_keys}"
+        f'[storage]\nbackend = "filesystem"\n{store}model_dir = "{model_dir}"\n'
         f'[metrics]\nflight_dir = "{model_dir / "flight"}"\n'
     )
     return path
@@ -290,54 +307,6 @@ def wait_for(pred, timeout: float, what: str, poll: float = 0.01):
             return value
         time.sleep(poll)
     raise Failure(f"timed out after {timeout:.0f} s waiting for {what}")
-
-
-def eligible_keys(seed: bytes, sum_prob: float, update_prob: float, want: str, start: int):
-    """A signing keypair whose task this round is ``want`` ("sum" or
-    "update"): the rule of the SDK's ``simulation.keys_for_task``."""
-    from xaynet_tpu_torch.core.crypto.sign import SigningKeyPair, is_eligible
-
-    for i in range(start, start + 100_000):
-        keys = SigningKeyPair.derive_from_seed(i.to_bytes(32, "little"))
-        if is_eligible(keys.sign(seed + b"sum").as_bytes(), sum_prob):
-            role = "sum"
-        elif is_eligible(keys.sign(seed + b"update").as_bytes(), update_prob):
-            role = "update"
-        else:
-            role = "none"
-        if role == want:
-            return keys
-    raise Failure(f"no {want} key in 100000 tries")
-
-
-def sealed_parts(params, keys, payload, max_message_size: int | None) -> list[bytes]:
-    """Sign the message, split it into parts of at most ``max_message_size``
-    bytes and seal each for the coordinator (the SDK's send)."""
-    from xaynet_tpu_torch.core.crypto.encrypt import PublicEncryptKey
-    from xaynet_tpu_torch.core.message.encoder import MessageEncoder
-    from xaynet_tpu_torch.core.message.message import Message
-
-    message = Message(participant_pk=keys.public, coordinator_pk=params.pk, payload=payload)
-    encoder = MessageEncoder(message, keys.secret, max_message_size)
-    coordinator = PublicEncryptKey(params.pk)
-    return [coordinator.encrypt(encoder.part(i)) for i in range(encoder.n_parts)]
-
-
-def post_parts(base: str, parts: list[bytes]) -> list[float]:
-    """POST each part; the seconds each took, until its answer."""
-    seconds = []
-    for part in parts:
-        t = time.perf_counter()
-        status, body = http_call(base, "POST", "/message", part)
-        seconds.append(time.perf_counter() - t)
-        if status != 200:
-            raise Failure(f"POST /message answered {status}: {body[:200]!r}")
-    return seconds
-
-
-def task_signature(keys, seed: bytes, task: str) -> bytes:
-    """A participant's signature of the round seed and its task."""
-    return keys.sign(seed + task.encode()).as_bytes()
 
 
 class InProcessCoordinator:
@@ -385,102 +354,185 @@ class InProcessCoordinator:
             raise self.error
 
 
-def coordinator_round(base: str, weights: list, device, max_message_size: int | None,
-                      rng: np.random.Generator, timeout: float = 900.0) -> dict:
-    """One PET round against the coordinator at ``base``, with one sum
-    participant and one update participant per entry of ``weights``, on the
-    port's copies of the protocol only: ``core/message``, the crypto
-    modules, ``ops/masking.mask_update`` (K2 + K1 on ``device``) and
-    ``sum_masks`` (K2). Each update's parts are signed and sealed before the
-    first is posted, so the walls from the first update POST are the
-    coordinator's (plus the sum participant's Sum2 step, timed alone).
-    Returns the decoded global model, the masked updates, the Sum2 mask and
-    the walls."""
-    from xaynet_tpu_torch.core.common import RoundParameters
-    from xaynet_tpu_torch.core.crypto.encrypt import EncryptKeyPair, PublicEncryptKey
-    from xaynet_tpu_torch.core.mask.model import Scalar
-    from xaynet_tpu_torch.core.mask.object import MaskObject, MaskUnit, MaskVect
-    from xaynet_tpu_torch.core.mask.seed import EncryptedMaskSeed, MaskSeed
-    from xaynet_tpu_torch.core.message.payloads import Sum, Sum2, Update
-    from xaynet_tpu_torch.ops import masking
+class ArrayModelStore:
+    """The SDK's model store over one fixed local model."""
+
+    def __init__(self, model):
+        self.model = model
+
+    async def load_model(self):
+        return self.model
+
+
+class GatedClient:
+    """A participant's ``HttpClient`` whose POSTs wait for ``gate`` and are
+    timed one by one (``post_s``); every other call goes straight through."""
+
+    def __init__(self, inner):
+        import asyncio
+
+        self.inner = inner
+        self.gate = asyncio.Event()
+        self.waiting = False
+        self.post_s: list[float] = []
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    async def send_message(self, encrypted: bytes) -> None:
+        self.waiting = True
+        await self.gate.wait()
+        t = time.perf_counter()
+        await self.inner.send_message(encrypted)
+        self.post_s.append(time.perf_counter() - t)
+
+
+def sdk_round(base: str, weights: list, device, max_message_size: int | None,
+              timeout: float = 900.0) -> dict:
+    """One PET round against the coordinator at ``base`` through the port's
+    participant SDK: one sum participant and one update participant per
+    entry of ``weights``, each a ``StateMachine`` with an ``HttpClient`` on
+    ``device`` (None: CUDA), roles pinned with ``keys_for_task``.
+
+    The update participants' steps run as tasks on one event loop: each
+    masks its model (K2 + K1), seals its first part and waits at its
+    client's gate; once all have masked, the gates open one after another,
+    so the walls from the first update POST are the coordinator's and the
+    SDK's sealing of the later parts. The sum participant's Sum2 step
+    (``GET /seeds``, ``sum_masks`` on K2, sealing and posting the mask) is
+    timed alone. Returns the decoded global model, the masked updates and
+    the Sum2 mask the participants sent (read at their ``_send``), and the
+    walls."""
+    import asyncio
+
+    return asyncio.run(_sdk_round(base, weights, device, max_message_size, timeout))
+
+
+async def _sdk_round(base, weights, device, max_message_size, timeout) -> dict:
+    import asyncio
+
+    from xaynet_tpu_torch.sdk.client import HttpClient
+    from xaynet_tpu_torch.sdk.simulation import keys_for_task
+    from xaynet_tpu_torch.sdk.state_machine import PetSettings, StateMachine, TransitionOutcome
+
+    async def until(pred, what: str, poll: float = 0.02):
+        deadline = time.perf_counter() + timeout
+        while time.perf_counter() < deadline:
+            if await pred():
+                return
+            await asyncio.sleep(poll)
+        raise Failure(f"timed out after {timeout:.0f} s waiting for {what}")
+
+    async def in_phase(want: str, negate: bool = False):
+        phase = await asyncio.to_thread(coordinator_phase, base)
+        return (phase != want) if negate else (phase == want)
 
     walls: dict = {}
-    status, body = http_call(base, "GET", "/params")
-    if status != 200:
-        raise Failure(f"GET /params answered {status}")
-    params = RoundParameters.from_dict(json.loads(body))
-    pair, length, seed = params.mask_config, params.model_length, params.seed.as_bytes()
-    n_up = len(weights)
-    if length != len(weights[0]):
-        raise Failure(f"round model length {length} != {len(weights[0])}")
-    summer = eligible_keys(seed, params.sum, params.update, "sum", 0)
-    updaters = [eligible_keys(seed, params.sum, params.update, "update", (20 + i) * 1000)
-                for i in range(n_up)]
-    sum_sig = task_signature(summer, seed, "sum")
+    sent: dict = {"update": [], "sum2": []}
+    seeds_seen: list[int] = []
+    probe = HttpClient(base, timeout=timeout)
+    params = await probe.get_round_params()
+    seed, n_up = params.seed.as_bytes(), len(weights)
+    if params.model_length != len(weights[0]):
+        raise Failure(f"round model length {params.model_length} != {len(weights[0])}")
 
-    # the update participants mask on the card (K2 derives the mask, K1 adds)
-    t = time.perf_counter()
-    seeds = [rng.bytes(32) for _ in range(n_up)]
-    scalar = Scalar(Fraction(1, n_up))
-    updates = [masking.mask_update(s, scalar, w, pair, device=device)
-               for s, w in zip(seeds, weights)]
-    walls["participants_mask"] = time.perf_counter() - t
+    def participant(keys, model, scalar):
+        client = GatedClient(HttpClient(base, timeout=timeout))
+        sm = StateMachine(PetSettings(keys=keys, scalar=scalar, max_message_size=max_message_size,
+                                      device=device),
+                          client, ArrayModelStore(model))  # fmt: skip
+        real_send, real_aggregate = sm._send, sm._aggregate_masks
 
-    # the sum participant's ephemeral key; the sum phase closes on it
-    ephm = EncryptKeyPair.generate()
-    post_parts(base, sealed_parts(params, summer, Sum(sum_sig, ephm.public.as_bytes()),
-                                  max_message_size))
-    wait_for(lambda: coordinator_phase(base) == "update", timeout, "the update phase")
-    status, body = http_call(base, "GET", "/sums")
-    if status != 200:
-        raise Failure(f"GET /sums answered {status}")
-    sum_dict = {bytes.fromhex(k): bytes.fromhex(v) for k, v in json.loads(body).items()}
+        async def send(payload, next_phase):
+            for kind, attr in (("update", "masked_model"), ("sum2", "model_mask")):
+                if hasattr(payload, attr):
+                    sent[kind].append(payload)
+            return await real_send(payload, next_phase)
 
-    t = time.perf_counter()
-    messages = []
-    for keys, s, obj in zip(updaters, seeds, updates):
-        local = {spk: MaskSeed(s).encrypt(PublicEncryptKey(epk)) for spk, epk in sum_dict.items()}
-        payload = Update(task_signature(keys, seed, "sum"), task_signature(keys, seed, "update"),
-                         obj, local, wire_planar=params.wire_format >= 2)
-        messages.append(sealed_parts(params, keys, payload, max_message_size))
-    walls["participants_sign_seal"] = time.perf_counter() - t
-    parts_per_update = [len(m) for m in messages]
+        def aggregate(mask_seeds, length, config):
+            seeds_seen.append(len(mask_seeds))
+            return real_aggregate(mask_seeds, length, config)
 
-    cpu0 = time.process_time()
-    t0 = walls["t0"] = time.perf_counter()
-    walls["update_part_posts"] = [post_parts(base, parts) for parts in messages]
-    walls["update_posts"] = time.perf_counter() - t0
-    # this process's CPU seconds (every thread: the participant and an
-    # in-process coordinator) while the updates went in
-    walls["update_posts_process_cpu"] = time.process_time() - cpu0
-    del messages
-    wait_for(lambda: coordinator_phase(base) != "update", timeout, "the update phase to close")
+        sm._send, sm._aggregate_masks = send, aggregate
+        return sm, client
 
-    # the sum participant: its seeds, then sum_masks on the card (K2)
-    t = time.perf_counter()
-    status, body = http_call(base, "GET", "/seeds?pk=" + summer.public.hex())
-    if status != 200:
-        raise Failure(f"GET /seeds answered {status}")
-    enc = json.loads(body)
-    mask_seeds = [EncryptedMaskSeed(bytes.fromhex(v)).decrypt(ephm.secret, ephm.public).as_bytes()
-                  for v in enc.values()]
-    unit_m, vect_m = masking.sum_masks(mask_seeds, length, pair, device=device)
-    mask = MaskObject(MaskVect(pair.vect, vect_m), MaskUnit(pair.unit, unit_m))
-    sum2_parts = sealed_parts(params, summer, Sum2(sum_sig, mask), max_message_size)
-    walls["sum2_participant"] = time.perf_counter() - t
-    post_parts(base, sum2_parts)
-    del sum2_parts
-    wait_for(lambda: coordinator_phase(base) != "sum2", timeout, "the sum2 phase to close")
+    summer, summer_client = participant(
+        keys_for_task(seed, params.sum, params.update, "sum", start=0), None, Fraction(1))
+    summer_client.gate.set()
+    updaters = [participant(keys_for_task(seed, params.sum, params.update, "update",
+                                          start=(20 + i) * 1000),
+                            w, Fraction(1, n_up))
+                for i, w in enumerate(weights)]  # fmt: skip
+    clients = [summer_client] + [c for _, c in updaters]
+    try:
+        async def summer_in(phase: str) -> bool:
+            """One step of the sum participant; True once it is in ``phase``."""
+            await summer.transition()
+            return summer.phase.value == phase
 
-    def model():
-        status, body = http_call(base, "GET", "/model")
-        return body if status == 200 else None
+        # the sum participant's ephemeral key; the sum phase closes on it
+        await until(lambda: summer_in("sum2"), "the sum participant's sum message")
+        await until(lambda: in_phase("update"), "the update phase")
+        for sm, _ in updaters:
+            await sm.transition()  # the round's task: update
+            if sm.phase.value != "update":
+                raise Failure(f"an update participant drew {sm.phase.value}")
 
-    body = wait_for(model, timeout, "the global model", poll=0.05)
-    walls["model_available"] = time.perf_counter() - t0
-    return {"model": np.frombuffer(body, dtype="<f8").copy(), "updates": updates,
-            "mask": mask, "walls": walls, "parts_per_update": parts_per_update,
-            "n_seeds": len(mask_seeds)}
+        t = time.perf_counter()
+        steps = [asyncio.create_task(sm.transition()) for sm, _ in updaters]
+        await until(lambda: _all_waiting([c for _, c in updaters], steps), "the participants' masking")
+        walls["participants_mask"] = time.perf_counter() - t
+
+        cpu0 = time.process_time()
+        t0 = walls["t0"] = time.perf_counter()
+        for (sm, client), step in zip(updaters, steps):
+            client.gate.set()
+            if await step != TransitionOutcome.COMPLETE or sm.phase.value != "awaiting":
+                raise Failure(f"an update participant ended its step in {sm.phase.value}")
+        walls["update_posts"] = time.perf_counter() - t0
+        # this process's CPU seconds (every thread: the participants and an
+        # in-process coordinator) while the updates went in
+        walls["update_posts_process_cpu"] = time.process_time() - cpu0
+        walls["update_part_posts"] = [c.post_s for _, c in updaters]
+        await until(lambda: in_phase("update", negate=True), "the update phase to close")
+
+        # the sum participant: its seeds, sum_masks on the card (K2), its
+        # upload; the step that found the seeds is timed
+        started = []
+
+        async def sum2_sent() -> bool:
+            started.append(time.perf_counter())
+            return await summer_in("awaiting")
+
+        await until(sum2_sent, "the sum participant's Sum2 step")
+        walls["sum2_participant"] = time.perf_counter() - started[-1]
+        await until(lambda: in_phase("sum2", negate=True), "the sum2 phase to close")
+
+        model = None
+
+        async def model_ready():
+            nonlocal model
+            model = await probe.get_model()
+            return model is not None
+
+        await until(model_ready, "the global model", poll=0.05)
+        walls["model_available"] = time.perf_counter() - t0
+    finally:
+        for client in clients + [probe]:
+            client.close()
+    return {"model": np.array(model), "updates": [p.masked_model for p in sent["update"]],
+            "wire_planar": [p.wire_planar for p in sent["update"]],
+            "mask": sent["sum2"][0].model_mask, "walls": walls,
+            "parts_per_update": [len(c.post_s) for _, c in updaters],
+            "n_seeds": seeds_seen[0] if seeds_seen else 0}
+
+
+async def _all_waiting(clients, steps) -> bool:
+    for step in steps:
+        if step.done():
+            step.result()  # a step that ended before its gate: raise its error
+            raise Failure("an update participant finished its step before posting")
+    return all(c.waiting for c in clients)
 
 
 
@@ -1537,13 +1589,17 @@ class Smoke:
 
     # -- phase R: a round through the port's coordinator ----------------------
 
-    def phase_r(self) -> dict:
+    def phase_r(self, wire: bool = False) -> dict:
         """One PET round through the port's coordinator (``serve()`` in a
-        thread, CUDA) over the socket, at the main length, with 3 update
-        participants and one sum participant (``coordinator_round``); checks
-        the model against the same inputs folded and unmasked by the plain
-        versions on the CPU and against the mean, that the coordinator's
-        flush launched K1 packed and that its aggregator folded on CUDA."""
+        thread, CUDA) over the socket, at the main length, driven by the
+        port's participant SDK (``sdk_round``: 3 update participants and one
+        sum participant, no device passed, so CUDA); checks the model
+        against the same inputs folded and unmasked by the plain versions
+        on the CPU and against the mean, the kernels each side launched and
+        that the coordinator's aggregator folded on CUDA. With ``wire``
+        (Phase R-wire): device wire ingest, wire v2 uploads, the ``file``
+        coordinator store and the round journal; the coordinator's K4
+        checks every update."""
         import logging
         import os
         import resource
@@ -1558,8 +1614,9 @@ class Smoke:
         from xaynet_tpu_torch.telemetry.registry import get_registry
 
         args = self.args
+        tag, c = ("phase R-wire", "rw") if wire else ("phase R", "r")
         length, n_up = args.length, 3
-        rng = np.random.default_rng(args.seed + 3)
+        rng = np.random.default_rng(args.seed + (4 if wire else 3))
         weights = [rng.uniform(-0.9, 0.9, length).astype(np.float32) for _ in range(n_up)]
         work = Path(tempfile.mkdtemp(prefix="xn_phase_r_"))
         built, rings = [], {}  # the update phase's aggregators, their staging rings
@@ -1589,32 +1646,45 @@ class Smoke:
                 if "entering" in msg or "full close" in msg:
                     self.marks.append((time.perf_counter(), msg))
 
-        def pipeline_seconds() -> dict:
-            family = get_registry().get("xaynet_message_pipeline_seconds")
-            return {stage: family.labels(stage=stage).sum for stage in ("decrypt_parse", "total")}
+        def counters() -> dict:
+            registry = get_registry()
+            family = registry.get("xaynet_message_pipeline_seconds")
+            out = {stage: family.labels(stage=stage).sum for stage in ("decrypt_parse", "total")}
+            journal = registry.get("xaynet_resilience_checkpoints_total")
+            out["journal_writes"] = sum(child.value for _, child in journal.children())
+            return out
 
         port = free_port()
         base = f"http://127.0.0.1:{port}"
         host_load = {"loadavg": os.getloadavg(), "cpus": len(os.sched_getaffinity(0))}
-        cfg = write_coordinator_config(work / "config.toml", port, length, work / "models", n_up)
+        cfg = write_coordinator_config(work / "config.toml", port, length, work / "models", n_up,
+                                       wire=wire)  # fmt: skip
         settings = settings_mod.Settings.load(str(cfg), env={})
-        self.check(settings.aggregation.device and settings.aggregation.batch_size == 64
-                   and settings.aggregation.packed_staging and not settings.aggregation.wire_ingest,
-                   "(r0) Phase R's config: device fold, batch 64, packed staging, no wire ingest")
+        agg_cfg = settings.aggregation
+        self.check(agg_cfg.device and agg_cfg.batch_size == 64 and agg_cfg.packed_staging
+                   and agg_cfg.wire_ingest == wire
+                   and (settings.ingest.wire_format == "packed") == wire
+                   and (settings.storage.coordinator == "file") == wire
+                   and settings.resilience.checkpoint_enabled == wire,
+                   f"({c}0) {tag}'s config: device fold, batch 64, packed staging, wire ingest "
+                   f"{wire}, packed uploads {wire}, file store and journal {wire}")  # fmt: skip
         update_phase.build_staged_aggregator = spy
         marks = PhaseMarks()
         logging.getLogger("xaynet.coordinator").addHandler(marks)
         # no device: CUDA (the CPU rehearsal names its device)
-        coordinator = InProcessCoordinator(settings, None if self.cuda else self.dev)
+        device = None if self.cuda else self.dev
+        coordinator = InProcessCoordinator(settings, device)
+        state_file = work / "models" / "coordinator_state.json"
         try:
             t = time.perf_counter()
             wait_for(lambda: coordinator_phase(base) == "sum", 120, "the coordinator's sum phase")
             start_s = time.perf_counter() - t
-            before = pipeline_seconds()
+            before = counters()
             kernels.reset_launches()
-            out = coordinator_round(base, weights, self.dev, PHASE_R_PART_BYTES, rng, timeout=300)
+            out = sdk_round(base, weights, device, PHASE_R_PART_BYTES, timeout=300)
             launches = dict(kernels.LAUNCHES)
-            after = pipeline_seconds()
+            after = counters()
+            state_written = state_file.exists()
         finally:
             update_phase.build_staged_aggregator = real_build
             coordinator.stop()
@@ -1641,6 +1711,7 @@ class Smoke:
         window = (built[0]._stream.last_window or {}) if built else {}
         drain = {
             "ring_bytes": None if ring is None else ring.nbytes,
+            "ring_buffer_rows": None if ring is None else [len(b) for b in ring._bufs],
             "ring_pin_s": None if ring is None else ring.pin_seconds,
             "ring_reused": None if ring is None else ring.reused,
             "stage_s": window.get("stage_seconds"),
@@ -1657,54 +1728,64 @@ class Smoke:
         ref_model = ref.finalize_inplace().unmask_array(out["mask"])
         plain_s = time.perf_counter() - t
         self.check(model.shape == (length,) and bool(np.all(np.isfinite(model))),
-                   "(r1) global model finite, of the model length")
+                   f"({c}1) global model finite, of the model length")
         self.check(model.tobytes() == ref_model.tobytes(),
-                   "(r2) global model byte-identical to the plain CPU fold + unmask of its inputs")
+                   f"({c}2) global model byte-identical to the plain CPU fold + unmask of the "
+                   "updates and the mask the SDK participants sent")  # fmt: skip
         mean = np.sum([w.astype(np.float64) for w in weights], axis=0) / n_up
         tol = n_up / out["mask"].config.vect.exp_shift + 1e-6
         err = float(np.max(np.abs(model - mean)))
-        self.check(err <= tol, f"(r3) |model - mean| = {err:.3e} <= {tol:.3e}")
+        self.check(err <= tol, f"({c}3) |model - mean| = {err:.3e} <= {tol:.3e}")
         used = [a.kernel_used for a in built]
         self.check(used == ["cuda" if self.cuda else "plain"],
-                   f"(r4) the update phase folded on {self.dev.type} (kernel_used {used})")
+                   f"({c}4) the update phase folded on {self.dev.type} (kernel_used {used})")
         if self.cuda:
             self.check(launches["fold_packed"] == 1,
-                       f"(r5) the coordinator's flush launched K1 packed once "
+                       f"({c}5) the coordinator's flush launched K1 packed once "
                        f"({launches['fold_packed']})")
             self.check(launches["fold_planar"] == n_up and launches["mask_fold"] == 2 * n_up,
-                       f"(r6) participants: K1 planar {launches['fold_planar']} == {n_up}, "
-                       f"K2 {launches['mask_fold']} == {2 * n_up} (masking and Sum2)")
-        self.check(out["n_seeds"] == n_up, f"(r7) the sum participant got {n_up} seeds")
+                       f"({c}6) the SDK participants: K1 planar {launches['fold_planar']} == "
+                       f"{n_up}, K2 {launches['mask_fold']} == {2 * n_up} (masking and Sum2)")
+            want_k4 = n_up if wire else 0
+            self.check(launches["packed_check"] == want_k4 and launches["wire_unpack"] == 0,
+                       f"({c}7) the coordinator's wire checks: K4 {launches['packed_check']} == "
+                       f"{want_k4}, K3 {launches['wire_unpack']} == 0")
+        self.check(out["n_seeds"] == n_up, f"({c}8) the sum participant summed {n_up} masks")
+        self.check(out["wire_planar"] == [wire] * n_up,
+                   f"({c}9) the SDK sent wire v{2 if wire else 1} updates ({out['wire_planar']})")
+        if wire:
+            self.check(pipeline["journal_writes"] > 0 and state_written,
+                       f"({c}10) the round journal was written ({pipeline['journal_writes']:.0f} "
+                       f"entries) and the file store kept its state ({state_written})")
         have_wheel = bool(encrypt._HAVE_CRYPTO)
-        log(f"[phase R] round through the coordinator, {n_up} updates x {length} params: "
-            f"checks (r0)-(r8) passed; decode max err {err:.3e} <= {tol:.3e}")
         self.check(all(v is not None for v in phases.values()),
-                   f"(r8) the coordinator logged every phase of round 1 ({len(marks.marks)} lines)")
-        log(f"[phase R] walls from the first update POST (coordinator's log): update window full "
-            f"{phases['update_full_close']:.3f} s, update phase closed (flush submitted; drain overlapped into sum2) "
-            f"{phases['update_closed']:.3f} s, sum2 closed {phases['sum2_closed']:.3f} s, unmask "
-            f"done {phases['unmask_done']:.3f} s, model available (GET /model) "
-            f"{phases['model_available']:.3f} s; update POSTs {walls['update_posts']:.3f} s, "
-            f"{out['parts_per_update']} parts each; the sum participant's Sum2 step "
-            f"{walls['sum2_participant']:.3f} s inside")
-        log(f"[phase R] update POSTs per part (s): "
+                   f"({c}11) the coordinator logged every phase of round 1 ({len(marks.marks)} lines)")
+        log(f"[{tag}] round through the coordinator with the port's SDK, {n_up} updates x "
+            f"{length} params: checks ({c}0)-({c}11) passed; decode max err {err:.3e} <= {tol:.3e}")
+        log(f"[{tag}] walls from the first update POST (coordinator's log): update window full "
+            f"{phases['update_full_close']:.3f} s, update phase closed (flush submitted; drain "
+            f"overlapped into sum2) {phases['update_closed']:.3f} s, sum2 closed "
+            f"{phases['sum2_closed']:.3f} s, unmask done {phases['unmask_done']:.3f} s, model "
+            f"available (GET /model) {phases['model_available']:.3f} s; update POSTs "
+            f"{walls['update_posts']:.3f} s, {out['parts_per_update']} parts each; the sum "
+            f"participant's Sum2 step {walls['sum2_participant']:.3f} s inside")
+        log(f"[{tag}] update POSTs per part (s): "
             f"{[[round(x, 3) for x in u] for u in walls['update_part_posts']]}; this process's "
             f"CPU seconds meanwhile {walls['update_posts_process_cpu']:.3f}; host load average "
             f"{host_load['loadavg']} on {host_load['cpus']} CPUs before the round")
-        log(f"[phase R] the update phase's flush: ring {drain['ring_bytes']} bytes pinned in "
-            f"{drain['ring_pin_s']} s (reused {drain['ring_reused']}), stage {drain['stage_s']} s, "
-            f"fold {drain['fold_s']} s")
-        log(f"[phase R] coordinator message pipeline: decrypt_parse {pipeline['decrypt_parse']:.3f} s "
-            f"of {pipeline['total']:.3f} s handling; participants: mask "
-            f"{walls['participants_mask']:.3f} s, sign + seal {walls['participants_sign_seal']:.3f} s; "
-            f"coordinator up in {start_s:.3f} s; plain CPU reference {plain_s:.3f} s")
-        log(f"[phase R] cryptography wheel present: {have_wheel} "
+        log(f"[{tag}] the update phase's flush: ring {drain['ring_bytes']} bytes in buffers of "
+            f"{drain['ring_buffer_rows']} rows, pinned in {drain['ring_pin_s']} s (reused "
+            f"{drain['ring_reused']}), stage {drain['stage_s']} s, fold {drain['fold_s']} s")
+        log(f"[{tag}] coordinator message pipeline: decrypt_parse {pipeline['decrypt_parse']:.3f} s "
+            f"of {pipeline['total']:.3f} s handling; participants: mask (K2 + K1) and seal the "
+            f"first part {walls['participants_mask']:.3f} s; coordinator up in {start_s:.3f} s; "
+            f"plain CPU reference {plain_s:.3f} s")
+        log(f"[{tag}] cryptography wheel present: {have_wheel} "
             f"({'native' if have_wheel else 'pure-python fallback'} sealed boxes and signatures); "
             f"peak host RSS of this process so far {peak_rss_gib:.2f} GiB")
-        log(f"[phase R] launches {launches}")
+        log(f"[{tag}] launches {launches}")
         return {"walls": walls, "phases": phases, "drain": drain, "launches": launches,
-                "host_load": host_load,
-                "pipeline_seconds": pipeline,
+                "host_load": host_load, "pipeline_seconds": pipeline,
                 "cryptography_wheel": have_wheel, "decode_max_err": err,
                 "parts_per_update": out["parts_per_update"], "peak_rss_gib": peak_rss_gib,
                 "coordinator_start_s": start_s, "plain_reference_s": plain_s}
@@ -1759,7 +1840,8 @@ class Smoke:
             f"SIGTERM -> exit code {rc}, 'coordinator stopped' logged")
         return {"params_after_s": up_s, "exit_code": rc}
 
-    def kernel_table(self, timings: dict, launches: dict, round_launches: dict) -> list[dict]:
+    def kernel_table(self, timings: dict, launches: dict, round_launches: dict,
+                     wire_round_launches: dict) -> list[dict]:
         torch = self.torch
         props = torch.cuda.get_device_properties(0)
         int_rate = props.multi_processor_count * INT32_LANES_PER_SM * max_sm_clock_hz()
@@ -1797,8 +1879,9 @@ class Smoke:
                 "source": source,
                 "replaces": replaces,
                 "launches": launches[name],
-                # Phase R's run: the round through the coordinator
+                # Phases R and R-wire: the rounds through the coordinator
                 "launches_coordinator_round": round_launches[name],
+                "launches_coordinator_round_wire": wire_round_launches[name],
                 "max_abs_err": self.max_err[name],
                 "ms": t["ms"],
                 "plain_ms": t["plain_ms"],
@@ -1894,7 +1977,9 @@ def main() -> int:
         result = smoke.phase_b()
         wire = smoke.phase_w(result["walls"], timings)
         coordinator = smoke.phase_r()
-        coordinator["runner_cli"] = smoke.phase_r_cli()
+        coordinator_wire = smoke.phase_r(wire=True)
+        if smoke.cuda:  # the runner CLI resolves CUDA; without a card it exits
+            coordinator["runner_cli"] = smoke.phase_r_cli()
     except Exception as exc:  # every phase failure ends the run without a result
         traceback.print_exc()
         print(f"chip_smoke: FAILED: {type(exc).__name__}: {exc}", file=sys.stderr)
@@ -1907,7 +1992,8 @@ def main() -> int:
             smoke.records["profile"] = f"unavailable: {type(exc).__name__}: {exc}"
             log(f"[profile] unavailable: {exc}")
     smoke.records.update(timings=timings, pipeline=pipeline, round=result, wire_round=wire,
-                         coordinator_round=coordinator, seconds=time.perf_counter() - t0)
+                         coordinator_round=coordinator, coordinator_round_wire=coordinator_wire,
+                         seconds=time.perf_counter() - t0)
     if not smoke.cuda:
         _write_records(smoke.records)
         log(f"chip_smoke: rehearsal on {args.device} passed in {time.perf_counter() - t0:.1f} s")
@@ -1915,7 +2001,8 @@ def main() -> int:
     # launches per path: K1 and K2 on Phase B's round, K3 and K4 on Phase W's
     launches = {**result["launches"],
                 **{k: wire["launches"][k] for k in ("wire_unpack", "packed_check")}}
-    table = smoke.kernel_table(timings, launches, coordinator["launches"])
+    table = smoke.kernel_table(timings, launches, coordinator["launches"],
+                               coordinator_wire["launches"])
     smoke.records["kernels"] = table
     _write_records(smoke.records)
     log(f"[done] {time.perf_counter() - t0:.1f} s")

@@ -13,7 +13,8 @@ and reused by every round) each validated and aggregated, then
 Unmask handoff) and a device synchronize. It prints one JSON line per
 round: the ``update_aggregate`` and ``finalize`` walls, and where the
 checkout stages through a pinned ring, the ring's bytes, the seconds its
-new buffers took to pin and how many it reused from the process's pool.
+new buffers took to pin and how many it reused from the process's pool,
+and the process's peak host RSS so far.
 Each round's aggregate is checked against python big-int sums at 2,048
 positions; a mismatch exits non-zero.
 
@@ -26,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import resource
 import sys
 import time
 from pathlib import Path
@@ -92,11 +94,15 @@ def main() -> int:
             agg.aggregate(obj)
         update_s = time.perf_counter() - t
         stream = getattr(agg, "_stream", None)
-        ring = None if stream is None else stream._rings.get("packed")
+        rings = {}
+        if stream is not None:  # finalize closes the pipeline: keep its rings
+            close = stream.close
+            stream.close = lambda: (rings.update(stream._rings), close())
         t = time.perf_counter()
         view = agg.finalize_inplace() if hasattr(agg, "finalize_inplace") else agg.finalize()
         torch.cuda.synchronize()
         finalize_s = time.perf_counter() - t
+        ring = rings.get("packed")
         got = limbs.limbs_to_ints(view.object.vect.data[idx])
         ok = got == want and view.nb_models == args.updates
         print(json.dumps({
@@ -106,6 +112,7 @@ def main() -> int:
             "ring_bytes": None if ring is None else ring.nbytes,
             "ring_pin_s": None if ring is None else ring.pin_seconds,
             "ring_reused": None if ring is None else getattr(ring, "reused", None),
+            "peak_rss_gib": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20,
         }), flush=True)  # fmt: skip
         if not ok:
             print("chip_staging: aggregate or count wrong", file=sys.stderr)

@@ -10,8 +10,8 @@ also runs where JAX is not installed:
 The streaming pipeline's card cases (the dispatch-ahead stress, the
 degrade-once fault and the fault on both tries) use the same seams as
 ``chip_smoke.py``'s phase P: the accumulator's fold seam and the
-``streaming.fold`` fault site. The coordinator round uses the minimal
-participant of ``chip_smoke.py``'s phase R.
+``streaming.fold`` fault site. The coordinator rounds use the port's
+participant SDK as ``chip_smoke.py``'s phases R and R-wire do.
 """
 
 from __future__ import annotations
@@ -471,6 +471,27 @@ def test_pipeline_pins_each_buffer_once_per_process(cuda):
     assert second.allocated == second.reused == 1 and second.pin_seconds == 0.0
 
 
+def test_short_flush_pins_a_buffer_sized_to_its_rows(cuda):
+    """A flush of 3 rows at ``max_batch`` 64 stages through a pinned buffer
+    of 4 rows, not 64, and folds exactly; the next pipeline's flush of 3
+    takes that buffer from the process's pool without pinning."""
+    n = 77_777  # a shape no other case pins
+    wires = _wire_batches(n, 1, 3, seed=700)
+    rings = []
+    for _ in range(2):
+        agg = DeviceAggregator(PIPE_CFG, n, device=cuda)
+        stream = StreamingAggregator(agg, max_batch=64)
+        stream.submit_batch(wires[0])
+        stream.drain()
+        assert np.array_equal(agg.snapshot(), _plain_fold(n, wires).snapshot())
+        rings.append(stream._rings["packed"])
+        stream.close()
+    first, second = rings
+    assert [len(b) for b in first._bufs] == [len(b) for b in second._bufs] == [4]
+    assert first.nbytes == 4 * agg.packed_width * agg.padded_length
+    assert first.pin_seconds > 0.0 and second.reused == 1 and second.pin_seconds == 0.0
+
+
 def test_pipeline_closes_after_poison_with_its_copies_done(cuda):
     """A fold seam that raises (as a failed launch does) poisons the
     pipeline; ``close`` still waits out the fold stream and hands the ring
@@ -499,37 +520,90 @@ def test_pipeline_closes_after_poison_with_its_copies_done(cuda):
     stream.close()
 
 
-def test_coordinator_round_on_card(cuda, tmp_path):
-    """A small round through the port's coordinator (``serve()`` with no
-    device, so CUDA) over the socket, with ``chip_smoke.py``'s minimal
-    participant: K1 packed folds the update phase's flush, and the model is
-    byte-identical to the plain CPU fold + unmask of the same inputs."""
+def _sdk_round_on(tmp_path, device, length: int, seed: int, wire: bool = False) -> dict:
+    """A small round through the port's coordinator (``serve()`` with
+    ``device``) over the socket, driven by the port's SDK on ``device``
+    (``chip_smoke.sdk_round``), with the launch counts of the round."""
     import chip_smoke
-    from xaynet_tpu_torch.server.aggregation import StagedAggregator
     from xaynet_tpu_torch.server.settings import Settings
 
-    length, n_up = 10_000, 3
+    n_up = 3
     port = chip_smoke.free_port()
     base = f"http://127.0.0.1:{port}"
-    cfg = chip_smoke.write_coordinator_config(tmp_path / "config.toml", port, length,
-                                              tmp_path / "models", n_up)
-    coordinator = chip_smoke.InProcessCoordinator(Settings.load(str(cfg), env={}))
-    rng = np.random.default_rng(5)
+    cfg = chip_smoke.write_coordinator_config(tmp_path / f"config-{port}.toml", port, length,
+                                              tmp_path / f"models-{port}", n_up, wire=wire)
+    coordinator = chip_smoke.InProcessCoordinator(Settings.load(str(cfg), env={}), device)
+    rng = np.random.default_rng(seed)
     weights = [rng.uniform(-0.9, 0.9, length).astype(np.float32) for _ in range(n_up)]
     try:
         chip_smoke.wait_for(lambda: chip_smoke.coordinator_phase(base) == "sum", 60, "sum")
         kernels.reset_launches()
-        out = chip_smoke.coordinator_round(base, weights, "cuda", 4096, rng, timeout=120)
-        launches = dict(kernels.LAUNCHES)
+        out = chip_smoke.sdk_round(base, weights, device, 4096, timeout=120)
+        out["launches"] = dict(kernels.LAUNCHES)
     finally:
         coordinator.stop()
+    out["weights"] = weights
+    return out
+
+
+def test_coordinator_round_on_card(cuda, tmp_path):
+    """A small round through the port's coordinator (``serve()`` with no
+    device, so CUDA) over the socket, with the port's SDK participants (no
+    device, so CUDA): K1 packed folds the update phase's flush, the
+    participants launch K1 planar and K2, and the model is byte-identical
+    to the plain CPU fold + unmask of the updates and mask they sent."""
+    from xaynet_tpu_torch.server.aggregation import StagedAggregator
+
+    length, n_up = 10_000, 3
+    out = _sdk_round_on(tmp_path, None, length, seed=5)
+    launches = out["launches"]
     assert out["parts_per_update"][0] > 1  # multipart
     assert launches["fold_packed"] == 1
+    assert launches["fold_planar"] == n_up and launches["mask_fold"] == 2 * n_up
     ref = StagedAggregator(out["mask"].config, length, batch_size=n_up, device="cpu")
     for obj in out["updates"]:
         ref.validate_aggregation(obj)
         ref.aggregate(obj)
     want = ref.finalize_inplace().unmask_array(out["mask"])
     assert out["model"].tobytes() == want.tobytes()
-    mean = np.sum([w.astype(np.float64) for w in weights], axis=0) / n_up
+    mean = np.sum([w.astype(np.float64) for w in out["weights"]], axis=0) / n_up
     assert np.max(np.abs(out["model"] - mean)) <= n_up / out["mask"].config.vect.exp_shift + 1e-6
+
+
+@pytest.mark.parametrize("wire", [False, True], ids=["staged", "wire-ingest"])
+def test_sdk_round_on_card_equals_cpu_round(cuda, tmp_path, wire):
+    """The same small round, coordinator and SDK participants on the card,
+    then both on the CPU device: the models are the same floats (the masks
+    differ, they cancel). With wire ingest the coordinator's K4 checks each
+    v2 update."""
+    length, n_up = 20_000, 3
+    on_card = _sdk_round_on(tmp_path, None, length, seed=9, wire=wire)
+    on_cpu = _sdk_round_on(tmp_path, "cpu", length, seed=9, wire=wire)
+    assert on_card["model"].tobytes() == on_cpu["model"].tobytes()
+    assert on_card["launches"]["packed_check"] == (n_up if wire else 0)
+    assert on_card["launches"]["mask_fold"] == 2 * n_up
+    assert not any(on_cpu["launches"].values())
+    assert on_card["wire_planar"] == [wire] * n_up
+
+
+def test_aggregate_masks_on_card_matches_cpu(cuda):
+    """The SDK's Sum2 step at 1M parameters: the participant's
+    ``_aggregate_masks`` on the card (K2) equals ``sum_masks`` on the CPU
+    (the plain version), for 9 seeds (two of ``sum_masks``' groups)."""
+    from xaynet_tpu_torch.core.mask.seed import MaskSeed
+    from xaynet_tpu_torch.ops import masking
+    from xaynet_tpu_torch.sdk.simulation import keys_for_task
+    from xaynet_tpu_torch.sdk.state_machine import PetSettings, StateMachine
+
+    pair = MaskConfig(GroupType.PRIME, DataType.F32, BoundType.B0, ModelType.M3).pair()
+    length = 1_000_000
+    rng = np.random.default_rng(21)
+    raw = [rng.bytes(32) for _ in range(9)]
+    keys = keys_for_task(b"\x07" * 32, 0.0, 0.999, "update")
+    sm = StateMachine(PetSettings(keys=keys), None, None)
+    assert sm.device.type == "cuda"
+    kernels.reset_launches()
+    got = sm._aggregate_masks([MaskSeed(s) for s in raw], length, pair)
+    assert kernels.LAUNCHES["mask_fold"] == 9
+    unit, vect = masking.sum_masks(raw, length, pair, device="cpu")
+    assert got.vect.data.tobytes() == vect.tobytes() and got.unit.data.tobytes() == unit.tobytes()

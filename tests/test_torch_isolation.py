@@ -180,8 +180,8 @@ def test_wrappers_refuse_non_cpu_non_cuda_tensors():
         kernels.mask_fold(acc, kw, [0], 16, PAIR.vect.order)
 
 
-# the wire-ingest path and the coordinator's: every module of the port's
-# host and server packages, each imported on its own
+# the wire-ingest path, the coordinator's and the participant's: every
+# module of the port's host, server and SDK packages, each imported on its own
 _ALONE = sorted(
     {
         "xaynet_tpu_torch.core.mask.serialization",
@@ -193,7 +193,7 @@ _ALONE = sorted(
         m
         for m in _port_modules()
         if m.split(".")[1:2] in (["server"], ["core"], ["storage"], ["telemetry"],
-                                 ["resilience"], ["utils"])
+                                 ["resilience"], ["utils"], ["sdk"])
     }
 )  # fmt: skip
 
@@ -237,8 +237,8 @@ def imported_alone() -> dict:
 def test_wire_ingest_modules_import_alone_without_jax(module, imported_alone):
     """Each module on the wire-ingest path and the coordinator's, every
     module of the port's ``server``, ``core``, ``storage``, ``telemetry``,
-    ``resilience`` and ``utils`` among them, imported alone, pulls in
-    neither ``jax`` nor the JAX package."""
+    ``resilience``, ``utils`` and ``sdk`` among them, imported alone, pulls
+    in neither ``jax`` nor the JAX package."""
     assert module in _port_modules()
     assert imported_alone[module] == []
 

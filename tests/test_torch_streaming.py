@@ -425,3 +425,40 @@ def test_maybe_fail_raises_and_clears(no_fault_plans):
     faults.maybe_fail("streaming.fold")  # max=1: spent
     faults.clear_plan()
     assert faults.current_plan() is None
+
+
+@PACKED
+def test_short_flush_stages_through_a_buffer_sized_to_its_rows(packed):
+    """A flush of 3 rows at ``max_batch`` 64 stages through a buffer of 4
+    rows (3 rounded up to a power of two), and a second flush of 3 reuses
+    it; a full flush of 64 gets a buffer of 64 beside it. The aggregate
+    equals the JAX pipeline's over the same batches at the same
+    ``max_batch``, byte for byte."""
+    from xaynet_tpu_torch.parallel.streaming import bucket_rows
+
+    assert [bucket_rows(k, 64) for k in (1, 2, 3, 4, 5, 33, 64)] == [1, 2, 4, 4, 8, 64, 64]
+    assert [bucket_rows(k, 6) for k in (3, 5, 6)] == [4, 6, 6]
+    n = 101
+    masked, host = _updates(n, 70, seed=31)
+    stacks = [m.vect.data for m in masked]
+    batches = [stacks[0:3], stacks[3:6], stacks[6:70]]
+    jax_agg, jax_stream = _jax_pipeline(n, max_batch=64, packed=packed)
+    agg, stream = _port_pipeline(n, max_batch=64, packed=packed)
+    seen = []
+    for batch in batches:
+        jax_stream.submit_batch(np.stack(batch))
+        stream.submit_batch(batch)
+        stream.drain()
+        ring = stream._rings["packed" if packed else "planar"]
+        seen.append([b.shape[0] for b in ring._bufs])
+    jax_stream.drain()
+    width = agg.packed_width if packed else agg.n_limbs
+    itemsize = 1 if packed else 4
+    assert seen == [[4], [4], [4, 64]]  # the second flush of 3 reused the 4-row buffer
+    assert ring.nbytes == (4 + 64) * width * n * itemsize
+    assert ring.in_use == 0 and ring.reused == 0  # a CPU ring pins nothing
+    assert agg.nb_models == jax_agg.nb_models == 70
+    assert np.array_equal(agg.snapshot(), jax_agg.snapshot())
+    assert np.array_equal(agg.snapshot(), host.object.vect.data)
+    stream.close()
+    jax_stream.close()

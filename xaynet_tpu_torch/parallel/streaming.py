@@ -5,16 +5,22 @@ synchronous flush serializes host staging (the byte-plane pack), the
 host-to-device copy and the fold, so host and device take turns idling.
 Here:
 
-- **staging ring** — up to ``staging_buffers`` host buffers, allocated as
-  the traffic needs them and page-locked on CUDA so the copy to the device
-  is asynchronous; batch N+1 is packed into one, straight from the wire
-  rows, while batch N crosses to the device and folds. A buffer goes back
-  to the ring only once the copy out of it has completed (a CUDA event
-  recorded after the copy); on the CPU the fold reads the ring buffer
-  itself and has finished when it returns. Page-locked buffers outlive
-  their ring: a closed ring hands them to a process-wide pool, and the
-  next ring of the same shape takes them from there, so a process pins
-  each buffer once, not once per round.
+- **staging ring** — host buffers, allocated as the traffic needs them
+  and page-locked on CUDA so the copy to the device is asynchronous; batch
+  N+1 is packed into one, straight from the wire rows, while batch N
+  crosses to the device and folds. A batch of ``k`` rows stages through a
+  buffer of ``bucket(k)`` rows: ``k`` rounded up to a power of two, capped
+  at ``max_batch``, so a short flush (the Update phase's last) does not
+  allocate and pin a full batch's buffer. Each bucket holds up to
+  ``staging_buffers`` buffers; the buckets of one kind (packed or planar)
+  are 1, 2, 4, ... rows and ``max_batch``, so together they hold fewer
+  than ``2 * max_batch * staging_buffers`` rows, which bounds what one
+  pipeline stages (and pins). A buffer goes back to the ring only once the
+  copy out of it has completed (a CUDA event recorded after the copy); on
+  the CPU the fold reads the ring buffer itself and has finished when it
+  returns. Page-locked buffers outlive their ring: a closed ring hands
+  them to a process-wide pool keyed by shape, and the next ring takes them
+  from there, so a process pins each buffer once, not once per round.
 - **dispatch-ahead** — up to ``dispatch_ahead`` batches queue to one fold
   worker thread, which enters the accumulator's own CUDA stream
   (``DeviceAggregator.on_stream``) and launches K1 there, while the
@@ -105,76 +111,93 @@ def _page_aligned_empty(shape: tuple, dtype) -> np.ndarray:
     return raw[off : off + nbytes].view(dtype).reshape(shape)
 
 
-def _give_back_pinned(key: tuple, bufs: list) -> None:
-    """Hand a ring's pinned buffers to the process-wide pool. Module-level
-    so a ring's finalizer holds no reference to the ring."""
+def _pool_key(shape: tuple, dtype) -> tuple:
+    return tuple(shape), np.dtype(dtype).str
+
+
+def _give_back_pinned(bufs: list) -> None:
+    """Hand a ring's pinned buffers to the process-wide pool, each under its
+    own shape. Module-level so a ring's finalizer holds no reference to the
+    ring."""
     with _PINNED_LOCK:
-        _PINNED_FREE.setdefault(key, []).extend(bufs)
+        for buf in bufs:
+            _PINNED_FREE.setdefault(_pool_key(buf.shape, buf.dtype), []).append(buf)
+
+
+def bucket_rows(k: int, max_rows: int) -> int:
+    """The rows of the buffer a batch of ``k`` rows stages through: ``k``
+    rounded up to a power of two, at most ``max_rows``."""
+    return min(1 << (k - 1).bit_length(), max_rows)
 
 
 class _StagingRing:
     """Bounded pool of host staging buffers, allocated as the traffic needs
-    them.
+    them, in buckets by rows.
 
-    ``acquire`` takes a free buffer, adds one more while fewer than ``size``
-    exist, and otherwise blocks until an in-flight batch gives one back:
-    the producer runs at most ``size`` batches ahead of the fold worker,
-    which is the pipeline's memory bound. A pipeline whose folds keep up
-    holds one buffer, not ``size``. With ``pin`` (a CUDA device) each
-    buffer is page-locked, so the copy to the device runs asynchronously at
-    the bus's rate: taken from the process-wide pool when one of this shape
-    is free there (``reused``), else allocated and pinned with
-    ``cudaHostRegister``; a buffer that cannot be pinned raises with the
-    bytes asked for (there is no pageable ring). ``close()`` returns the
-    pinned buffers to the pool; a GC finalizer does the same for abandoned
-    pipelines. ``nbytes`` is what the ring holds, ``pin_seconds`` what
-    allocating and pinning its new buffers took.
+    ``acquire(k)`` takes a free buffer of ``bucket_rows(k)`` rows, adds one
+    more to that bucket while it holds fewer than ``size``, and otherwise
+    blocks until an in-flight batch gives one of them back: the producer
+    runs at most ``size`` batches of one bucket ahead of the fold worker,
+    which is the pipeline's memory bound (the buckets' rows sum to less
+    than ``2 * shape[0]``, so the ring holds fewer than ``2 * shape[0] *
+    size`` rows). A pipeline whose folds keep up holds one buffer per
+    bucket its batches need, not ``size``. With ``pin`` (a CUDA device)
+    each buffer is page-locked, so the copy to the device runs
+    asynchronously at the bus's rate: taken from the process-wide pool when
+    one of its shape is free there (``reused``), else allocated and pinned
+    with ``cudaHostRegister``; a buffer that cannot be pinned raises with
+    the bytes asked for (there is no pageable ring). ``close()`` returns
+    the pinned buffers to the pool; a GC finalizer does the same for
+    abandoned pipelines. ``nbytes`` is what the ring holds, ``pin_seconds``
+    what allocating and pinning its new buffers took.
     """
 
     def __init__(self, size: int, shape: tuple, dtype, pin: bool):
         self.size = size
-        self._shape, self._dtype, self._pin = shape, np.dtype(dtype), pin
-        self._free: queue_mod.Queue = queue_mod.Queue()
+        self._shape, self._dtype, self._pin = tuple(shape), np.dtype(dtype), pin
+        self._free: dict[int, queue_mod.Queue] = {}  # rows -> free buffers  # guarded-by: _lock
         self._inflight: dict[int, np.ndarray] = {}  # id(buf) -> buf  # guarded-by: _lock
         self._lock = threading.Lock()
         self._bufs: list[np.ndarray] = []  # guarded-by: _lock
-        self._key = (tuple(shape), self._dtype.str)
         self._finalizer = (
-            weakref.finalize(self, _give_back_pinned, self._key, self._bufs) if pin else None
+            weakref.finalize(self, _give_back_pinned, self._bufs) if pin else None
         )
         self.nbytes = 0
         self.pin_seconds = 0.0
         self.reused = 0
 
-    def _take_pinned(self) -> np.ndarray:
+    def _take_pinned(self, shape: tuple) -> np.ndarray:
         with _PINNED_LOCK:
-            free = _PINNED_FREE.get(self._key)
+            free = _PINNED_FREE.get(_pool_key(shape, self._dtype))
             if free:
                 self.reused += 1
                 return free.pop()
         t0 = time.perf_counter()
-        buf = _page_aligned_empty(self._shape, self._dtype)
+        buf = _page_aligned_empty(shape, self._dtype)
         cudart = torch.cuda.cudart()
         try:
             torch.cuda.check_error(cudart.cudaHostRegister(buf.ctypes.data, buf.nbytes, 0))
         except torch.cuda.CudaError as e:
             raise RuntimeError(
-                f"cannot page-lock a {buf.nbytes}-byte staging buffer (the ring holds "
-                f"up to {self.size} of shape {self._shape}, {self.nbytes} bytes "
-                "held so far); lower staging_buffers or the batch size"
+                f"cannot page-lock a {buf.nbytes}-byte staging buffer of shape {shape} "
+                f"(the ring holds up to {self.size} per bucket of rows, at most "
+                f"{self._shape[0]} rows, {self.nbytes} bytes held so far); lower "
+                "staging_buffers or the batch size"
             ) from e
         self.pin_seconds += time.perf_counter() - t0
         return buf
 
-    def _grow(self) -> np.ndarray | None:
-        """One more buffer, or None at ``size``."""
+    def _grow(self, rows: int) -> np.ndarray | None:
+        """One more buffer of ``rows`` rows, or None when that bucket holds
+        ``size``."""
         with self._lock:
-            if len(self._bufs) >= self.size:
+            if sum(len(b) == rows for b in self._bufs) >= self.size:
                 return None
+            shape = (rows, *self._shape[1:])
             if self._pin:
-                buf = self._take_pinned()
+                buf = self._take_pinned(shape)
             else:
-                buf = _page_aligned_empty(self._shape, self._dtype)
+                buf = _page_aligned_empty(shape, self._dtype)
             self._bufs.append(buf)
             self.nbytes += buf.nbytes
             return buf
@@ -186,13 +209,20 @@ class _StagingRing:
         if self._finalizer is not None:
             self._finalizer()
 
-    def acquire(self) -> np.ndarray:
+    def _free_of(self, rows: int) -> queue_mod.Queue:
+        with self._lock:
+            return self._free.setdefault(rows, queue_mod.Queue())
+
+    def acquire(self, k: int) -> np.ndarray:
+        """A buffer of ``bucket_rows(k)`` rows for a batch of ``k``."""
+        rows = bucket_rows(k, self._shape[0])
+        free = self._free_of(rows)
         try:
-            buf = self._free.get_nowait()
+            buf = free.get_nowait()
         except queue_mod.Empty:
-            buf = self._grow()
+            buf = self._grow(rows)
             if buf is None:
-                buf = self._free.get()
+                buf = free.get()
         with self._lock:
             self._inflight[id(buf)] = buf
         return buf
@@ -201,7 +231,7 @@ class _StagingRing:
         with self._lock:
             if self._inflight.pop(id(buf), None) is None:
                 return
-        self._free.put(buf)
+        self._free_of(len(buf)).put(buf)
 
     @property
     def in_use(self) -> int:
@@ -211,7 +241,7 @@ class _StagingRing:
 
     @property
     def allocated(self) -> int:
-        """Buffers the ring holds (at most ``size``)."""
+        """Buffers the ring holds (at most ``size`` per bucket of rows)."""
         with self._lock:
             return len(self._bufs)
 
@@ -364,8 +394,8 @@ class StreamingAggregator:
                 else:  # byte-planar packed planes: bpn/(4L) of the planar ring
                     shape, dtype = (self.max_batch, agg.packed_width, agg.padded_length), np.uint8
                 # one ring per kind, made at its first submit; its buffers
-                # are added (and pinned, or reused pinned) as the traffic
-                # needs them
+                # (of max_batch rows or fewer) are added, and pinned or
+                # reused pinned, as the traffic needs them
                 ring = self._rings[kind] = _StagingRing(
                     self.staging_buffers, shape, dtype, pin=agg.device.type == "cuda"
                 )
@@ -454,7 +484,7 @@ class StreamingAggregator:
         self._check(k)
         kind = "packed" if self._packed else "planar"
         t0 = time.monotonic()
-        buf = self._ring(kind).acquire()
+        buf = self._ring(kind).acquire(k)
         view = buf[:k]
         for i, row in enumerate(rows):
             if self._packed:

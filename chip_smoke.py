@@ -16,9 +16,13 @@ Builds the hand-written CUDA kernels from ``xaynet_tpu_torch/csrc`` with
   ``StreamSampler``; then the edges of K2's decoupled look-back (the
   count-th acceptance in tile 0 and at tile boundaries, count 1, the early
   exit, seven trips, cursors past 2^31 bytes and 2^32 blocks, 16 seeds,
-  twenty launches into one accumulator). Each kernel is then timed at the
+  twenty launches into one accumulator); K2's per-row entry
+  (``mask_fold_rows``: seed b into row b) at B in {1, 8, 256}, a ragged
+  length, mid-block cursors, one and several trips, the shipped and the
+  widest orders. Each kernel is then timed at the
   shapes the main path gives it, beside its plain version, and checked
-  there too. K2's bound counts the xors and rotates its ChaCha20 blocks
+  there too (``mask_fold_rows`` at Phase S's two shapes). K2's bound counts
+  the xors and rotates its ChaCha20 blocks
   need, on the ALU pipe; the built keystream loop's instructions per pipe
   (from its SASS) are recorded beside it. K3 (the v1 wire unpack + validity
   check) and K4 (the v2 byte-planar validity check) are held byte-exact,
@@ -76,6 +80,15 @@ Builds the hand-written CUDA kernels from ``xaynet_tpu_torch/csrc`` with
   Phase W's launches, K4's bound counting only the bytes its verdict needs
   from this data (every top byte, and the sectors of lower planes where an
   element still ties the order).
+- **Phase S** is the whole-round simulation (``sim.SimRound``): (s1) Phase
+  B's population (the same 16 seeds and models, scalar 1/16) at the main
+  length in blocks of 8, each block's masks derived into zero rows by K2
+  per row and folded by K1 planar; its aggregates, unmasked limbs and
+  float64 model must be Phase B's, byte for byte (the oracle's identity at
+  full width). (s2) The JAX package's bench sim shape: 2,048 participants
+  x 1,000 parameters, integer/f32/b0/m6, blocks of 256, a warm-up and three
+  timed runs (median participants/s with min and max), the model within
+  1e-6 of the f32 mean.
 - **Phase R** is a round through the port's coordinator: ``serve()`` on an
   event loop in a thread, no device given (CUDA), a temporary config with
   the shipped mask config and aggregation knobs (batch 64, packed staging,
@@ -100,7 +113,26 @@ Builds the hand-written CUDA kernels from ``xaynet_tpu_torch/csrc`` with
   upload format (the SDK sends wire v2), the ``file`` coordinator store
   and the round journal: it also checks that the coordinator's K4 checked
   each update (K3 not launched) and that journal entries and the store's
-  state file were written. Then ``python -m
+  state file were written. Each of the two rounds runs inside a
+  ``torch.profiler`` window (CUDA activity, every thread of this process):
+  the device time by kernel, copy and fill, and the card's idle share of
+  the window, beside the estimate from launches x per-launch times.
+- **Phase L** is a forged round through the coordinator: ``serve()`` as in
+  Phase R with prime/f32/b0/m6 (capacity 10^6 updates), model length 256,
+  batch 64, wire ingest with packed uploads, count windows of 1 sum, 2,000
+  updates and 1 sum2; one sum participant on the port's SDK; then
+  ``loadgen.runner.run`` forges and replays the 2,000 updates over REST
+  from two spawned driver processes (blocks of 512, 64 POSTs in flight
+  each; K2 per row in their engines); then the Sum2. It checks every
+  update accepted, the model byte-identical to ``SimRound`` over the
+  drivers' ground truth (seeds, models and scalar, rebuilt from the run's
+  seeds) and within 2000 / exp_shift + 1e-6 of the mean, K4 on every
+  update, K1 on the device rows and K2 in the drivers and in Sum2; it
+  prints the accepted updates/s over the replay window, the per-POST p50,
+  p99 and max, the forge seconds and the coordinator's decrypt/parse
+  seconds, and traces the round like Phase R; the drivers' device work
+  runs in their own processes, outside that trace, so Phase L's idle share
+  is that of the coordinator's process, not the card's. Then ``python -m
   xaynet_tpu_torch.server.runner -c <cfg>`` at length 1000 must answer
   ``GET /params`` and exit 0 on SIGTERM with "coordinator stopped" logged.
 
@@ -230,6 +262,17 @@ def k2_keystream_sass(lib: Path, n_limb: int) -> dict | None:
             "by_opcode": dict(per_block.most_common())}
 
 
+def phase_b_population(seed: int, n_up: int, length: int):
+    """Phase B's participants, from ``seed``: their mask seeds, the model
+    positions its checks sample, and an iterator over their f32 models (one
+    at a time: 100 MB each at the main length). Phase S replays them."""
+    rng = np.random.default_rng(seed + 1)
+    seeds = [rng.bytes(32) for _ in range(n_up)]
+    idx = np.sort(rng.choice(length, size=min(2048, length), replace=False))
+    models = (rng.uniform(-0.9, 0.9, length).astype(np.float32) for _ in range(n_up))
+    return seeds, idx, models
+
+
 # -- Phase R: the port's coordinator, and a minimal participant over HTTP ----
 
 
@@ -243,28 +286,30 @@ def free_port() -> int:
 
 def write_coordinator_config(path: Path, port: int, length: int, model_dir: Path,
                              n_updates: int = 3, device_fold: bool = True,
-                             wire: bool = False) -> Path:
+                             wire: bool = False, journal: bool | None = None,
+                             model_type: str = "m3", probs: tuple = (0.01, 0.1)) -> Path:
     """A coordinator config: the shipped mask config, probabilities and
     aggregation knobs (``configs/config.toml``; batch 64, packed staging),
     the device fold on, count windows with min = max (1 sum, ``n_updates``
     updates, 1 sum2), the filesystem model store (and the flight recorder's
-    dumps) in ``model_dir``. With ``wire``: device wire ingest, the packed
-    upload format (wire v2, so participants send byte planes), the ``file``
-    coordinator store and the round journal in ``model_dir``."""
+    dumps) in ``model_dir``. With ``wire``: device wire ingest and the
+    packed upload format (wire v2, so participants send byte planes); with
+    ``journal`` (default: ``wire``) the ``file`` coordinator store and the
+    round journal in ``model_dir``. ``model_type`` sets the mask's capacity
+    (m3: 10^3 updates), ``probs`` the sum and update probabilities."""
+    if journal is None:
+        journal = wire
     window = 'time = {{ min = 0.0, max = 900.0 }}\ncount = {{ min = {n}, max = {n} }}'
-    wire_keys = (
-        "wire_ingest = true\n"
-        '[ingest]\nwire_format = "packed"\n'
-        "[resilience]\ncheckpoint_enabled = true\n"
-    ) if wire else ""
-    store = 'coordinator = "file"\n' if wire else ""
+    wire_keys = ('wire_ingest = true\n[ingest]\nwire_format = "packed"\n' if wire else "")
+    wire_keys += "[resilience]\ncheckpoint_enabled = true\n" if journal else ""
+    store = 'coordinator = "file"\n' if journal else ""
     path.write_text(
         f'[api]\nbind_address = "127.0.0.1:{port}"\n'
-        f'[pet.sum]\nprob = 0.01\n{window.format(n=1)}\n'
-        f'[pet.update]\nprob = 0.1\n{window.format(n=n_updates)}\n'
+        f'[pet.sum]\nprob = {probs[0]}\n{window.format(n=1)}\n'
+        f'[pet.update]\nprob = {probs[1]}\n{window.format(n=n_updates)}\n'
         f'[pet.sum2]\n{window.format(n=1)}\n'
         '[mask]\ngroup_type = "prime"\ndata_type = "f32"\nbound_type = "b0"\n'
-        'model_type = "m3"\n'
+        f'model_type = "{model_type}"\n'
         f"[model]\nlength = {length}\n"
         f"[aggregation]\ndevice = {str(device_fold).lower()}\nbatch_size = 64\n"
         "packed_staging = true\n"
@@ -307,6 +352,19 @@ def wait_for(pred, timeout: float, what: str, poll: float = 0.01):
             return value
         time.sleep(poll)
     raise Failure(f"timed out after {timeout:.0f} s waiting for {what}")
+
+
+def pipeline_counters() -> dict:
+    """The coordinator's message-pipeline seconds (decrypt and parse, and
+    all of the handling) and its journal writes, from its registry."""
+    from xaynet_tpu_torch.telemetry.registry import get_registry
+
+    registry = get_registry()
+    family = registry.get("xaynet_message_pipeline_seconds")
+    out = {stage: family.labels(stage=stage).sum for stage in ("decrypt_parse", "total")}
+    journal = registry.get("xaynet_resilience_checkpoints_total")
+    out["journal_writes"] = sum(child.value for _, child in journal.children())
+    return out
 
 
 class InProcessCoordinator:
@@ -548,9 +606,11 @@ class Smoke:
         self.rng = np.random.default_rng(args.seed)
         self.records: dict = {"checks": []}
         self.max_err = dict.fromkeys(
-            ("fold_planar", "fold_packed", "mask_fold", "wire_unpack", "packed_check"), 0
-        )
+            ("fold_planar", "fold_packed", "mask_fold", "mask_fold_rows", "wire_unpack",
+             "packed_check"), 0
+        )  # fmt: skip
         self.sass = None
+        self.t_start = time.perf_counter()
         self.phase_b_out: dict | None = None  # Phase B's wires and results, for Phase W
 
     # -- helpers ------------------------------------------------------------
@@ -804,6 +864,105 @@ class Smoke:
         self.sync()
         log(f"[phase A] K2 look-back edge cases byte-exact vs plain and host sampler "
             f"({len(cases)} cases, tile {tile} candidates; 20 launches into one acc)")
+
+    def phase_a_mask_fold_rows(self) -> None:
+        """K2 with one accumulator per seed (``mask_fold_rows``) against its
+        plain version, rows and end cursors: B in {1, 8, 256} on the shipped
+        order (draw width 6) at a ragged length, from mid-block cursors, in
+        one trip and in forced multi-trip runs; B in {1, 8} on the widest
+        orders of Phase A's K2 cases (draw widths 37 and 268)."""
+        from xaynet_tpu_torch.core.mask.config import (
+            BoundType, DataType, GroupType, MaskConfig, ModelType,
+        )  # fmt: skip
+        from xaynet_tpu_torch.ops import kernels, limbs
+        from xaynet_tpu_torch.ops.fold import to_device_u32
+
+        cfgs = [
+            ("prime L2 draw6", MaskConfig(GroupType.PRIME, DataType.F32, BoundType.B0, ModelType.M3),
+             (1, 8, 256), 1001),
+            ("L10 draw37", MaskConfig(GroupType.INTEGER, DataType.F32, BoundType.BMAX, ModelType.M3),
+             (1, 8), 1001),
+            ("L67 draw268", MaskConfig(GroupType.INTEGER, DataType.F64, BoundType.BMAX, ModelType.M12),
+             (1, 8), 301),
+        ]  # fmt: skip
+        n_cases = 0
+        for label, cfg, sizes, count in cfgs:
+            order = cfg.order
+            n_limb, bpn = limbs.n_limbs_for_order(order), limbs.draw_width_for(order)
+            expected = count * (1 << (8 * bpn)) // order
+            for b in sizes:
+                seeds = [self.rng.bytes(32) for _ in range(b)]
+                kws = to_device_u32(np.stack([np.frombuffer(x, "<u4") for x in seeds]), self.dev)
+                offs = [13 * i + 5 for i in range(b)]  # mid-block cursors
+                for chunk in (None, max(7, expected // 5)):
+                    rows = to_device_u32(self.elements(order, n_limb, (b, count)), self.dev)
+                    got, ends = kernels.mask_fold_rows(rows.clone(), kws, offs, count, order, chunk)
+                    want, want_ends = kernels.mask_fold_rows_plain(rows.clone(), kws, offs, count,
+                                                                   order, chunk)  # fmt: skip
+                    what = f"{label} B={b} count={count} chunk={chunk}"
+                    self.compare("mask_fold_rows", got, want, what + " rows")
+                    self.compare("mask_fold_rows", ends, want_ends, what + " end cursors")
+                    n_cases += 1
+        self.sync()
+        log(f"[phase A] K2 per-row (mask_fold_rows) byte-exact vs plain in {n_cases} cases")
+
+    def phase_a_rows_main(self) -> dict:
+        """``mask_fold_rows`` at Phase S's two shapes, checked against its
+        plain version there and timed: (s1) 8 seeds into 8 rows of the main
+        length, shipped order; (s2) 256 seeds into 256 rows of 1,000
+        elements, integer/f32/b0/m6. The kernel line's entry is s1's; s2's
+        goes beside it. The bound counts the ChaCha blocks these seeds'
+        draws need (start to end cursor) on the ALU pipe, and the rows' bytes
+        read and written once."""
+        from xaynet_tpu_torch.core.mask.config import (
+            BoundType, DataType, GroupType, MaskConfig, ModelType,
+        )  # fmt: skip
+        from xaynet_tpu_torch.ops import kernels, limbs
+        from xaynet_tpu_torch.ops.fold import to_device_u32
+        from xaynet_tpu_torch.ops.masking import seed_words, unit_draw
+
+        torch = self.torch
+        shapes = [
+            ("s1", MaskConfig(GroupType.PRIME, DataType.F32, BoundType.B0, ModelType.M3), 8,
+             self.args.length, 3),
+            ("s2", MaskConfig(GroupType.INTEGER, DataType.F32, BoundType.B0, ModelType.M6), 256,
+             1000, 10),
+        ]  # fmt: skip
+        out = {}
+        for tag, cfg, b, n, reps in shapes:
+            pair = cfg.pair()
+            order, n_limb = cfg.order, limbs.n_limbs_for_order(cfg.order)
+            seeds = [self.rng.bytes(32) for _ in range(b)]
+            offs = [unit_draw(x, pair)[1] for x in seeds]
+            kws = to_device_u32(seed_words(seeds), self.dev)
+            rows = to_device_u32(self.elements(order, n_limb, (b, n)), self.dev)
+            got, ends = kernels.mask_fold_rows(rows.clone(), kws, offs, n, order)
+            self.sync()
+            t = time.perf_counter()
+            want, want_ends = kernels.mask_fold_rows_plain(rows.clone(), kws, offs, n, order)
+            self.sync()
+            plain_ms = (time.perf_counter() - t) * 1e3
+            what = f"{tag} shape B={b} count={n}"
+            self.compare("mask_fold_rows", got, want, what + " rows")
+            self.compare("mask_fold_rows", ends, want_ends, what + " end cursors")
+            del got, want
+            work = rows.clone()
+            ms = self.time_ms(lambda: kernels.mask_fold_rows(work, kws, offs, n, order), reps)
+            blocks = float(sum(int(e) - o for e, o in zip(ends.tolist(), offs))) / 64
+            out[tag] = {
+                "ms": ms,
+                "plain_ms": plain_ms,
+                "blocks": blocks,
+                "ops": blocks * CHACHA_ALU_OPS_PER_BLOCK,
+                "bytes": 2 * rows.numel() * 4,
+                "shape": f"{b} seeds into uint32[{b},{n_limb},{n}]",
+            }
+            del rows, work
+            if self.cuda:
+                torch.cuda.empty_cache()
+            log(f"[phase A] mask_fold_rows at {tag}'s shape {out[tag]['shape']}: {ms:.3f} ms "
+                f"(plain {plain_ms:.1f} ms)")
+        return {**out["s1"], "s2": out["s2"]}
 
     def phase_a_main_shapes(self) -> dict:
         """Each kernel at the main path's shapes: checked against its plain
@@ -1199,10 +1358,8 @@ class Smoke:
         cfg = MaskConfig(GroupType.PRIME, DataType.F32, BoundType.B0, ModelType.M3)
         pair = cfg.pair()
         order, length, n_up = cfg.order, args.length, args.updates
-        rng = np.random.default_rng(args.seed + 1)
-        seeds = [rng.bytes(32) for _ in range(n_up)]
+        seeds, idx, models = phase_b_population(args.seed, n_up, length)
         scalar = Scalar(Fraction(1, n_up))
-        idx = np.sort(rng.choice(length, size=min(2048, length), replace=False))
         walls = {"participants_mask": 0.0, "update_aggregate": 0.0}
         sampled, units, wires = [], [], []
         serialize_s = 0.0
@@ -1226,8 +1383,7 @@ class Smoke:
 
         if self.cuda:
             agg._device._packed_fold_fn = timed_fold
-        for i in range(n_up):
-            weights = rng.uniform(-0.9, 0.9, length).astype(np.float32)
+        for i, weights in enumerate(models):
             wsum += weights
             t = time.perf_counter()
             obj = masking.mask_update(seeds[i], scalar, weights, pair, device=self.dev)
@@ -1538,6 +1694,43 @@ class Smoke:
         us = sum(_device_us(ev) for ev in prof.key_averages() if kernel in ev.key)
         return us / 1e3 if us else None
 
+    def traced(self, name: str, fn, settle_s: float = 0.5):
+        """Run ``fn`` inside a ``torch.profiler`` window with CUDA activity
+        only (CUPTI records every kernel, copy and fill this process puts on
+        the card, from any thread: the coordinator's executors and the
+        participants alike) and keep its summary in ``records["traces"]``
+        (:func:`trace_summary`). ``settle_s`` seconds pass between the
+        window's start and ``fn``, and between ``fn``'s end and the window's
+        (not counted in its wall): device events near a window's edges can
+        go missing (PERF.md §6). A reading that fails is recorded as
+        such; an error of ``fn`` propagates."""
+        if not self.cuda:
+            return fn()
+        from torch.profiler import ProfilerActivity, profile
+
+        traces = self.records.setdefault("traces", {})
+        try:
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            prof.__enter__()
+        except Exception as exc:  # an extra reading: record why it is missing
+            traces[name] = f"unavailable: {type(exc).__name__}: {exc}"
+            return fn()
+        time.sleep(settle_s)
+        t0 = time.perf_counter()
+        try:
+            return fn()
+        finally:
+            wall = time.perf_counter() - t0
+            try:
+                self.torch.cuda.synchronize()
+                time.sleep(settle_s)
+                prof.__exit__(None, None, None)
+                traces[name] = trace_summary(prof, wall)
+                traces[name]["settle_s"] = settle_s
+                traces[name]["process_age_s"] = time.perf_counter() - self.t_start
+            except Exception as exc:
+                traces[name] = f"unavailable: {type(exc).__name__}: {exc}"
+
     def pipeline_record(self, pipeline, ring, fold_events) -> dict:
         """What the pipeline's last drain window saw in Phase B: per flush,
         the stage leg (packing into the ring, on the caller's thread) and
@@ -1589,6 +1782,112 @@ class Smoke:
 
     # -- phase R: a round through the port's coordinator ----------------------
 
+    # -- phase S: the whole-round simulation ----------------------------------
+
+    def phase_s(self, ref: dict) -> dict:
+        """(s1) ``SimRound`` on Phase B's population (the same 16 seeds and
+        f32 models, scalar 1/16, blocks of 8, ``fuse_mask_sum``) at the main
+        length: its aggregates, unmasked limbs and float64 model must be
+        Phase B's, byte for byte (``ref``: Phase B's aggregate, Sum2 mask and
+        model). (s2) The shape of the JAX package's bench sim leg: 2,048
+        participants x 1,000 parameters, integer/f32/b0/m6, blocks of 256,
+        one warm-up and three timed runs; the model within 1e-6 of the f32
+        mean. Counts the launches of both (K2 per row, K1 planar)."""
+        from xaynet_tpu_torch.core.mask.config import (
+            BoundType, DataType, GroupType, MaskConfig, ModelType,
+        )  # fmt: skip
+        from xaynet_tpu_torch.ops import kernels, limbs
+        from xaynet_tpu_torch.ops.masking import unit_draw
+        from xaynet_tpu_torch.sim import SimRound, SimSpec, seeds_for
+
+        args = self.args
+        device = None if self.cuda else self.dev  # no device: CUDA
+        cfg = MaskConfig(GroupType.PRIME, DataType.F32, BoundType.B0, ModelType.M3)
+        pair, length, n_up, block = cfg.pair(), args.length, args.updates, args.batch
+        seeds, _, models = phase_b_population(args.seed, n_up, length)
+        weights = np.empty((n_up, length), dtype=np.float32)
+        for i, w in enumerate(models):
+            weights[i] = w
+        kernels.reset_launches()
+        t = time.perf_counter()
+        spec = SimSpec(pair, length, block_size=block, return_internals=True)
+        sim = SimRound(spec, device=device)
+        res = sim.run(seeds, weights, scalar=Fraction(1, n_up))
+        s1_s = time.perf_counter() - t
+        s1_launches = dict(kernels.LAUNCHES)
+        del weights
+        inner = res.internals
+        ol = limbs.order_limbs_for(cfg.order)
+        ol_u = limbs.order_limbs_for(pair.unit.order)
+        mask = ref["mask"]
+        self.check(np.array_equal(inner["masked_vect_sum"], ref["vect"])
+                   and np.array_equal(inner["masked_unit_sum"], ref["unit"]),
+                   "(s1) sim's masked aggregate (vect and unit) == Phase B's aggregate")
+        self.check(np.array_equal(inner["mask_vect_sum"], mask.vect.data)
+                   and np.array_equal(inner["mask_unit_sum"], mask.unit.data),
+                   "(s1) sim's mask sum == Phase B's Sum2 mask (sum_masks)")
+        want_limbs = limbs.mod_sub(ref["vect"], mask.vect.data, ol)
+        self.check(np.array_equal(res.model_vect_limbs, want_limbs),
+                   "(s1) sim's model_vect_limbs == Phase B's aggregate - mask")
+        want_unit = limbs.mod_sub(ref["unit"][None], mask.unit.data[None], ol_u)[0]
+        want_unit = limbs.limbs_to_int(want_unit)
+        self.check(res.model_unit_int == want_unit, "(s1) sim's unmasked unit == Phase B's")
+        self.check(res.global_model.tobytes() == ref["model"].tobytes(),
+                   f"(s1) sim's float64 model == Phase B's, byte for byte ({length} params)")
+        blocks = -(-n_up // block)
+        if self.cuda:
+            got = s1_launches
+            self.check(got["mask_fold_rows"] == n_up and got["fold_planar"] == 3 * blocks
+                       and got["mask_fold"] == 0 and sim.program_calls == 1,
+                       f"(s1) launches: K2 per row {got['mask_fold_rows']} == {n_up}, K1 planar "
+                       f"{got['fold_planar']} == {3 * blocks}, K2 mask_fold 0")  # fmt: skip
+        del res, inner, want_limbs
+        log(f"[phase S] (s1) SimRound of Phase B's {n_up} participants x {length} params, blocks "
+            f"of {block}: byte-identical to Phase B's aggregate, mask sum, limbs and model in "
+            f"{s1_s:.3f} s; launches {s1_launches}")
+
+        # (s2) the bench sim leg's shape
+        cfg2 = MaskConfig(GroupType.INTEGER, DataType.F32, BoundType.B0, ModelType.M6)
+        p, n, block2 = 2048, 1000, 256
+        seeds2 = seeds_for(p, root=42)
+        weights2 = np.random.default_rng(42).uniform(-1, 1, (p, n)).astype(np.float32)
+        sim2 = SimRound(SimSpec(cfg2.pair(), n, block_size=block2), device=device)
+        kernels.reset_launches()
+        t = time.perf_counter()
+        res2 = sim2.run(seeds2, weights2, scalar=Fraction(1, p))  # warm-up
+        warm_s = time.perf_counter() - t
+        runs = []
+        for _ in range(3):
+            t = time.perf_counter()
+            res2 = sim2.run(seeds2, weights2, scalar=Fraction(1, p))
+            runs.append(time.perf_counter() - t)
+        s2_launches = dict(kernels.LAUNCHES)
+        err = float(np.max(np.abs(res2.global_model - weights2.astype(np.float64).mean(axis=0))))
+        self.check(res2.global_model.shape == (n,) and err <= 1e-6,
+                   f"(s2) |model - f32 mean| = {err:.3e} <= 1e-6 ({p} x {n})")
+        if self.cuda:
+            self.check(s2_launches["mask_fold_rows"] == 4 * p
+                       and s2_launches["fold_planar"] == 4 * 3 * (p // block2),
+                       f"(s2) launches over 4 runs: K2 per row {s2_launches['mask_fold_rows']} == "
+                       f"{4 * p}, K1 planar {s2_launches['fold_planar']} == {12 * (p // block2)}")
+        # the host's share: the 2,048 unit draws (the seed's first keystream
+        # draw, whose cursor K2 starts from) alone, once more
+        t = time.perf_counter()
+        for seed in seeds2:
+            unit_draw(seed, cfg2.pair())
+        unit_draw_s = time.perf_counter() - t
+        pps = sorted(p / r for r in runs)
+        log(f"[phase S] (s2) SimRound {p} participants x {n} params, integer/f32/b0/m6, blocks "
+            f"of {block2}: median {pps[1]:.1f} participants/s (min {pps[0]:.1f}, max {pps[2]:.1f}; "
+            f"runs {[round(r, 3) for r in runs]} s; warm-up {warm_s:.3f} s); |model - mean| "
+            f"{err:.3e}; launches {s2_launches}; the {p} host unit draws alone {unit_draw_s:.3f} s")
+        launches = {k: s1_launches[k] + s2_launches[k] for k in s1_launches}
+        return {"s1_seconds": s1_s, "s1_launches": s1_launches, "s2_runs_s": runs,
+                "s2_warmup_s": warm_s, "s2_participants_per_s": {"median": pps[1], "min": pps[0],
+                                                                  "max": pps[2]},
+                "s2_launches": s2_launches, "s2_mean_err": err, "s2_unit_draws_s": unit_draw_s,
+                "launches": launches}
+
     def phase_r(self, wire: bool = False) -> dict:
         """One PET round through the port's coordinator (``serve()`` in a
         thread, CUDA) over the socket, at the main length, driven by the
@@ -1611,7 +1910,6 @@ class Smoke:
         from xaynet_tpu_torch.server import settings as settings_mod
         from xaynet_tpu_torch.server.aggregation import StagedAggregator
         from xaynet_tpu_torch.server.phases import update as update_phase
-        from xaynet_tpu_torch.telemetry.registry import get_registry
 
         args = self.args
         tag, c = ("phase R-wire", "rw") if wire else ("phase R", "r")
@@ -1646,14 +1944,6 @@ class Smoke:
                 if "entering" in msg or "full close" in msg:
                     self.marks.append((time.perf_counter(), msg))
 
-        def counters() -> dict:
-            registry = get_registry()
-            family = registry.get("xaynet_message_pipeline_seconds")
-            out = {stage: family.labels(stage=stage).sum for stage in ("decrypt_parse", "total")}
-            journal = registry.get("xaynet_resilience_checkpoints_total")
-            out["journal_writes"] = sum(child.value for _, child in journal.children())
-            return out
-
         port = free_port()
         base = f"http://127.0.0.1:{port}"
         host_load = {"loadavg": os.getloadavg(), "cpus": len(os.sched_getaffinity(0))}
@@ -1679,11 +1969,12 @@ class Smoke:
             t = time.perf_counter()
             wait_for(lambda: coordinator_phase(base) == "sum", 120, "the coordinator's sum phase")
             start_s = time.perf_counter() - t
-            before = counters()
+            before = pipeline_counters()
             kernels.reset_launches()
-            out = sdk_round(base, weights, device, PHASE_R_PART_BYTES, timeout=300)
+            out = self.traced(tag, lambda: sdk_round(base, weights, device, PHASE_R_PART_BYTES,
+                                                     timeout=300))  # fmt: skip
             launches = dict(kernels.LAUNCHES)
-            after = counters()
+            after = pipeline_counters()
             state_written = state_file.exists()
         finally:
             update_phase.build_staged_aggregator = real_build
@@ -1790,6 +2081,151 @@ class Smoke:
                 "parts_per_update": out["parts_per_update"], "peak_rss_gib": peak_rss_gib,
                 "coordinator_start_s": start_s, "plain_reference_s": plain_s}
 
+    # -- phase L: a forged 2,000-update round through the coordinator ---------
+
+    def phase_l(self) -> dict:
+        """A round of the port's coordinator (``serve()`` in a thread, no
+        device: CUDA) fed by the port's load generator: prime/f32/b0/m6 (2,000
+        updates exceed m3's capacity), model length 256, batch 64, wire
+        ingest with packed (v2) uploads, count windows of 1 sum, 2,000
+        updates and 1 sum2. One sum participant on the port's SDK; then
+        ``loadgen.runner.run`` forges and replays the 2,000 updates from 2
+        spawned drivers (blocks of 512, 64 POSTs in flight), each driver's
+        masks derived by K2 per row; then the sum participant's Sum2 (K2).
+        Checks every update accepted, the model byte-identical to
+        ``SimRound`` over the drivers' ground truth (their seeds, models and
+        scalar, rebuilt from the run's seeds) and within the protocol
+        tolerance of the mean, K4 on every update, K1 on the device rows and
+        K2 in the drivers and in Sum2."""
+        import asyncio
+        import shutil
+        import tempfile
+
+        from xaynet_tpu_torch.loadgen import runner as loadgen
+        from xaynet_tpu_torch.ops import kernels
+        from xaynet_tpu_torch.sdk.client import HttpClient
+        from xaynet_tpu_torch.sdk.simulation import keys_for_task
+        from xaynet_tpu_torch.sdk.state_machine import PetSettings, StateMachine
+        from xaynet_tpu_torch.server import settings as settings_mod
+        from xaynet_tpu_torch.sim import SimRound, SimSpec
+
+        n_up, length, drivers = 2000, 256, 2
+        device = None if self.cuda else self.dev  # no device: CUDA
+        work = Path(tempfile.mkdtemp(prefix="xn_phase_l_"))
+        port = free_port()
+        base = f"http://127.0.0.1:{port}"
+        cfg_path = write_coordinator_config(work / "config.toml", port, length, work / "models",
+                                            n_up, wire=True, journal=False, model_type="m6",
+                                            probs=(0.5, 0.9))  # fmt: skip
+        settings = settings_mod.Settings.load(str(cfg_path), env={})
+        pair = settings.mask.to_config().pair()
+        self.check(settings.mask.model_type.name == "M6" and pair.vect.max_nb_models >= n_up
+                   and settings.aggregation.wire_ingest and settings.aggregation.batch_size == 64
+                   and settings.ingest.wire_format == "packed" and not settings.ingest.enabled,
+                   f"(l0) phase L's config: m6 (capacity {pair.vect.max_nb_models}), wire ingest, "
+                   "packed uploads, batch 64, no ingest pipeline")  # fmt: skip
+        lg_cfg = dict(loadgen.default_cfg(), url=base, participants=n_up, drivers=drivers,
+                      block_size=512, concurrency=64, model_length=length, wire="auto",
+                      device="cuda" if self.cuda else str(self.dev), sum_wait_s=120.0,
+                      timeout=300.0, seed=self.args.seed + 5)  # fmt: skip
+
+        async def step_until(sm, phase: str, what: str, timeout: float = 300.0) -> None:
+            deadline = time.perf_counter() + timeout
+            while time.perf_counter() < deadline:
+                await sm.transition()
+                if sm.phase.value == phase:
+                    return
+                await asyncio.sleep(0.02)
+            raise Failure(f"timed out after {timeout:.0f} s waiting for {what}")
+
+        walls: dict = {}
+        coordinator = InProcessCoordinator(settings, device)
+        try:
+            wait_for(lambda: coordinator_phase(base) == "sum", 120, "the coordinator's sum phase")
+            probe = HttpClient(base, timeout=300)
+            params = asyncio.run(probe.get_round_params())
+            keys = keys_for_task(params.seed.as_bytes(), params.sum, params.update, "sum")
+            summer = StateMachine(PetSettings(keys=keys, device=device),
+                                  HttpClient(base, timeout=300), ArrayModelStore(None))  # fmt: skip
+            asyncio.run(step_until(summer, "sum2", "the sum participant's sum message"))
+            wait_for(lambda: coordinator_phase(base) == "update", 120, "the update phase")
+            before = pipeline_counters()
+            kernels.reset_launches()
+
+            def round_():
+                t0 = time.perf_counter()
+                stats = loadgen.run(lg_cfg)
+                walls["loadgen_run"] = time.perf_counter() - t0
+                wait_for(lambda: coordinator_phase(base) != "update", 300,
+                         "the update phase to close")  # fmt: skip
+                t = time.perf_counter()
+                asyncio.run(step_until(summer, "awaiting", "the sum participant's Sum2"))
+                walls["sum2_participant"] = time.perf_counter() - t
+
+                def model_ready():
+                    got = asyncio.run(probe.get_model())
+                    return None if got is None else [np.asarray(got)]
+
+                model = wait_for(model_ready, 300, "the global model", poll=0.05)[0]
+                walls["model_after_run"] = time.perf_counter() - t0 - walls["loadgen_run"]
+                return stats, model
+
+            stats, model = self.traced("phase L", round_)
+            launches = dict(kernels.LAUNCHES)
+            after = pipeline_counters()
+            probe.close()
+        finally:
+            coordinator.stop()
+            shutil.rmtree(work, ignore_errors=True)
+        pipeline = {k: after[k] - before[k] for k in after}
+        driver_launches = stats["launches"]
+
+        seeds, weights, scalar = loadgen.ground_truth(lg_cfg)
+        t = time.perf_counter()
+        sim = SimRound(SimSpec(pair, length, block_size=512), device=device).run(seeds, weights,
+                                                                                scalar)  # fmt: skip
+        sim_s = time.perf_counter() - t
+        self.check(stats["accepted"] == n_up and stats["errors"] == 0 and stats["abandoned"] == 0,
+                   f"(l1) accepted {stats['accepted']} == {n_up} (errors {stats['errors']}, "
+                   f"abandoned {stats['abandoned']}, shed {stats['shed']})")
+        self.check(model.shape == (length,) and bool(np.all(np.isfinite(model))),
+                   "(l2) global model finite, of the model length")
+        self.check(model.tobytes() == sim.global_model.tobytes(),
+                   f"(l3) global model byte-identical to SimRound over the {n_up} forged "
+                   "participants' seeds, models and scalar")  # fmt: skip
+        tol = n_up / pair.vect.exp_shift + 1e-6
+        err = float(np.max(np.abs(model - weights.astype(np.float64).mean(axis=0))))
+        self.check(err <= tol, f"(l4) |model - mean| = {err:.3e} <= {tol:.3e}")
+        if self.cuda:
+            self.check(launches["packed_check"] == n_up and launches["wire_unpack"] == 0,
+                       f"(l5) the coordinator's K4 checked every update ({launches['packed_check']}"
+                       f" == {n_up}; K3 {launches['wire_unpack']})")
+            self.check(launches["fold_packed"] >= -(-n_up // 8),
+                       f"(l6) K1 folded the device rows ({launches['fold_packed']} launches, at "
+                       f"most 8 rows each)")
+            self.check(driver_launches.get("mask_fold_rows", 0) >= n_up
+                       and launches["mask_fold"] >= n_up,
+                       f"(l7) K2: per row in the drivers' engines "
+                       f"{driver_launches.get('mask_fold_rows')}, in the sum participant's Sum2 "
+                       f"{launches['mask_fold']} (>= {n_up} each)")
+        post = stats["post_s"]
+        forge = {k: v.get("forge_s") for k, v in stats["drivers"].items()}
+        log(f"[phase L] {n_up} forged updates x {length} params through the coordinator from "
+            f"{drivers} drivers: checks (l0)-(l7) passed; decode max err {err:.3e} <= {tol:.3e}")
+        log(f"[phase L] accepted {stats['accepted_per_s']} updates/s over the tier's replay "
+            f"window of {stats['wall_s']} s; POST seconds p50 {post['p50']:.4f}, p99 "
+            f"{post['p99']:.4f}, max {post['max']:.4f}; forge seconds by driver {forge}; "
+            f"loadgen.run {walls['loadgen_run']:.3f} s (spawn, forge, replay)")
+        log(f"[phase L] coordinator message pipeline: decrypt_parse "
+            f"{pipeline['decrypt_parse']:.3f} s of {pipeline['total']:.3f} s handling; the sum "
+            f"participant's Sum2 step {walls['sum2_participant']:.3f} s; model "
+            f"{walls['model_after_run']:.3f} s after the run returned; SimRound of the same "
+            f"population {sim_s:.3f} s")
+        log(f"[phase L] launches: this process {launches}; the drivers {driver_launches}")
+        return {"stats": stats, "walls": walls, "pipeline_seconds": pipeline,
+                "launches": launches, "driver_launches": driver_launches,
+                "decode_max_err": err, "sim_s": sim_s}
+
     def phase_r_cli(self) -> dict:
         """``python -m xaynet_tpu_torch.server.runner -c <cfg>`` at a small
         length: ``GET /params`` answers, SIGTERM stops it with exit code 0
@@ -1840,8 +2276,9 @@ class Smoke:
             f"SIGTERM -> exit code {rc}, 'coordinator stopped' logged")
         return {"params_after_s": up_s, "exit_code": rc}
 
-    def kernel_table(self, timings: dict, launches: dict, round_launches: dict,
-                     wire_round_launches: dict) -> list[dict]:
+    def kernel_table(self, timings: dict, launches: dict, paths: dict) -> list[dict]:
+        """One row per kernel entry: ``launches`` from its main path's run,
+        and beside it the launches of each other path in ``paths``."""
         torch = self.torch
         props = torch.cuda.get_device_properties(0)
         int_rate = props.multi_processor_count * INT32_LANES_PER_SM * max_sm_clock_hz()
@@ -1850,6 +2287,9 @@ class Smoke:
             "fold_packed": ("xaynet_tpu_torch/csrc/fold.cu", "xaynet_tpu/ops/fold_pallas.py:125"),
             "fold_planar": ("xaynet_tpu_torch/csrc/fold.cu", "xaynet_tpu/ops/fold_pallas.py:125"),
             "mask_fold": ("xaynet_tpu_torch/csrc/mask_fold.cu", "xaynet_tpu/ops/fold_pallas.py:201"),
+            # K2 per row: the JAX package's batched in-graph derivation (XLA)
+            "mask_fold_rows": ("xaynet_tpu_torch/csrc/mask_fold.cu",
+                               "xaynet_tpu/ops/masking_jax.py:131"),
             # the XLA program X4 of the JAX package's wire ingest
             "wire_unpack": ("xaynet_tpu_torch/csrc/wire.cu", "xaynet_tpu/parallel/aggregator.py:99"),
             "packed_check": ("xaynet_tpu_torch/csrc/wire.cu", "xaynet_tpu/parallel/aggregator.py:122"),
@@ -1879,9 +2319,8 @@ class Smoke:
                 "source": source,
                 "replaces": replaces,
                 "launches": launches[name],
-                # Phases R and R-wire: the rounds through the coordinator
-                "launches_coordinator_round": round_launches[name],
-                "launches_coordinator_round_wire": wire_round_launches[name],
+                # Phases R, R-wire, S and L
+                **{path: counts.get(name, 0) for path, counts in paths.items()},
                 "max_abs_err": self.max_err[name],
                 "ms": t["ms"],
                 "plain_ms": t["plain_ms"],
@@ -1890,16 +2329,49 @@ class Smoke:
                 "library_ms": None,
             })  # fmt: skip
         self.records["int32_ops_per_s"] = int_rate
+        s2 = timings["mask_fold_rows"]["s2"]
+        s2["bound_ms"] = max(s2["bytes"] / MEM_BYTES_PER_S, s2["ops"] / int_rate) * 1e3
+        rows[[r["name"] for r in rows].index("mask_fold_rows")]["s2_shape"] = s2
         return rows
+
+    def idle_shares(self, timings: dict, launches: dict) -> None:
+        """Each traced round's device idle share from its trace, beside the
+        estimate from launches x per-launch times at the main shapes
+        (Phases R and R-wire; Phase L's kernels run at other shapes). The
+        trace holds this process's device work only: in R and R-wire that
+        is all the card does; in L the drivers' K2 runs in their own
+        processes, so L's share is the coordinator process's."""
+        for name, counts in launches.items():
+            trace = self.records.get("traces", {}).get(name)
+            if not isinstance(trace, dict):
+                log(f"[trace] {name}: {trace}")
+                continue
+            trace["complete"] = trace_complete(trace, counts)
+            trace["idle_share_of"] = "coordinator process" if name == "phase L" else "card"
+            kernels = {k: round(v["device_ms"], 3) for k, v in list(trace["by_name"].items())[:6]}
+            line = (f"[trace] {name}: window {trace['window_s']:.3f} s, device busy "
+                    f"{trace['device_busy_s']:.4f} s, idle share of the "
+                    f"{trace['idle_share_of']} {trace['idle_share']:.5f} "
+                    f"({trace['device_events']} device events; every kernel launch of this "
+                    f"process in the trace: {trace['complete']}); device ms by name {kernels}")
+            if name != "phase L":
+                est = sum(n * timings[k]["ms"] for k, n in counts.items() if k in timings) / 1e3
+                trace["estimate_busy_s"] = est
+                line += (f"; estimate from launches x main-shape times {est:.4f} s "
+                         f"(idle share {1 - est / trace['window_s']:.5f})")
+            log(line)
 
     def device_profile(self, timings: dict) -> None:
         """Device time of each kernel (and fill) by name over one call of
         each at the main shapes: K1 packed (8 updates) and planar (1), one
-        K2 seed (torch.profiler / CUPTI). K3 and K4 are profiled at Phase
-        W's launches (:meth:`phase_w_kernels`)."""
+        K2 seed, K2 per row at Phase S's s1 shape (8 rows), in profiler
+        windows with CUDA activity only (:meth:`traced`); K3 and K4 are
+        profiled at Phase W's launches (:meth:`phase_w_kernels`). The calls
+        run twice: launched as the window opens (the window PRs 4-6 read),
+        and 0.5 s after it opened; each window's device calls are held
+        against the launch counters (``complete``), and the times are the
+        second window's."""
         torch = self.torch
-        from torch.profiler import ProfilerActivity, profile
-
         from xaynet_tpu_torch.core.mask.config import (
             BoundType, DataType, GroupType, MaskConfig, ModelType,
         )  # fmt: skip
@@ -1911,27 +2383,48 @@ class Smoke:
         acc = zeros_u32((2, n), self.dev)
         packed = torch.zeros((k, 6, n), dtype=torch.uint8, device=self.dev)
         one = zeros_u32((1, 2, n), self.dev)
-        kws = torch.zeros((1, 8), dtype=torch.int32, device=self.dev).view(torch.uint32)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        rows = zeros_u32((k, 2, n), self.dev)
+        kws = torch.zeros((k, 8), dtype=torch.int32, device=self.dev).view(torch.uint32)
+
+        def work():
             kernels.fold_packed(acc, packed, order)
             kernels.fold_planar(acc, one, order)
-            kernels.mask_fold(acc, kws, [6], n, order)
+            kernels.mask_fold(acc, kws[:1], [6], n, order)
+            kernels.mask_fold_rows(rows, kws, [6] * k, n, order)
+
+        names = KERNEL_SYMBOLS
+        found = {}
+        for window, settle in (("main shapes, at once", 0.0), ("main shapes, settled", 0.5)):
             torch.cuda.synchronize()
-        rows = []
-        for ev in prof.key_averages():
-            dev_us = _device_us(ev)
-            if dev_us and any(k in ev.key for k in ("kernel", "mf_", "fold", "Memset")):
-                rows.append({"kernel": ev.key, "device_ms": dev_us / 1e3, "calls": ev.count})
-        self.records["profile"] = rows
-        for r in rows:
+            kernels.reset_launches()
+            self.traced(window, work, settle_s=settle)
+            launched = dict(kernels.LAUNCHES)
+            summary = self.records["traces"][window]
+            if not isinstance(summary, dict):
+                log(f"[profile] {window}: {summary}")
+                continue
+            found = summary["by_name"]
+            summary["complete"] = trace_complete(summary, launched)
+            calls = sum(r["calls"] for name, r in found.items()
+                        if any(v in name for v in set(names.values())))  # fmt: skip
+            log(f"[profile] {window} (settle {settle} s on each side): {calls} of "
+                f"{sum(launched.values())} kernel launches in the trace; first device event "
+                f"{summary['first_device_us']} us after the window opened; in order "
+                f"{[n[:24] for n in summary['order'] or []]}")
+        profile_rows = [{"kernel": name, **row} for name, row in found.items()]
+        self.records["profile"] = profile_rows
+        for r in profile_rows:
             log(f"[profile] {r['kernel'][:60]}: {r['device_ms']:.3f} ms over {r['calls']} call(s)")
-        names = {"fold_packed": "fold_packed_kernel", "fold_planar": "fold_planar_kernel",
-                 "mask_fold": "mf_mask_fold_kernel"}
-        for name, kernel in names.items():
-            hits = [r["device_ms"] for r in rows if kernel in r["kernel"]]
+        for name in ("fold_packed", "fold_planar"):
+            hits = [r["device_ms"] for r in profile_rows if names[name] in r["kernel"]]
             if hits and name in timings:
                 timings[name]["device_ms"] = sum(hits)
-        del acc, packed, one
+        k2 = [r for r in profile_rows if names["mask_fold"] in r["kernel"]]
+        if k2 and k2[0]["calls"] == 1 + k:  # one seed, then k seeds into k rows
+            per_launch = k2[0]["device_ms"] / k2[0]["calls"]
+            timings["mask_fold"]["device_ms"] = per_launch
+            timings["mask_fold_rows"]["device_ms"] = per_launch * k
+        del acc, packed, one, rows
 
 
 def main() -> int:
@@ -1970,14 +2463,20 @@ def main() -> int:
         smoke.phase_a_fold()
         smoke.phase_a_mask_fold()
         smoke.phase_a_look_back()
+        smoke.phase_a_mask_fold_rows()
         smoke.phase_a_wire()
         timings = smoke.phase_a_main_shapes()
+        timings["mask_fold_rows"] = smoke.phase_a_rows_main()
         smoke.phase_a_wire_main()
         pipeline = smoke.phase_pipeline()
         result = smoke.phase_b()
+        ref = {k: smoke.phase_b_out[k] for k in ("vect", "unit", "model", "mask")}
         wire = smoke.phase_w(result["walls"], timings)
+        sim = smoke.phase_s(ref)
+        del ref
         coordinator = smoke.phase_r()
         coordinator_wire = smoke.phase_r(wire=True)
+        loadgen = smoke.phase_l()
         if smoke.cuda:  # the runner CLI resolves CUDA; without a card it exits
             coordinator["runner_cli"] = smoke.phase_r_cli()
     except Exception as exc:  # every phase failure ends the run without a result
@@ -1992,18 +2491,30 @@ def main() -> int:
             smoke.records["profile"] = f"unavailable: {type(exc).__name__}: {exc}"
             log(f"[profile] unavailable: {exc}")
     smoke.records.update(timings=timings, pipeline=pipeline, round=result, wire_round=wire,
-                         coordinator_round=coordinator, coordinator_round_wire=coordinator_wire,
+                         sim=sim, coordinator_round=coordinator,
+                         coordinator_round_wire=coordinator_wire, loadgen_round=loadgen,
                          seconds=time.perf_counter() - t0)
     if not smoke.cuda:
         _write_records(smoke.records)
         log(f"chip_smoke: rehearsal on {args.device} passed in {time.perf_counter() - t0:.1f} s")
         return 0
-    # launches per path: K1 and K2 on Phase B's round, K3 and K4 on Phase W's
+    # launches per path: K1 and K2 on Phase B's round, K3 and K4 on Phase W's,
+    # K2's per-row entry on Phase S's
     launches = {**result["launches"],
-                **{k: wire["launches"][k] for k in ("wire_unpack", "packed_check")}}
-    table = smoke.kernel_table(timings, launches, coordinator["launches"],
-                               coordinator_wire["launches"])
+                **{k: wire["launches"][k] for k in ("wire_unpack", "packed_check")},
+                "mask_fold_rows": sim["launches"]["mask_fold_rows"]}
+    loadgen_launches = {k: v + loadgen["driver_launches"].get(k, 0)
+                        for k, v in loadgen["launches"].items()}
+    table = smoke.kernel_table(timings, launches, {
+        "launches_coordinator_round": coordinator["launches"],
+        "launches_coordinator_round_wire": coordinator_wire["launches"],
+        "launches_sim": sim["launches"],
+        "launches_loadgen": loadgen_launches,
+    })  # fmt: skip
     smoke.records["kernels"] = table
+    smoke.idle_shares(timings, {"phase R": coordinator["launches"],
+                                "phase R-wire": coordinator_wire["launches"],
+                                "phase L": loadgen["launches"]})
     _write_records(smoke.records)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(gpu_name_and_power())
@@ -2014,6 +2525,62 @@ def main() -> int:
         "count": torch.cuda.device_count(),
     }}))  # fmt: skip
     return 0
+
+
+# each launch counter's kernel, by a part of its symbol's name (K2's two
+# host entries launch one kernel)
+KERNEL_SYMBOLS = {"fold_packed": "fold_packed_kernel", "fold_planar": "fold_planar_kernel",
+                  "mask_fold": "mf_mask_fold_kernel", "mask_fold_rows": "mf_mask_fold_kernel",
+                  "wire_unpack": "wire_unpack_kernel", "packed_check": "packed_check_kernel"}
+
+
+def trace_complete(trace: dict, launches: dict) -> bool:
+    """Whether a trace holds as many calls of each kernel as this process's
+    launch counters say it launched in the window."""
+    want: dict = {}
+    for counter, n in launches.items():
+        symbol = KERNEL_SYMBOLS[counter]
+        want[symbol] = want.get(symbol, 0) + n
+    got = {symbol: sum(r["calls"] for name, r in trace["by_name"].items() if symbol in name)
+           for symbol in want}  # fmt: skip
+    return got == want
+
+
+def trace_summary(prof, window_s: float) -> dict:
+    """Device time by name (kernels, copies, fills) in a profiler window,
+    the card's busy time (the union of those intervals) and its idle share
+    of the window's host-clock wall."""
+    by_name: dict = {}
+    spans, named = [], []
+    kinds = set()
+    events = prof.events()
+    for ev in events:
+        kinds.add(str(ev.device_type))
+        if "CUDA" not in str(ev.device_type):
+            continue
+        start, end = ev.time_range.start, ev.time_range.end
+        spans.append((start, end))
+        named.append((start, ev.name))
+        row = by_name.setdefault(ev.name, {"device_ms": 0.0, "calls": 0})
+        row["device_ms"] += (end - start) / 1e3
+        row["calls"] += 1
+    busy_us, reach = 0.0, None
+    for start, end in sorted(spans):
+        if reach is None or start > reach:
+            busy_us += end - start
+            reach = end
+        elif end > reach:
+            busy_us += end - reach
+            reach = end
+    busy_s = busy_us / 1e6
+    return {"window_s": window_s, "device_busy_s": busy_s,
+            "idle_share": 1 - busy_s / window_s if window_s > 0 else None,
+            "events": len(events), "device_events": len(spans), "device_types": sorted(kinds),
+            # device events' first start and last end, microseconds from the trace's start
+            "first_device_us": min((a for a, _ in spans), default=None),
+            "order": [name[:48] for _, name in sorted(named)] if len(named) <= 64 else None,
+            "last_device_us": max((b for _, b in spans), default=None),
+            "by_name": dict(sorted(by_name.items(), key=lambda kv: -kv[1]["device_ms"]))}
 
 
 def _device_us(ev) -> float:

@@ -198,7 +198,8 @@ def test_launch_counters_count_kernel_launches(cuda):
     kws = to_device_u32(np.zeros((2, 8), np.uint32), cuda)
     kernels.mask_fold(acc, kws, [0, 5], 64, order)
     assert kernels.LAUNCHES == {
-        "fold_planar": 1, "fold_packed": 0, "mask_fold": 2, "wire_unpack": 0, "packed_check": 0
+        "fold_planar": 1, "fold_packed": 0, "mask_fold": 2, "mask_fold_rows": 0, "wire_unpack": 0,
+        "packed_check": 0,
     }
 
 
@@ -607,3 +608,55 @@ def test_aggregate_masks_on_card_matches_cpu(cuda):
     assert kernels.LAUNCHES["mask_fold"] == 9
     unit, vect = masking.sum_masks(raw, length, pair, device="cpu")
     assert got.vect.data.tobytes() == vect.tobytes() and got.unit.data.tobytes() == unit.tobytes()
+
+
+@pytest.mark.parametrize("trips", [1, 5])
+@pytest.mark.parametrize("b", [1, 8, 33])
+@pytest.mark.parametrize("name", ["L2", "L4-draw17", "L67"])
+def test_mask_fold_rows_matches_plain(cuda, name, b, trips):
+    """K2 with one accumulator per seed: each row against the plain version
+    (rows and end cursors), from mid-block cursors, one or five trips; one
+    launch per seed and trip."""
+    order = ORDERS[name]
+    bpn = limbs.draw_width_for(order)
+    count = 301 if name == "L67" else 1001  # ragged
+    rng = np.random.default_rng(b)
+    seeds = [rng.bytes(32) for _ in range(b)]
+    kws = to_device_u32(np.stack([np.frombuffer(s, "<u4") for s in seeds]), cuda)
+    offs = [13 * i + 6 for i in range(b)]
+    chunk = None if trips == 1 else max(7, count * (1 << (8 * bpn)) // order // trips)
+    rows0 = to_device_u32(_elements(order, (b, count), b + 2), cuda)
+    kernels.reset_launches()
+    got, ends = kernels.mask_fold_rows(rows0.clone(), kws, offs, count, order, chunk)
+    launched = kernels.LAUNCHES["mask_fold_rows"]
+    want, want_ends = kernels.mask_fold_rows_plain(rows0.clone(), kws, offs, count, order, chunk)
+    assert _same(got, want) and ends.tolist() == want_ends.tolist()
+    assert launched >= b * (trips if trips == 1 else 2) and kernels.LAUNCHES["mask_fold"] == 0
+
+
+def test_sim_and_engine_on_card_equal_cpu(cuda):
+    """A small ``SimRound`` (both sum-mask phases, a short last block) and a
+    ``PopulationEngine`` on the card give the CPU run's bytes."""
+    from fractions import Fraction
+
+    from xaynet_tpu_torch.loadgen import PopulationEngine
+    from xaynet_tpu_torch.sim import SimRound, SimSpec
+
+    pair = MaskConfig(GroupType.PRIME, DataType.F32, BoundType.B0, ModelType.M6).pair()
+    p, n = 37, 2049
+    rng = np.random.default_rng(31)
+    seeds = [rng.bytes(32) for _ in range(p)]
+    weights = rng.uniform(-1, 1, (p, n)).astype(np.float32)
+    scalar = Fraction(1, p)
+    for fuse in (True, False):
+        spec = SimSpec(pair, n, block_size=16, fuse_mask_sum=fuse, return_internals=True)
+        kernels.reset_launches()
+        on_card = SimRound(spec).run(seeds, weights, scalar)
+        assert kernels.LAUNCHES["mask_fold_rows"] >= p and kernels.LAUNCHES["fold_planar"] > 0
+        on_cpu = SimRound(spec, device="cpu").run(seeds, weights, scalar)
+        assert on_card.global_model.tobytes() == on_cpu.global_model.tobytes()
+        for key, value in on_cpu.internals.items():
+            assert np.array_equal(on_card.internals[key], value)
+    card = PopulationEngine(pair, n, block_size=16).emit(seeds, weights, scalar)
+    cpu = PopulationEngine(pair, n, block_size=16, device="cpu").emit(seeds, weights, scalar)
+    assert all(np.array_equal(a, b) for a, b in zip(card, cpu))

@@ -11,6 +11,8 @@
   runs without touching CUDA (nothing is pinned);
 - a wrapper handed a tensor that is neither on the CPU nor on a CUDA
   device raises (only CPU tensors take the plain versions);
+- the whole-round sim and the load generator (``sim``, ``loadgen``)
+  import alone without JAX, and without a device given they run on CUDA;
 - the coordinator (``server.runner.serve``, ``StateMachineInitializer``, the
   ``python -m xaynet_tpu_torch.server.runner`` CLI) with ``[aggregation]
   device`` true or false and no device given refuses to run without CUDA.
@@ -37,11 +39,13 @@ from xaynet_tpu_torch.core.mask.model import Scalar
 from xaynet_tpu_torch.ops import kernels, masking
 from xaynet_tpu_torch.parallel.aggregator import DeviceAggregator
 from xaynet_tpu_torch.device import DeviceUnavailable
+from xaynet_tpu_torch.loadgen import PopulationEngine
 from xaynet_tpu_torch.parallel.streaming import StreamingAggregator
 from xaynet_tpu_torch.server import runner
 from xaynet_tpu_torch.server.aggregation import StagedAggregator
 from xaynet_tpu_torch.server.settings import Settings
 from xaynet_tpu_torch.server.state_machine import StateMachineInitializer
+from xaynet_tpu_torch.sim import SimRound, SimSpec
 
 REPO = Path(__file__).resolve().parents[1]
 PAIR = MaskConfig(GroupType.PRIME, DataType.F32, BoundType.B0, ModelType.M3).pair()
@@ -138,6 +142,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
         lambda: masking.derive_mask_limbs(seed, 8, PAIR),
         lambda: masking.sum_masks([seed], 8, PAIR),
         lambda: masking.mask_update(seed, Scalar(Fraction(1)), np.zeros(8, np.float32), PAIR),
+        lambda: masking.derive_mask_limbs_batch([seed], 8, PAIR),
+        lambda: SimRound(SimSpec(PAIR, 8)),
+        lambda: PopulationEngine(PAIR, 8),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -193,7 +200,7 @@ _ALONE = sorted(
         m
         for m in _port_modules()
         if m.split(".")[1:2] in (["server"], ["core"], ["storage"], ["telemetry"],
-                                 ["resilience"], ["utils"], ["sdk"])
+                                 ["resilience"], ["utils"], ["sdk"], ["sim"], ["loadgen"])
     }
 )  # fmt: skip
 
@@ -237,8 +244,8 @@ def imported_alone() -> dict:
 def test_wire_ingest_modules_import_alone_without_jax(module, imported_alone):
     """Each module on the wire-ingest path and the coordinator's, every
     module of the port's ``server``, ``core``, ``storage``, ``telemetry``,
-    ``resilience``, ``utils`` and ``sdk`` among them, imported alone, pulls
-    in neither ``jax`` nor the JAX package."""
+    ``resilience``, ``utils``, ``sdk``, ``sim`` and ``loadgen`` among them,
+    imported alone, pulls in neither ``jax`` nor the JAX package."""
     assert module in _port_modules()
     assert imported_alone[module] == []
 

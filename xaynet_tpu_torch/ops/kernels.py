@@ -8,7 +8,9 @@ JAX package (``xaynet_tpu/ops/fold_pallas.py``):
   (:func:`fold_planar`) and packed byte-planar ``uint8[K, bpn, n]`` input
   (:func:`fold_packed`);
 - **K2** ``csrc/mask_fold.cu`` — the fused Sum2 keystream -> reject -> fold
-  (``mask_fold_planar_pallas``), :func:`mask_fold`.
+  (``mask_fold_planar_pallas``), :func:`mask_fold` (every seed into one
+  accumulator) and :func:`mask_fold_rows` (each seed into its own row: the
+  whole-round simulation's and the load generator's masks).
 
 Two more replace the XLA program of the JAX package's device wire ingest
 (``xaynet_tpu/parallel/aggregator.py`` ``_build_wire_unpack`` /
@@ -31,7 +33,8 @@ plain torch version beside it (``*_plain``), a CUDA tensor launches the
 kernel or raises. There is no fallback from the kernel to the plain
 version. ``LAUNCHES`` counts the kernel launches of each wrapper, under a
 lock (the streaming pipeline's fold worker launches K1 from its own
-thread): K1 one per batch fold, K2 one per seed and trip (a trip is one
+thread): K1 one per batch fold, K2 one per seed and trip for either entry
+(``mask_fold`` and ``mask_fold_rows`` count apart; a trip is one
 pass over a provisioned run of keystream candidates; a seed takes one
 trip except with probability < 2^-60, or when a caller shrinks
 ``chunk_candidates``), K3 and K4 one per group of wire updates.
@@ -73,7 +76,14 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )  # fmt: skip
 
-LAUNCHES = {"fold_planar": 0, "fold_packed": 0, "mask_fold": 0, "wire_unpack": 0, "packed_check": 0}
+LAUNCHES = {
+    "fold_planar": 0,
+    "fold_packed": 0,
+    "mask_fold": 0,
+    "mask_fold_rows": 0,
+    "wire_unpack": 0,
+    "packed_check": 0,
+}
 _LAUNCHES_LOCK = threading.Lock()
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -136,7 +146,9 @@ def build(out_dir: Path | None = None) -> dict[str, Path]:
         lib = libs[name]
         if lib.exists():
             continue
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", f"{lib}.tmp", str(CSRC / src)]
+        # a temporary name of this process's own: processes that start at
+        # once (the load generator's drivers) never write one file together
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", _tmp_name(lib), str(CSRC / src)]
         procs[name] = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )
@@ -147,10 +159,14 @@ def build(out_dir: Path | None = None) -> dict[str, Path]:
         if proc.returncode != 0:
             failed.append(f"{SOURCES[name]}:\n{log}")
         else:
-            os.replace(f"{libs[name]}.tmp", libs[name])
+            os.replace(_tmp_name(libs[name]), libs[name])
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return libs
+
+
+def _tmp_name(lib: Path) -> str:
+    return f"{lib}.{os.getpid()}.tmp"
 
 
 def _bind(name: str, lib: ctypes.CDLL) -> None:
@@ -430,11 +446,80 @@ def mask_fold(
     if acc.device.type == "cpu":
         return mask_fold_plain(acc, key_words, offs, count, order, chunk_candidates)
     _require_cuda(acc, key_words)
-    dev = acc.device
+    ends = _k2_trips(acc.device, lambda b: acc.data_ptr(), key_words, offs, count, order,
+                     chunk_candidates, "mask_fold")  # fmt: skip
+    return acc, ends
+
+
+def _check_rows_args(rows, key_words, offsets, count, order) -> list[int]:
+    n_limb = host_limbs.n_limbs_for_order(order)
+    if rows.dtype != torch.uint32 or rows.ndim != 3 or tuple(rows.shape[1:]) != (n_limb, count):
+        raise ValueError(f"rows must be uint32[B, {n_limb}, {count}]")
+    if key_words.ndim != 2 or key_words.shape[0] != rows.shape[0]:
+        raise ValueError("need one seed per row")
+    return _check_mask_fold_args(rows[0] if len(rows) else rows.new_empty((n_limb, count)),
+                                 key_words, offsets, count, order)  # fmt: skip
+
+
+def mask_fold_rows_plain(
+    rows: torch.Tensor,
+    key_words: torch.Tensor,
+    offsets,
+    count: int,
+    order: int,
+    chunk_candidates: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch :func:`mask_fold_rows`, any device: seed ``b``'s
+    ``count`` mask elements from its byte cursor, modular-added into
+    ``rows[b]`` (in place). Returns ``(rows, end cursors int64[B])``."""
+    offs = _check_rows_args(rows, key_words, offsets, count, order)
+    ends = []
+    for b, kw in enumerate(widen(key_words).tolist()):
+        mask, end = chacha.derive_uniform_limbs(
+            kw, count, order, offs[b], chunk_candidates, device=rows.device
+        )
+        store_(rows[b], p_mod_add(widen(rows[b]), mask, order))
+        ends.append(end)
+    return rows, torch.tensor(ends, dtype=torch.int64, device=rows.device)
+
+
+def mask_fold_rows(
+    rows: torch.Tensor,
+    key_words: torch.Tensor,
+    offsets,
+    count: int,
+    order: int,
+    chunk_candidates: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2 with one accumulator per seed: seed ``b`` (``key_words[b]``, its
+    vector draw from byte ``offsets[b]``) derives its mask and modular-adds
+    it into ``rows[b]`` of the planar ``uint32[B, L, count]`` block, in
+    place. Into zero rows that is each seed's mask itself (the batched
+    derivation); into encoded models, the masked models.
+
+    The same launches as :func:`mask_fold`, one per seed and trip, with the
+    accumulator pointer at row ``b``; the host reads the block's acceptance
+    counts once per trip, never once per seed. Returns ``(rows, end cursors
+    int64[B])``."""
+    offs = _check_rows_args(rows, key_words, offsets, count, order)
+    if rows.device.type == "cpu":
+        return mask_fold_rows_plain(rows, key_words, offs, count, order, chunk_candidates)
+    _require_cuda(rows, key_words)
+    row_bytes = rows.stride(0) * rows.element_size()
+    ends = _k2_trips(rows.device, lambda b: rows.data_ptr() + b * row_bytes, key_words, offs,
+                     count, order, chunk_candidates, "mask_fold_rows")  # fmt: skip
+    return rows, ends
+
+
+def _k2_trips(dev, acc_ptr, key_words, offs, count, order, chunk_candidates, counter):
+    """Launch K2 trip by trip on ``dev`` until every seed has ``count``
+    acceptances; seed ``b`` folds into the accumulator at ``acc_ptr(b)`` and
+    each launch counts under ``counter``. Returns the end cursors (int64[B]
+    on the device)."""
     ends = torch.tensor(offs, dtype=torch.int64).to(dev)
     if count == 0 or not offs:
-        return acc, ends
-    n_limb = acc.shape[0]
+        return ends
+    n_limb = host_limbs.n_limbs_for_order(order)
     plan = plan_trips(count, order, chunk_candidates)
     if plan.bpn > K2_MAX_DRAW:
         raise ValueError(f"draw width {plan.bpn} is out of the kernel's range")
@@ -451,15 +536,15 @@ def mask_fold(
                 rc = lib.xn_mask_fold_trip(
                     key_words.data_ptr() + 32 * b, plan.offset(offs[b], t), plan.trip,
                     plan.bpn, plan.tile, n_limb, pow2, order_bytes.data_ptr(),
-                    order_limbs.data_ptr(), acc.data_ptr(), count, done[b],
+                    order_limbs.data_ptr(), acc_ptr(b), count, done[b],
                     base.data_ptr() + 8 * b, ends.data_ptr() + 8 * b, scratch.data_ptr(), stream,
                 )  # fmt: skip
                 _check(rc, "K2 mask fold", lib)
-                _launched("mask_fold")
+                _launched(counter)
             done = base.cpu().tolist()  # the one sync of a trip
             pending = [b for b in pending if done[b] < count]
             t += 1
-    return acc, ends
+    return ends
 
 
 # --- K3 and K4: device wire ingest -----------------------------------------

@@ -13,7 +13,17 @@ rust/xaynet-server/src/state_machine/phases/unmask.rs unmask subtract):
 - ``sum_masks``: aggregate many seed-derived masks (the Sum2 hot loop) on
   the fused route only: host unit draws plus one K2 launch sequence per
   seed group, so no mask is ever materialized;
-- ``unmask_vect_limbs``: the Unmask subtract ``(masked - mask) mod order``.
+- ``unmask_vect_limbs``: the Unmask subtract ``(masked - mask) mod order``;
+- ``derive_mask_limbs_batch``: many seeds' masks, each in its own row of a
+  planar block on the device (host unit draws, then K2 per row through
+  ``kernels.mask_fold_rows``): the whole-round simulation's and the load
+  generator's derivation;
+- ``encode_models_batch``: the fixed-point encode of a population of models
+  sharing one scalar, on the host.
+
+The JAX module's ``derive_chunk_budgets`` is not ported: it sizes the
+keystream its vmapped derivation materializes per lane, and K2 never
+materializes a keystream (its trips are sized by ``kernels.plan_trips``).
 
 Entry points run on ``cuda`` unless given a device (``device.resolve_device``).
 """
@@ -49,7 +59,7 @@ def seed_words(seeds: list[bytes]) -> np.ndarray:
     return np.stack([np.frombuffer(s, dtype="<u4") for s in seeds])
 
 
-def _unit_draw(seed: bytes, config: MaskConfigPair) -> tuple[np.ndarray, int]:
+def unit_draw(seed: bytes, config: MaskConfigPair) -> tuple[np.ndarray, int]:
     """The seed's unit element and the byte cursor its vector draw starts at
     (``MaskSeed.derive_mask`` draws the unit first, from the same stream)."""
     sampler = StreamSampler(seed)
@@ -64,12 +74,55 @@ def derive_mask_limbs(
     planar ``uint32[L, length]`` tensor on the device). The JAX function
     returns the vector in wire layout ``[length, L]``."""
     dev = resolve_device(device)
-    unit, offset = _unit_draw(seed, config)
+    unit, offset = unit_draw(seed, config)
     n_limb = host_limbs.n_limbs_for_order(config.vect.order)
     acc = zeros_u32((n_limb, length), dev)
     kw = to_device_u32(seed_words([seed]), dev)
     kernels.mask_fold(acc, kw, [offset], length, config.vect.order)
     return unit, acc
+
+
+def derive_mask_limbs_batch(
+    seeds: list[bytes], length: int, config: MaskConfigPair, device=None
+) -> tuple[np.ndarray, torch.Tensor]:
+    """``derive_mask_limbs`` for many seeds: (units ``uint32[B, L1]`` on the
+    host, vector limbs as a planar ``uint32[B, L, length]`` tensor on the
+    device). Row ``b`` is bit-identical to ``MaskSeed.derive_mask`` with
+    seed ``b``. The unit draws and their cursor handoffs run on the host;
+    the vector draws are K2 into zero rows (``kernels.mask_fold_rows``), one
+    host sync per trip for the whole batch. The JAX function returns the
+    vectors in wire layout ``[B, length, L]``."""
+    if not seeds:
+        raise ValueError("no seeds")
+    dev = resolve_device(device)
+    draws = [unit_draw(s, config) for s in seeds]
+    n_limb = host_limbs.n_limbs_for_order(config.vect.order)
+    rows = zeros_u32((len(seeds), n_limb, length), dev)
+    kw = to_device_u32(seed_words(seeds), dev)
+    kernels.mask_fold_rows(rows, kw, [off for _, off in draws], length, config.vect.order)
+    return np.stack([unit for unit, _ in draws]), rows
+
+
+def encode_models_batch(
+    weights: np.ndarray, scalar, config: MaskConfigPair
+) -> tuple[np.ndarray, np.ndarray]:
+    """Fixed-point encode a population of models sharing ``scalar``.
+
+    ``weights`` is ``[B, length]``; returns ``(unit, vect)``: ``unit`` the
+    limbs ``uint32[L1]`` of the encoded clamped scalar every participant
+    shares, ``vect`` the limbs ``uint32[B, length, L]``. Byte-identical to ``B`` independent
+    ``Masker.mask`` encodes: the map is elementwise, so the flattened array
+    goes through the same ``encode_vect_limbs`` a single participant runs.
+    """
+    weights = np.asarray(weights)
+    if weights.ndim != 2:
+        raise ValueError("weights must be [participants, length]")
+    s_clamped = clamp_scalar(scalar, config.unit)
+    flat = encode_vect_limbs(weights.reshape(-1), s_clamped, config.vect)
+    vect = flat.reshape(weights.shape[0], weights.shape[1], -1)
+    unit_int = encode_unit(s_clamped, config.unit)
+    unit = host_limbs.int_to_limbs(unit_int, host_limbs.n_limbs_for_order(config.unit.order))
+    return unit, vect
 
 
 def mask_update(
@@ -120,7 +173,7 @@ def sum_masks_planar(
     step = max(1, seed_batch)
     for g0 in range(0, len(seeds), step):
         group = seeds[g0 : g0 + step]
-        draws = [_unit_draw(s, config) for s in group]
+        draws = [unit_draw(s, config) for s in group]
         kw = to_device_u32(seed_words(group), dev)
         kernels.mask_fold(
             acc, kw, [off for _, off in draws], length, config.vect.order, chunk_candidates

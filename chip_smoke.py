@@ -81,11 +81,13 @@ Builds the hand-written CUDA kernels from ``xaynet_tpu_torch/csrc`` with
   from this data (every top byte, and the sectors of lower planes where an
   element still ties the order).
 - **Phase S** is the whole-round simulation (``sim.SimRound``): (s1) Phase
-  B's population (the same 16 seeds and models, scalar 1/16) at the main
-  length in blocks of 8, each block's masks derived into zero rows by K2
-  per row and folded by K1 planar; its aggregates, unmasked limbs and
-  float64 model must be Phase B's, byte for byte (the oracle's identity at
-  full width). (s2) The JAX package's bench sim shape: 2,048 participants
+  B's first flush of participants (its first 8 seeds and models, scalar
+  1/16 as B encoded them) at the main length in one block, the masks
+  derived into zero rows by K2 per row and folded by K1 planar; its
+  aggregates, unmasked limbs and float64 model must be, byte for byte,
+  those of the same 8 through the round's own path: K1's fold of the
+  masked wires Phase B serialized for them, ``sum_masks`` over their
+  seeds, the unmask and decode (the oracle's identity at full width). (s2) The JAX package's bench sim shape: 2,048 participants
   x 1,000 parameters, integer/f32/b0/m6, blocks of 256, a warm-up and three
   timed runs (median participants/s with min and max), the model within
   1e-6 of the f32 mean.
@@ -135,6 +137,25 @@ Builds the hand-written CUDA kernels from ``xaynet_tpu_torch/csrc`` with
   is that of the coordinator's process, not the card's. Then ``python -m
   xaynet_tpu_torch.server.runner -c <cfg>`` at length 1000 must answer
   ``GET /params`` and exit 0 on SIGTERM with "coordinator stopped" logged.
+- **Phase T** is local training on the port (``models``): (t1) ResNet-50
+  at full width (1000 classes, stages (3, 4, 6, 3), bf16 activations,
+  25,557,032 parameters) from a seeded ``torch.Generator``, on synthetic
+  64x64 NHWC images: the parameter count, ``unflatten_params`` of
+  ``flatten_params`` byte for byte on the card, one SGD step on the card
+  against the same step on the CPU in f32 (TF32 off) and in bf16, and the
+  bf16 step's milliseconds at batch 32 (CUDA events, median of 10) and
+  images/s. (t2) Two rounds of ResNet-50 federated through the
+  coordinator (Phase R's config at the model's length): a sum participant
+  and three update participants, each ``spawn_participant(url,
+  FederatedTrainer, ...)`` training on the card (2 batches of 32 a round),
+  round 2's from round 1's global model; each global model within 3 /
+  exp_shift + 1e-6 of the mean of the vectors the trainers returned, the
+  fold on CUDA, K1 planar 3 and K2 3 in the participants' masking, K2 3 in
+  Sum2, K1 packed 1 in the flush; per round the training and masking
+  seconds, the walls from the first update POST and the peak RSS. (t3)
+  The four training examples at their defaults, ``python -m
+  xaynet_tpu_torch.examples.<name> --check-loss``, started together: each
+  exits 0 and prints its eval loss.
 
 Prints what it found on earlier lines; on its last lines the card's name
 and power limit, the kernel table as one JSON object, and
@@ -147,6 +168,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import logging
 import subprocess
 import sys
 import time
@@ -162,6 +184,7 @@ OUT_DIR = Path("chiprun_out")
 # Phase R's participants split a message into parts of at most this many
 # bytes: a 150 MB update goes as 3 parts, through the multipart reader
 PHASE_R_PART_BYTES = 64 << 20
+RESNET50_PARAMS = 25_557_032  # flax ResNet-50, 1000 classes (xaynet_tpu/models/resnet.py)
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 # Hopper SM: 64 lanes a clock on each integer pipe, the ALU pipe (logic,
 # shifts, IADD3, compares) and the FMA pipe's IMAD side (H100 architecture
@@ -365,6 +388,27 @@ def pipeline_counters() -> dict:
     journal = registry.get("xaynet_resilience_checkpoints_total")
     out["journal_writes"] = sum(child.value for _, child in journal.children())
     return out
+
+
+class PhaseMarks(logging.Handler):
+    """The coordinator's phase transitions, on this process's clock:
+    ``(perf_counter, message, snapshot())`` (``snapshot``: what else to read
+    at the transition, on the coordinator's thread)."""
+
+    def __init__(self, snapshot=lambda: None):
+        super().__init__()
+        self.marks: list = []
+        self.snapshot = snapshot
+
+    def emit(self, record):
+        msg = record.getMessage()
+        if "entering" in msg or "full close" in msg:
+            self.marks.append((time.perf_counter(), msg, self.snapshot()))
+
+    def first(self, prefix: str, text: str):
+        """The first mark whose message starts with ``prefix`` and holds ``text``."""
+        hits = [m for m in self.marks if m[1].startswith(prefix) and text in m[1]]
+        return hits[0] if hits else None
 
 
 class InProcessCoordinator:
@@ -1784,29 +1828,59 @@ class Smoke:
 
     # -- phase S: the whole-round simulation ----------------------------------
 
-    def phase_s(self, ref: dict) -> dict:
-        """(s1) ``SimRound`` on Phase B's population (the same 16 seeds and
-        f32 models, scalar 1/16, blocks of 8, ``fuse_mask_sum``) at the main
-        length: its aggregates, unmasked limbs and float64 model must be
-        Phase B's, byte for byte (``ref``: Phase B's aggregate, Sum2 mask and
-        model). (s2) The shape of the JAX package's bench sim leg: 2,048
-        participants x 1,000 parameters, integer/f32/b0/m6, blocks of 256,
-        one warm-up and three timed runs; the model within 1e-6 of the f32
-        mean. Counts the launches of both (K2 per row, K1 planar)."""
+    def phase_s(self, wires: list) -> dict:
+        """(s1) ``SimRound`` on Phase B's first flush of participants (its
+        first ``batch`` seeds and f32 models, scalar 1/16 as B encoded them,
+        one block, ``fuse_mask_sum``) at the main length, against the same
+        participants through the round's own path: K1's fold of their masked
+        wires as B serialized them (``wires``; lazy parse, K3/K4, K1 on the
+        device rows), ``sum_masks`` over their seeds (K2), the unmask and
+        decode. Its aggregates, unmasked limbs and float64 model must be
+        those, byte for byte. (s2) The shape of the JAX package's bench sim
+        leg: 2,048 participants x 1,000 parameters, integer/f32/b0/m6,
+        blocks of 256, one warm-up and three timed runs; the model within
+        1e-6 of the f32 mean. Counts the sim's launches (K2 per row, K1
+        planar); the reference's go beside them."""
         from xaynet_tpu_torch.core.mask.config import (
             BoundType, DataType, GroupType, MaskConfig, ModelType,
         )  # fmt: skip
-        from xaynet_tpu_torch.ops import kernels, limbs
+        from xaynet_tpu_torch.core.mask.object import MaskObject, MaskUnit, MaskVect
+        from xaynet_tpu_torch.core.mask.serialization import parse_mask_object
+        from xaynet_tpu_torch.ops import kernels, limbs, masking
         from xaynet_tpu_torch.ops.masking import unit_draw
+        from xaynet_tpu_torch.server.aggregation import StagedAggregator
         from xaynet_tpu_torch.sim import SimRound, SimSpec, seeds_for
 
         args = self.args
         device = None if self.cuda else self.dev  # no device: CUDA
         cfg = MaskConfig(GroupType.PRIME, DataType.F32, BoundType.B0, ModelType.M3)
         pair, length, n_up, block = cfg.pair(), args.length, args.updates, args.batch
+        k = len(wires)
         seeds, _, models = phase_b_population(args.seed, n_up, length)
-        weights = np.empty((n_up, length), dtype=np.float32)
-        for i, w in enumerate(models):
+        seeds = seeds[:k]
+
+        # the reference: B's first k updates through the round's own path
+        kernels.reset_launches()
+        t = time.perf_counter()
+        agg = StagedAggregator(pair, length, batch_size=k, device=self.dev)
+        objs = [parse_mask_object(w, lazy_vect=True)[0] for w in wires]
+        agg.prevalidate_wire_batch(objs)
+        for obj in objs:
+            agg.validate_aggregation(obj)
+            agg.aggregate(obj)
+        final = agg.finalize_inplace()
+        unit_m, vect_m = masking.sum_masks(seeds, length, pair, seed_batch=k, device=self.dev)
+        mask = MaskObject(MaskVect(pair.vect, vect_m), MaskUnit(pair.unit, unit_m))
+        final.validate_unmasking(mask)
+        ref_vect, ref_unit = final.object.vect.data, final.object.unit.data
+        ref_model = final.unmask_array(mask)
+        self.sync()
+        ref_s = time.perf_counter() - t
+        ref_launches = dict(kernels.LAUNCHES)
+        del agg, objs, final
+
+        weights = np.empty((k, length), dtype=np.float32)
+        for i, w in zip(range(k), models):
             weights[i] = w
         kernels.reset_launches()
         t = time.perf_counter()
@@ -1819,32 +1893,33 @@ class Smoke:
         inner = res.internals
         ol = limbs.order_limbs_for(cfg.order)
         ol_u = limbs.order_limbs_for(pair.unit.order)
-        mask = ref["mask"]
-        self.check(np.array_equal(inner["masked_vect_sum"], ref["vect"])
-                   and np.array_equal(inner["masked_unit_sum"], ref["unit"]),
-                   "(s1) sim's masked aggregate (vect and unit) == Phase B's aggregate")
+        self.check(np.array_equal(inner["masked_vect_sum"], ref_vect)
+                   and np.array_equal(inner["masked_unit_sum"], ref_unit),
+                   f"(s1) sim's masked aggregate (vect and unit) == K1's fold of B's first {k} wires")
         self.check(np.array_equal(inner["mask_vect_sum"], mask.vect.data)
                    and np.array_equal(inner["mask_unit_sum"], mask.unit.data),
-                   "(s1) sim's mask sum == Phase B's Sum2 mask (sum_masks)")
-        want_limbs = limbs.mod_sub(ref["vect"], mask.vect.data, ol)
+                   f"(s1) sim's mask sum == sum_masks over B's first {k} seeds")
+        want_limbs = limbs.mod_sub(ref_vect, mask.vect.data, ol)
         self.check(np.array_equal(res.model_vect_limbs, want_limbs),
-                   "(s1) sim's model_vect_limbs == Phase B's aggregate - mask")
-        want_unit = limbs.mod_sub(ref["unit"][None], mask.unit.data[None], ol_u)[0]
+                   "(s1) sim's model_vect_limbs == the fold - the mask sum")
+        want_unit = limbs.mod_sub(ref_unit[None], mask.unit.data[None], ol_u)[0]
         want_unit = limbs.limbs_to_int(want_unit)
-        self.check(res.model_unit_int == want_unit, "(s1) sim's unmasked unit == Phase B's")
-        self.check(res.global_model.tobytes() == ref["model"].tobytes(),
-                   f"(s1) sim's float64 model == Phase B's, byte for byte ({length} params)")
-        blocks = -(-n_up // block)
+        self.check(res.model_unit_int == want_unit, "(s1) sim's unmasked unit == the fold's")
+        self.check(res.global_model.tobytes() == ref_model.tobytes(),
+                   f"(s1) sim's float64 model == unmask_array of the fold, byte for byte "
+                   f"({length} params)")
+        blocks = -(-k // block)
         if self.cuda:
             got = s1_launches
-            self.check(got["mask_fold_rows"] == n_up and got["fold_planar"] == 3 * blocks
+            self.check(got["mask_fold_rows"] == k and got["fold_planar"] == 3 * blocks
                        and got["mask_fold"] == 0 and sim.program_calls == 1,
-                       f"(s1) launches: K2 per row {got['mask_fold_rows']} == {n_up}, K1 planar "
+                       f"(s1) launches: K2 per row {got['mask_fold_rows']} == {k}, K1 planar "
                        f"{got['fold_planar']} == {3 * blocks}, K2 mask_fold 0")  # fmt: skip
         del res, inner, want_limbs
-        log(f"[phase S] (s1) SimRound of Phase B's {n_up} participants x {length} params, blocks "
-            f"of {block}: byte-identical to Phase B's aggregate, mask sum, limbs and model in "
-            f"{s1_s:.3f} s; launches {s1_launches}")
+        log(f"[phase S] (s1) SimRound of Phase B's first {k} participants (scalar 1/{n_up}) x "
+            f"{length} params, blocks of {block}: byte-identical to K1's fold of their wires, "
+            f"sum_masks, the limbs and unmask_array's model in {s1_s:.3f} s (the reference "
+            f"{ref_s:.3f} s, launches {ref_launches}); launches {s1_launches}")
 
         # (s2) the bench sim leg's shape
         cfg2 = MaskConfig(GroupType.INTEGER, DataType.F32, BoundType.B0, ModelType.M6)
@@ -1882,7 +1957,8 @@ class Smoke:
             f"runs {[round(r, 3) for r in runs]} s; warm-up {warm_s:.3f} s); |model - mean| "
             f"{err:.3e}; launches {s2_launches}; the {p} host unit draws alone {unit_draw_s:.3f} s")
         launches = {k: s1_launches[k] + s2_launches[k] for k in s1_launches}
-        return {"s1_seconds": s1_s, "s1_launches": s1_launches, "s2_runs_s": runs,
+        return {"s1_seconds": s1_s, "s1_launches": s1_launches, "s1_participants": k,
+                "s1_reference_s": ref_s, "s1_reference_launches": ref_launches, "s2_runs_s": runs,
                 "s2_warmup_s": warm_s, "s2_participants_per_s": {"median": pps[1], "min": pps[0],
                                                                   "max": pps[2]},
                 "s2_launches": s2_launches, "s2_mean_err": err, "s2_unit_draws_s": unit_draw_s,
@@ -1899,7 +1975,6 @@ class Smoke:
         (Phase R-wire): device wire ingest, wire v2 uploads, the ``file``
         coordinator store and the round journal; the coordinator's K4
         checks every update."""
-        import logging
         import os
         import resource
         import shutil
@@ -1931,18 +2006,6 @@ class Smoke:
             stream.close = keep_rings_then_close
             built.append(agg)
             return agg
-
-        class PhaseMarks(logging.Handler):
-            """The coordinator's phase transitions, on this process's clock."""
-
-            def __init__(self):
-                super().__init__()
-                self.marks = []
-
-            def emit(self, record):
-                msg = record.getMessage()
-                if "entering" in msg or "full close" in msg:
-                    self.marks.append((time.perf_counter(), msg))
 
         port = free_port()
         base = f"http://127.0.0.1:{port}"
@@ -1987,8 +2050,8 @@ class Smoke:
 
         def mark(prefix: str, text: str) -> float | None:
             """Seconds from the first update POST to the coordinator's log line."""
-            hits = [t for t, msg in marks.marks if msg.startswith(prefix) and text in msg]
-            return hits[0] - walls["t0"] if hits else None
+            hit = marks.first(prefix, text)
+            return hit[0] - walls["t0"] if hit else None
 
         phases = {
             "update_full_close": mark("round 1", "update: full close"),
@@ -2226,6 +2289,397 @@ class Smoke:
                 "launches": launches, "driver_launches": driver_launches,
                 "decode_max_err": err, "sim_s": sim_s}
 
+    # -- phase T: local training on the port ----------------------------------
+
+    def resnet_config(self) -> dict:
+        """ResNet-50 at full width (1000 classes, stages (3, 4, 6, 3)) on the
+        card; the CPU rehearsal runs the control flow on the stem, one block
+        and 10 classes."""
+        return {} if self.cuda else {"num_classes": 10, "stage_sizes": (1,)}
+
+    def phase_t(self) -> dict:
+        steps = self.phase_t_steps()
+        rounds = self.phase_t_rounds(steps.pop("module"))
+        return {"steps": steps, "rounds": rounds, "examples": self.phase_t_examples()}
+
+    def phase_t_steps(self) -> dict:
+        """(t1) ResNet-50 train steps (``resnet.make_train_step``: SGD with
+        momentum 0.9 at lr 0.1) on synthetic 64x64 NHWC images. Checks the
+        parameter count and ``model_length`` (25,557,032), that
+        ``unflatten_params(flatten_params(m))`` round-trips byte for byte on
+        the card, and one step on the card against the same step on the CPU
+        (same weights, a batch of 4), in f32 (``dtype=float32``, TF32 off on
+        the card) and in bf16 (as trained). The first SGD update of a
+        50-layer GroupNorm network is ill-conditioned: on the CPU, f32 steps
+        that differ only in summation order (one thread or eight) lie 6.5e-3
+        of the update's norm apart, and 5.7e-3-8.8e-3 from the f64 step;
+        bf16's lies ~0.45 from f32's. So each card step is held to three
+        times the CPU step's own distance from the f64 step on the CPU (a
+        ``double()`` module): its error and the CPU's add up to that when
+        the card's rounding is no worse than twice the CPU's, while a wrong
+        padding, layout or epsilon moves the update by O(1) of its norm.
+        The loss is held to 1e-4 of itself in f32 and 2% in bf16.
+
+        Then times the bf16 step at batch 32: CUDA events around each of 10
+        steps after 3 warm-up steps, median ms and images/s."""
+        import copy
+
+        torch = self.torch
+        from xaynet_tpu_torch.models import resnet
+        from xaynet_tpu_torch.models.federated import model_length
+        from xaynet_tpu_torch.models.mlp import flatten_params, unflatten_params
+
+        args, cpu = self.args, torch.device("cpu")
+        config = self.resnet_config()
+        classes = config.get("num_classes", 1000)
+
+        base = resnet.init_params(torch.Generator().manual_seed(args.seed), device=cpu, **config)
+
+        def fresh(dtype, device):
+            """``base``'s weights, computing in ``dtype`` (as ``init_params(dtype=...)``)."""
+            m = copy.deepcopy(base)
+            for module in m.modules():
+                if isinstance(getattr(module, "dtype", None), torch.dtype):
+                    module.dtype = dtype
+            return m.to(device)
+
+        model = fresh(torch.bfloat16, self.dev)
+        n = model_length(model)
+        flat = flatten_params(model)
+        want_n = RESNET50_PARAMS if self.cuda else n
+        self.check(n == want_n == flat.size == sum(p.numel() for p in model.parameters()),
+                   f"(t1) ResNet-50: model_length {n} == {want_n} == len(flatten_params) "
+                   f"{flat.size} == parameter count")  # fmt: skip
+        other = resnet.init_params(torch.Generator().manual_seed(args.seed + 1), device=self.dev,
+                                   **config)  # fmt: skip
+        unflatten_params(other, flat)
+        same = all(torch.equal(a, b) for a, b in zip(other.parameters(), model.parameters()))
+        self.check(same and flatten_params(other).tobytes() == flat.tobytes(),
+                   f"(t1) unflatten_params(flatten_params(m)) round-trips byte for byte on "
+                   f"{self.dev.type}")  # fmt: skip
+        del other
+
+        rng = np.random.default_rng(args.seed + 11)
+        x = rng.normal(size=(4, 64, 64, 3)).astype(np.float32)
+        y = rng.integers(0, classes, size=4)
+        steps = {}
+        saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        legs = [(dtype, dev) for dtype in (torch.bfloat16, torch.float32) for dev in (self.dev, cpu)]
+        for dtype, dev in [*legs, (torch.float64, cpu)]:
+            m = fresh(dtype, dev)
+            if dtype == torch.float64:
+                m.double()
+            _, optimizer_fn, step = resnet.make_train_step()
+            if dtype == torch.float32:
+                torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+            try:
+                loss = float(step(m, optimizer_fn(m.parameters()), x, y))
+            finally:
+                torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+            steps[(str(dtype), dev.type)] = (flatten_params(m) - flat, loss)
+            del m
+
+        def rel(a, b):
+            return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+        dev = self.dev.type
+        (u32, l32), (c32, cl32) = steps[("torch.float32", dev)], steps[("torch.float32", "cpu")]
+        (u16, l16), (c16, cl16) = steps[("torch.bfloat16", dev)], steps[("torch.bfloat16", "cpu")]
+        c64 = steps[("torch.float64", "cpu")][0]
+        f32_rel, bf16_rel = rel(u32, c32), rel(u16, c16)
+        f32_noise, bf16_noise = rel(c32, c64), rel(c16, c64)
+        self.check(f32_rel <= 3 * f32_noise and abs(l32 - cl32) <= 1e-4 * abs(cl32),
+                   f"(t1) f32 step on {dev} vs CPU: update {f32_rel:.3e} of its norm <= 3 x the "
+                   f"CPU's f32-to-f64 {f32_noise:.3e}; loss {l32:.6f} vs {cl32:.6f}")  # fmt: skip
+        self.check(bf16_rel <= 3 * bf16_noise and abs(l16 - cl16) <= 0.02 * abs(cl16),
+                   f"(t1) bf16 step on {dev} vs CPU: update {bf16_rel:.3e} of its norm <= 3 x "
+                   f"the CPU's bf16-to-f64 {bf16_noise:.3e}; loss {l16:.4f} vs {cl16:.4f}")  # fmt: skip
+        del steps, u32, c32, u16, c16, c64
+
+        # ms per step at batch 32, bf16 (what a participant trains)
+        xb = torch.as_tensor(rng.normal(size=(32, 64, 64, 3)).astype(np.float32), device=self.dev)
+        yb = torch.as_tensor(rng.integers(0, classes, size=32), device=self.dev)
+        _, optimizer_fn, step = resnet.make_train_step()
+        optimizer = optimizer_fn(model.parameters())
+        if self.cuda:
+            torch.cuda.reset_peak_memory_stats()
+        for _ in range(3):
+            step(model, optimizer, xb, yb)
+        self.sync()
+        times = []
+        for _ in range(10 if self.cuda else 2):
+            if self.cuda:
+                start, end = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))  # fmt: skip
+                start.record()
+                step(model, optimizer, xb, yb)
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+            else:
+                t = time.perf_counter()
+                step(model, optimizer, xb, yb)
+                times.append((time.perf_counter() - t) * 1e3)
+        ms = float(np.median(times))
+        peak = torch.cuda.max_memory_allocated() if self.cuda else None
+        log(f"[phase T] (t1) ResNet-50 ({n} params, bf16 activations) train step at batch 32, "
+            f"64x64: median {ms:.3f} ms (min {min(times):.3f}, max {max(times):.3f} over "
+            f"{len(times)}; {'CUDA events' if self.cuda else 'host clock, CPU'}), "
+            f"{32e3 / ms:.1f} images/s; peak device memory {peak} bytes")
+        log(f"[phase T] (t1) one step on {dev} vs the CPU at batch 4: f32 update {f32_rel:.3e} "
+            f"of its norm apart, bf16 {bf16_rel:.3e} (the CPU's f32 and bf16 steps are "
+            f"{f32_noise:.3e} and {bf16_noise:.3e} from its f64 step)")
+        del model, optimizer, xb, yb
+        return {"params": n, "module": base, "step_ms": times, "step_ms_median": ms, "images_per_s": 32e3 / ms,
+                "peak_device_bytes": peak, "f32_update_rel": f32_rel, "bf16_update_rel": bf16_rel,
+                "f32_noise_rel": f32_noise, "bf16_noise_rel": bf16_noise, "losses": {"f32": [l32, cl32], "bf16": [l16, cl16]}}
+
+    def phase_t_rounds(self, init) -> dict:
+        """(t2) ResNet-50 federated through the port's coordinator:
+        ``serve()`` in a thread with no device (CUDA), Phase R's config (the
+        shipped mask config, batch 64, packed staging) at the model's
+        length, two rounds of 1 sum, 3 updates and 1 sum2. Every
+        participant is ``spawn_participant(url, FederatedTrainer, ...)`` on
+        the card (no device: CUDA), 64 MiB message parts, roles pinned with
+        ``keys_for_task``; each update trainer takes 2 batches of 32 a
+        round from a copy of ``init`` (t1's ResNet-50, on the CPU); round 2's
+        trainers start from round 1's global model. Once a
+        round's sum2 closes its participants have done their part and are
+        stopped (a participant left running re-draws its role on the next
+        seed and could take a slot). Checks per round: the global model
+        within 3 / exp_shift + 1e-6 of the mean of the three vectors the
+        trainers returned (each within 3, so scalar 1/3 keeps it inside
+        B0's bound), round 2's trainers given round 1's model, the update
+        phase folding on CUDA, and the launches: K1 planar 3 and K2 3 by
+        the time the update phase closes (the participants' masking), then
+        K2 3 more (Sum2) and K1 packed 1 (the flush). Each round runs in a
+        ``torch.profiler`` window (:meth:`traced`), for the card's idle share
+        while participants train, mask and federate."""
+        import copy
+        import resource
+        import shutil
+        import tempfile
+
+        from xaynet_tpu_torch.examples.coordinator import next_round_seed, sync, wait_for_model
+        from xaynet_tpu_torch.models import resnet
+        from xaynet_tpu_torch.models.federated import FederatedTrainer, model_length
+        from xaynet_tpu_torch.ops import kernels, masking
+        from xaynet_tpu_torch.sdk import state_machine as sm_mod
+        from xaynet_tpu_torch.sdk.api import spawn_participant
+        from xaynet_tpu_torch.sdk.client import HttpClient
+        from xaynet_tpu_torch.sdk.simulation import keys_for_task
+        from xaynet_tpu_torch.server import settings as settings_mod
+        from xaynet_tpu_torch.server.phases import update as update_phase
+
+        args = self.args
+        device = None if self.cuda else self.dev  # no device: CUDA
+        classes = init.dense.out_features
+        length = model_length(init)
+        n_up = 3
+        trained: list = []  # (tag, training input, returned vector, seconds)
+        mask_s: list = []
+        first_post: list = []
+
+        class Trainer(FederatedTrainer):
+            def __init__(self, tag: str, **kwargs):
+                super().__init__(**kwargs)
+                self.tag = tag
+
+            def train_round(self, training_input):
+                t = time.perf_counter()
+                vector = super().train_round(training_input)  # flatten_params syncs
+                trained.append((self.tag, training_input, vector, time.perf_counter() - t))
+                return vector
+
+        def trainer_kwargs(tag: str, seed: int) -> dict:
+            rng = np.random.default_rng(seed)
+            data = (rng.normal(size=(64, 64, 64, 3)).astype(np.float32),
+                    rng.integers(0, classes, size=64))  # fmt: skip
+            return dict(tag=tag, init_params_fn=lambda: copy.deepcopy(init),
+                        make_step=resnet.make_train_step, data=data, batch_size=32, seed=seed,
+                        device=device)  # fmt: skip
+
+        real_build, real_mask, real_send = (update_phase.build_staged_aggregator,
+                                            masking.mask_update, sm_mod.StateMachine._send)  # fmt: skip
+        built = []
+
+        def spy_build(shared):
+            built.append(real_build(shared))
+            return built[-1]
+
+        def timed_mask(*a, **kw):
+            t = time.perf_counter()
+            obj = real_mask(*a, **kw)
+            mask_s.append(time.perf_counter() - t)
+            return obj
+
+        async def marked_send(sm, payload, next_phase):
+            if hasattr(payload, "masked_model"):
+                first_post.append(time.perf_counter())
+            return await real_send(sm, payload, next_phase)
+
+        work = Path(tempfile.mkdtemp(prefix="xn_phase_t_"))
+        port = free_port()
+        base = f"http://127.0.0.1:{port}"
+        cfg = write_coordinator_config(work / "config.toml", port, length, work / "models", n_up)
+        settings = settings_mod.Settings.load(str(cfg), env={})
+        marks = PhaseMarks(snapshot=lambda: dict(kernels.LAUNCHES))
+        update_phase.build_staged_aggregator = spy_build
+        masking.mask_update = timed_mask
+        sm_mod.StateMachine._send = marked_send
+        logging.getLogger("xaynet.coordinator").addHandler(marks)
+        coordinator = InProcessCoordinator(settings, device)
+        rounds, threads = [], []
+        probe = HttpClient(base, timeout=900)
+        try:
+            wait_for(lambda: coordinator_phase(base) == "sum", 120, "the coordinator's sum phase")
+            seed, previous = None, None
+            for r in (1, 2):
+                seed = next_round_seed(probe, seed)
+                params = sync(probe.get_round_params())
+                trained.clear(), mask_s.clear(), first_post.clear(), built.clear()
+                keys = [keys_for_task(seed, params.sum, params.update, "sum", start=0)]
+                keys += [keys_for_task(seed, params.sum, params.update, "update",
+                                       start=(20 + i) * 1000) for i in range(n_up)]  # fmt: skip
+
+                def one_round():
+                    for i, key in enumerate(keys):
+                        tag = "sum" if i == 0 else f"update {i}"
+                        threads.append(spawn_participant(
+                            base, Trainer, kwargs=trainer_kwargs(tag, args.seed + 100 * r + i),
+                            scalar=Fraction(1) if i == 0 else Fraction(1, n_up), keys=key,
+                            device=device, max_message_size=PHASE_R_PART_BYTES))  # fmt: skip
+                    wait_for(lambda: marks.first(f"round {r}", "entering unmask phase"), 900,
+                             f"round {r}'s sum2 to close", poll=0.05)  # fmt: skip
+                    for thread in threads:
+                        thread.stop()
+                    threads.clear()
+                    # the wall ends here, not after the profiler window closes
+                    return wait_for_model(probe, seed, timeout=900), time.perf_counter()
+
+                kernels.reset_launches()
+                t_round = time.perf_counter()
+                model, t_model = self.traced(f"phase T round {r}", one_round)
+                launches = dict(kernels.LAUNCHES)
+                rounds.append(self.phase_t_round_checks(
+                    r, model, previous, list(trained), list(mask_s), first_post, marks, built,
+                    launches, t_round, t_model, settings.mask))  # fmt: skip
+                rounds[-1]["peak_rss_gib"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+                log(f"[phase T] (t2) round {r}: peak host RSS of this process so far "
+                    f"{rounds[-1]['peak_rss_gib']:.2f} GiB")
+                previous = model
+        finally:
+            for thread in threads:
+                thread.stop()
+            probe.close()
+            update_phase.build_staged_aggregator = real_build
+            masking.mask_update = real_mask
+            sm_mod.StateMachine._send = real_send
+            coordinator.stop()
+            logging.getLogger("xaynet.coordinator").removeHandler(marks)
+            shutil.rmtree(work, ignore_errors=True)
+        launches = {k: sum(r["launches"][k] for r in rounds) for k in rounds[0]["launches"]}
+        return {"length": length, "rounds": rounds, "launches": launches}
+
+    def phase_t_round_checks(self, r, model, previous, trained, mask_s, first_post, marks, built,
+                             launches, t_round, t_model, mask_settings) -> dict:  # fmt: skip
+        """Phase T (t2)'s checks and walls for round ``r`` (see ``phase_t_rounds``)."""
+        from xaynet_tpu_torch.core.mask.config import MaskConfig
+
+        cfg = MaskConfig(mask_settings.group_type, mask_settings.data_type,
+                         mask_settings.bound_type, mask_settings.model_type)  # fmt: skip
+        updates = sorted((t for t in trained if t[0] != "sum"), key=lambda t: t[0])
+        vectors = [v for _, _, v, _ in updates]
+        self.check(len(updates) == 3 and len(trained) == 3,
+                   f"(t2) round {r}: the three update trainers trained, the sum one did not "
+                   f"({[t[0] for t in trained]})")  # fmt: skip
+        self.check(model.shape == vectors[0].shape and bool(np.all(np.isfinite(model))),
+                   f"(t2) round {r}: global model finite, of the model length {model.shape}")
+        biggest = max(float(np.abs(v).max()) for v in vectors)
+        mean = np.sum([v.astype(np.float64) for v in vectors], axis=0) / 3
+        tol = 3 / cfg.exp_shift + 1e-6
+        err = float(np.max(np.abs(model - mean)))
+        self.check(biggest <= 3 and err <= tol,
+                   f"(t2) round {r}: |model - mean of the trainers' vectors| = {err:.3e} <= "
+                   f"{tol:.3e} (largest weight {biggest:.4f} <= 3)")  # fmt: skip
+        inputs = [i for _, i, _, _ in updates]
+        if previous is None:
+            ok = all(i is None for i in inputs)
+        else:
+            # the SDK fetches the model as float64; a trainer takes it as f32
+            ok = all(i is not None and np.array_equal(i, previous.astype(np.float32))
+                     for i in inputs)  # fmt: skip
+        self.check(ok, f"(t2) round {r}: the trainers started from "
+                       f"{'their init' if previous is None else 'round 1' + chr(39) + 's global model'}")
+        used = [a.kernel_used for a in built]
+        self.check(used == ["cuda" if self.cuda else "plain"],
+                   f"(t2) round {r}: the update phase folded on {self.dev.type} ({used})")
+        closed = marks.first(f"round {r}", "entering sum2 phase")
+        if self.cuda:
+            at_close = closed[2]
+            self.check(at_close["fold_planar"] == 3 and at_close["mask_fold"] == 3,
+                       f"(t2) round {r}: the participants' masking launched K1 planar "
+                       f"{at_close['fold_planar']} == 3 and K2 {at_close['mask_fold']} == 3")
+            self.check(launches["mask_fold"] - at_close["mask_fold"] == 3
+                       and launches["fold_packed"] == 1 and launches["fold_planar"] == 3,
+                       f"(t2) round {r}: then Sum2 K2 {launches['mask_fold'] - at_close['mask_fold']}"
+                       f" == 3, the flush K1 packed {launches['fold_packed']} == 1")  # fmt: skip
+        t0 = min(first_post)
+        sum2 = marks.first(f"round {r}", "entering unmask phase")
+        walls = {
+            "train_s": {tag: s for tag, _, _, s in updates},
+            "mask_s": mask_s,
+            "spawn_to_first_update_post": t0 - t_round,
+            "update_closed": closed[0] - t0,
+            "sum2_closed": sum2[0] - t0,
+            "model_available": t_model - t0,
+        }
+        log(f"[phase T] (t2) round {r}: ResNet-50 through the coordinator, 3 trainers: checks "
+            f"passed; |model - mean| {err:.3e} <= {tol:.3e}; launches {launches}")
+        log(f"[phase T] (t2) round {r}: training seconds per trainer "
+            f"{[round(s, 3) for s in walls['train_s'].values()]}; masking seconds "
+            f"{[round(s, 3) for s in mask_s]}; from the first update POST: update phase closed "
+            f"{walls['update_closed']:.3f} s, sum2 closed {walls['sum2_closed']:.3f} s, model "
+            f"available {walls['model_available']:.3f} s (spawn to first POST "
+            f"{walls['spawn_to_first_update_post']:.3f} s)")
+        return {"walls": walls, "launches": launches, "decode_max_err": err,
+                "largest_weight": biggest}
+
+    def phase_t_examples(self) -> dict:
+        """(t3) The four training examples at their shipped defaults, as
+        ``python -m xaynet_tpu_torch.examples.<name> --check-loss`` (on the
+        card; ``--device cpu`` in the rehearsal), started together: each
+        must exit 0 and print its ``eval loss``. Their output goes to
+        ``chiprun_out/phase_t_<name>.log``."""
+        names = ("house_prices", "cifar_lenet", "shakespeare_lstm", "lora_federated")
+        OUT_DIR.mkdir(exist_ok=True)
+        extra = [] if self.cuda else ["--device", "cpu"]
+        procs, started = {}, time.perf_counter()
+        try:
+            for name in names:
+                with open(OUT_DIR / f"phase_t_{name}.log", "wb") as out:
+                    procs[name] = subprocess.Popen(
+                        [sys.executable, "-m", f"xaynet_tpu_torch.examples.{name}",
+                         "--check-loss", *extra],
+                        cwd=HERE, stdout=out, stderr=subprocess.STDOUT,
+                    )  # fmt: skip
+            results = {}
+            for name, proc in procs.items():
+                rc = proc.wait(timeout=max(1.0, 600 - (time.perf_counter() - started)))
+                text = (OUT_DIR / f"phase_t_{name}.log").read_text(errors="replace")
+                lines = [line for line in text.splitlines() if "eval loss" in line]
+                results[name] = {"rc": rc, "eval": lines, "seconds": time.perf_counter() - started}
+                self.check(rc == 0 and bool(lines),
+                           f"(t3) {name} --check-loss exits {rc} == 0 and prints its eval loss")
+                log(f"[phase T] (t3) {name}: {lines[-1]} (done {results[name]['seconds']:.1f} s "
+                    "after the four started)")
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        return results
+
     def phase_r_cli(self) -> dict:
         """``python -m xaynet_tpu_torch.server.runner -c <cfg>`` at a small
         length: ``GET /params`` answers, SIGTERM stops it with exit code 0
@@ -2319,7 +2773,7 @@ class Smoke:
                 "source": source,
                 "replaces": replaces,
                 "launches": launches[name],
-                # Phases R, R-wire, S and L
+                # Phases R, R-wire, S, L and T (the training rounds)
                 **{path: counts.get(name, 0) for path, counts in paths.items()},
                 "max_abs_err": self.max_err[name],
                 "ms": t["ms"],
@@ -2337,8 +2791,9 @@ class Smoke:
     def idle_shares(self, timings: dict, launches: dict) -> None:
         """Each traced round's device idle share from its trace, beside the
         estimate from launches x per-launch times at the main shapes
-        (Phases R and R-wire; Phase L's kernels run at other shapes). The
-        trace holds this process's device work only: in R and R-wire that
+        (Phases R, R-wire and T's rounds, whose estimate leaves out the
+        training's own kernels; Phase L's kernels run at other shapes). The
+        trace holds this process's device work only: in R, R-wire and T that
         is all the card does; in L the drivers' K2 runs in their own
         processes, so L's share is the coordinator process's."""
         for name, counts in launches.items():
@@ -2470,13 +2925,14 @@ def main() -> int:
         smoke.phase_a_wire_main()
         pipeline = smoke.phase_pipeline()
         result = smoke.phase_b()
-        ref = {k: smoke.phase_b_out[k] for k in ("vect", "unit", "model", "mask")}
+        first_flush = smoke.phase_b_out["wires"][: args.batch]
         wire = smoke.phase_w(result["walls"], timings)
-        sim = smoke.phase_s(ref)
-        del ref
+        sim = smoke.phase_s(first_flush)
+        del first_flush
         coordinator = smoke.phase_r()
         coordinator_wire = smoke.phase_r(wire=True)
         loadgen = smoke.phase_l()
+        training = smoke.phase_t()
         if smoke.cuda:  # the runner CLI resolves CUDA; without a card it exits
             coordinator["runner_cli"] = smoke.phase_r_cli()
     except Exception as exc:  # every phase failure ends the run without a result
@@ -2493,7 +2949,7 @@ def main() -> int:
     smoke.records.update(timings=timings, pipeline=pipeline, round=result, wire_round=wire,
                          sim=sim, coordinator_round=coordinator,
                          coordinator_round_wire=coordinator_wire, loadgen_round=loadgen,
-                         seconds=time.perf_counter() - t0)
+                         training=training, seconds=time.perf_counter() - t0)
     if not smoke.cuda:
         _write_records(smoke.records)
         log(f"chip_smoke: rehearsal on {args.device} passed in {time.perf_counter() - t0:.1f} s")
@@ -2510,11 +2966,14 @@ def main() -> int:
         "launches_coordinator_round_wire": coordinator_wire["launches"],
         "launches_sim": sim["launches"],
         "launches_loadgen": loadgen_launches,
+        "launches_training_rounds": training["rounds"]["launches"],
     })  # fmt: skip
     smoke.records["kernels"] = table
     smoke.idle_shares(timings, {"phase R": coordinator["launches"],
                                 "phase R-wire": coordinator_wire["launches"],
-                                "phase L": loadgen["launches"]})
+                                "phase L": loadgen["launches"],
+                                **{f"phase T round {i}": r["launches"] for i, r in
+                                   enumerate(training["rounds"]["rounds"], start=1)}})  # fmt: skip
     _write_records(smoke.records)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(gpu_name_and_power())

@@ -660,3 +660,99 @@ def test_sim_and_engine_on_card_equal_cpu(cuda):
     card = PopulationEngine(pair, n, block_size=16).emit(seeds, weights, scalar)
     cpu = PopulationEngine(pair, n, block_size=16, device="cpu").emit(seeds, weights, scalar)
     assert all(np.array_equal(a, b) for a, b in zip(card, cpu))
+
+
+# -- the model families: one train step on the card against the CPU ----------
+
+
+@pytest.fixture
+def card_f32():
+    """A CUDA device with TF32 off (cuDNN convolutions use TF32 by default;
+    the CPU computes in f32), restored afterwards."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield torch.device("cuda")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _family_on_cpu(name: str):
+    """(module on the CPU, make_train_step, x, y) at a small size."""
+    from xaynet_tpu_torch.models import lenet, lstm, mlp, resnet
+
+    g = torch.Generator().manual_seed(5)
+    rng = np.random.default_rng(5)
+    cpu = torch.device("cpu")
+    if name == "mlp":
+        return (mlp.init_params(g, 13, device=cpu), mlp.make_train_step,
+                rng.normal(size=(16, 13)).astype(np.float32), rng.normal(size=16).astype(np.float32))  # fmt: skip
+    if name == "lenet":
+        return (lenet.init_params(g, device=cpu), lenet.make_train_step,
+                rng.normal(size=(8, 32, 32, 3)).astype(np.float32), rng.integers(0, 10, 8))  # fmt: skip
+    if name == "lstm":
+        return (lstm.init_params(g, hidden=64, device=cpu), lstm.make_train_step,
+                rng.integers(0, 80, (4, 20)), rng.integers(0, 80, (4, 20)))  # fmt: skip
+    dtype = torch.float32 if name == "resnet-f32" else torch.bfloat16
+    module = resnet.init_params(g, num_classes=10, stage_sizes=(1, 1, 1, 1), device=cpu, dtype=dtype)
+    return (module, resnet.make_train_step,
+            rng.normal(size=(4, 32, 32, 3)).astype(np.float32), rng.integers(0, 10, 4))  # fmt: skip
+
+
+def _step(module, make_train_step, x, y) -> np.ndarray:
+    from xaynet_tpu_torch.models.mlp import flatten_params
+
+    _, optimizer_fn, step = make_train_step()
+    step(module, optimizer_fn(module.parameters()), x, y)
+    return flatten_params(module)
+
+
+@pytest.mark.parametrize("name", ["mlp", "lenet", "lstm", "resnet-f32", "resnet-bf16"])
+def test_train_step_on_card_matches_cpu(card_f32, name):
+    """One step of each family from the same weights and batch, on the card
+    and on the CPU. f32: 1e-5 absolute (SGD: lr x gradient; Adam: about lr
+    per weight, so 1% of lr). ResNet bf16: the update's norm-relative
+    distance from the CPU's at most twice the CPU bf16 update's own
+    distance from the CPU f32 update (the rounding noise of the path)."""
+    import copy
+
+    from xaynet_tpu_torch.models.mlp import flatten_params
+
+    module, make_train_step, x, y = _family_on_cpu(name)
+    p0 = flatten_params(module)
+    on_card = _step(copy.deepcopy(module).to(card_f32), make_train_step, x, y)
+    on_cpu = _step(module, make_train_step, x, y)
+    if name != "resnet-bf16":
+        np.testing.assert_allclose(on_card, on_cpu, rtol=0, atol=1e-5)
+        assert np.abs(on_cpu - p0).max() > 1e-4
+        return
+    f32_step = _step(_family_on_cpu("resnet-f32")[0], make_train_step, x, y)  # same weights
+    rel = lambda a, b: np.linalg.norm(a - b) / np.linalg.norm(b)  # noqa: E731
+    assert rel(on_card - p0, on_cpu - p0) <= 2 * rel(on_cpu - p0, f32_step - p0)
+
+
+def test_lora_step_on_card_matches_cpu(card_f32):
+    from xaynet_tpu_torch.models import lora
+
+    spec = lora.LoraSpec({"q": (16, 8), "v": (16, 8)}, rank=4)
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(32, 16)).astype(np.float32)
+    y = rng.normal(size=(32, 8)).astype(np.float32)
+    out = {}
+    for dev in ("cpu", card_f32):
+        adapters = lora.init_adapters(torch.Generator().manual_seed(3), spec, device=dev)
+        with torch.no_grad():
+            adapters["q"]["B"].fill_(0.1)
+
+        def loss_fn(a, batch):
+            bx, by = batch
+            pred = lora.apply_adapter(bx[:, :8], bx, a["q"], spec.alpha, spec.rank)
+            return torch.mean((pred - by) ** 2)
+
+        optimizer_fn, step = lora.make_train_step(loss_fn, learning_rate=1e-2)
+        batch = (torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev))
+        step(adapters, optimizer_fn(adapters), batch)
+        out[str(dev)] = lora.quantize_deltas(adapters, 10**6)
+    assert np.abs(out["cpu"] - out["cuda"]).max() <= 100  # 1e-4 at scale 1e6: 1% of lr

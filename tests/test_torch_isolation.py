@@ -13,6 +13,9 @@
   device raises (only CPU tensors take the plain versions);
 - the whole-round sim and the load generator (``sim``, ``loadgen``)
   import alone without JAX, and without a device given they run on CUDA;
+- the model families, their trainer and the training examples (``models``,
+  ``examples``) import alone without ``jax``, ``flax`` or ``optax``, and
+  without a device given they build and train on CUDA;
 - the coordinator (``server.runner.serve``, ``StateMachineInitializer``, the
   ``python -m xaynet_tpu_torch.server.runner`` CLI) with ``[aggregation]
   device`` true or false and no device given refuses to run without CUDA.
@@ -40,6 +43,8 @@ from xaynet_tpu_torch.ops import kernels, masking
 from xaynet_tpu_torch.parallel.aggregator import DeviceAggregator
 from xaynet_tpu_torch.device import DeviceUnavailable
 from xaynet_tpu_torch.loadgen import PopulationEngine
+from xaynet_tpu_torch.models import lenet, lora, lstm, mlp, resnet
+from xaynet_tpu_torch.models.federated import FederatedTrainer
 from xaynet_tpu_torch.parallel.streaming import StreamingAggregator
 from xaynet_tpu_torch.server import runner
 from xaynet_tpu_torch.server.aggregation import StagedAggregator
@@ -75,8 +80,8 @@ def test_every_port_module_imports_without_jax():
     code = (
         "import importlib, json, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
-        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
-        " or k == 'xaynet_tpu' or k.startswith('xaynet_tpu.'))\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'flax', 'optax', 'xaynet_tpu'))\n"
         "print(json.dumps(bad))\n"
     )
     proc = _run(code)
@@ -145,6 +150,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
         lambda: masking.derive_mask_limbs_batch([seed], 8, PAIR),
         lambda: SimRound(SimSpec(PAIR, 8)),
         lambda: PopulationEngine(PAIR, 8),
+        lambda: mlp.init_params(torch.Generator(), 4),
+        lambda: lenet.init_params(torch.Generator(), image_shape=(8, 8, 3)),
+        lambda: lstm.init_params(torch.Generator(), hidden=4),
+        lambda: resnet.init_params(torch.Generator(), stage_sizes=(1, 1, 1, 1)),
+        lambda: lora.init_adapters(torch.Generator(), lora.LoraSpec({"q": (4, 4)})),
+        lambda: FederatedTrainer(lambda: mlp.MLP(4), mlp.make_train_step,
+                                 (np.zeros((4, 4), np.float32), np.zeros(4, np.float32))),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -200,7 +212,8 @@ _ALONE = sorted(
         m
         for m in _port_modules()
         if m.split(".")[1:2] in (["server"], ["core"], ["storage"], ["telemetry"],
-                                 ["resilience"], ["utils"], ["sdk"], ["sim"], ["loadgen"])
+                                 ["resilience"], ["utils"], ["sdk"], ["sim"], ["loadgen"],
+                                 ["models"], ["examples"])
     }
 )  # fmt: skip
 
@@ -215,8 +228,8 @@ for m in MODULES:
         os.close(r)
         try:
             importlib.import_module(m)
-            bad = sorted(k for k in sys.modules if k == "jax" or k.startswith("jax.")
-                         or k == "xaynet_tpu" or k.startswith("xaynet_tpu."))
+            bad = sorted(k for k in sys.modules
+                         if k.split(".")[0] in ("jax", "flax", "optax", "xaynet_tpu"))
         except BaseException as err:
             bad = ["import failed: %r" % (err,)]
         os.write(w, json.dumps(bad).encode())
@@ -244,8 +257,9 @@ def imported_alone() -> dict:
 def test_wire_ingest_modules_import_alone_without_jax(module, imported_alone):
     """Each module on the wire-ingest path and the coordinator's, every
     module of the port's ``server``, ``core``, ``storage``, ``telemetry``,
-    ``resilience``, ``utils``, ``sdk``, ``sim`` and ``loadgen`` among them,
-    imported alone, pulls in neither ``jax`` nor the JAX package."""
+    ``resilience``, ``utils``, ``sdk``, ``sim``, ``loadgen``, ``models`` and
+    ``examples`` among them, imported alone, pulls in neither ``jax``,
+    ``flax``, ``optax`` nor the JAX package."""
     assert module in _port_modules()
     assert imported_alone[module] == []
 

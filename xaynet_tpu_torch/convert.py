@@ -12,14 +12,23 @@ finished here:
 Masking configurations and mask objects cross by their wire forms
 (``to_bytes()`` of a configuration; the limb arrays of an object), so any
 object with the JAX package's attribute names converts.
+
+Model weights cross two ways: by name, ``load_flax_params(module, params)``
+from flax's nested dict of numpy arrays, or flat,
+``unflatten_params(module, vector)`` from the JAX package's
+``flatten_params`` vector (the layout contract, ``models/mlp.py``).
 """
 
 from __future__ import annotations
 
+from collections.abc import Mapping
+
 import numpy as np
+import torch
 
 from .core.mask.config import MaskConfig, MaskConfigPair
 from .core.mask.object import MaskObject, MaskUnit, MaskVect
+from .models.mlp import unflatten_params  # the flat route, re-exported
 from .ops import limbs as host_limbs
 from .parallel.aggregator import DeviceAggregator
 from .server.aggregation import StagedAggregator
@@ -84,3 +93,33 @@ def device_aggregator_from_snapshot(
     agg = DeviceAggregator(cfg, model_length, device=device)
     agg.restore(_checked_wire(wire, cfg.order, model_length), int(nb_models))
     return agg
+
+
+def load_flax_params(module: torch.nn.Module, params) -> torch.nn.Module:
+    """Fills a ``models`` module from flax parameters (``{"params": {...}}``
+    or the inner dict; leaves numpy arrays, e.g. ``tree_map(np.asarray,
+    ...)``), matching each leaf to the module's parameter by its flax path
+    and writing it through the transposes of ``flax_leaves()``. Every leaf
+    must be there, with its shape; returns the module."""
+    tree = params["params"] if "params" in params else params
+    given: dict = {}
+
+    def walk(prefix: tuple, node) -> None:
+        if isinstance(node, Mapping):
+            for key, child in node.items():
+                walk((*prefix, key), child)
+        else:
+            given[prefix] = np.asarray(node)
+
+    walk((), tree)
+    views = module.flax_leaves()
+    if set(given) != set(views):
+        missing, extra = sorted(set(views) - set(given)), sorted(set(given) - set(views))
+        raise ValueError(f"flax parameters do not fit the module: missing {missing}, extra {extra}")
+    with torch.no_grad():
+        for path, view in views.items():
+            leaf = given[path]
+            if leaf.shape != tuple(view.shape):
+                raise ValueError(f"{'/'.join(path)}: flax shape {leaf.shape} != {tuple(view.shape)}")
+            view.copy_(torch.tensor(leaf, dtype=torch.float32))
+    return module

@@ -67,11 +67,13 @@ class InternalParticipant(threading.Thread):
         tick_interval: float = 0.1,
         keys=None,
         device=None,
+        max_message_size: Optional[int] = 4096,
     ):
         super().__init__(daemon=True)
         self._participant = participant
         self._inner = Participant(
-            coordinator_url, scalar=scalar, state=state, keys=keys, device=device
+            coordinator_url, scalar=scalar, state=state, keys=keys, device=device,
+            max_message_size=max_message_size,
         )
         self._exit = threading.Event()
         self._tick_interval = tick_interval
@@ -107,9 +109,15 @@ class InternalParticipant(threading.Thread):
             self._participant.on_stop()
 
     def stop(self) -> Optional[bytes]:
-        """Stops the thread and returns the serialized participant state."""
+        """Stops the thread and returns the serialized participant state.
+
+        Waits for the tick in progress (a local training round or a masking
+        can outlast any fixed wait): saving closes the participant's event
+        loop, which the thread may still be running. The JAX package's
+        ``stop`` waits at most 10 s, then fails with "Cannot close a running
+        event loop"."""
         self._exit.set()
-        self.join(timeout=10)
+        self.join()
         return self._inner.save()
 
 
@@ -122,16 +130,20 @@ def spawn_participant(
     scalar: Fraction = Fraction(1),
     keys=None,
     device=None,
+    max_message_size: Optional[int] = 4096,
 ) -> InternalParticipant:
     """Spawns and starts a participant driving ``participant_class``.
 
     ``keys`` pins the signing keypair (simulations need deterministic
     roles); omitted in production, where keys are generated per participant.
-    ``device`` is the torch device of its masking (None: CUDA).
+    ``device`` is the torch device of its masking (None: CUDA);
+    ``max_message_size`` the size of the parts its messages are split into
+    (``Participant``'s; a 25M-parameter update is 150 MB).
     """
     participant = participant_class(*args, **(kwargs or {}))
     thread = InternalParticipant(
-        coordinator_url, participant, state, scalar, keys=keys, device=device
+        coordinator_url, participant, state, scalar, keys=keys, device=device,
+        max_message_size=max_message_size,
     )
     thread.start()
     return thread
@@ -186,8 +198,9 @@ class AsyncParticipant(threading.Thread):
         return self._global_model
 
     def stop(self) -> Optional[bytes]:
+        """As ``InternalParticipant.stop``: waits for the tick in progress."""
         self._exit.set()
-        self.join(timeout=10)
+        self.join()
         return self._inner.save()
 
 

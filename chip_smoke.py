@@ -17,14 +17,18 @@ Builds the hand-written CUDA kernels from ``xaynet_tpu_torch/csrc`` with
   count-th acceptance in tile 0 and at tile boundaries, count 1, the early
   exit, seven trips, cursors past 2^31 bytes and 2^32 blocks, 16 seeds,
   twenty launches into one accumulator); K2's per-row entry
-  (``mask_fold_rows``: seed b into row b) at B in {1, 8, 256}, a ragged
-  length, mid-block cursors, one and several trips, the shipped and the
-  widest orders. Each kernel is then timed at the
-  shapes the main path gives it, beside its plain version, and checked
-  there too (``mask_fold_rows`` at Phase S's two shapes). K2's bound counts
-  the xors and rotates its ChaCha20 blocks
-  need, on the ALU pipe; the built keystream loop's instructions per pipe
-  (from its SASS) are recorded beside it. K3 (the v1 wire unpack + validity
+  (``mask_fold_rows``: seed b into row b, one launch a trip for the block)
+  at B in {1, 8, 256}, a ragged length, mid-block cursors, one and several
+  trips, the shipped and the widest orders; K5 (``unit_draws``: each
+  seed's unit draw and the cursor its vector draw starts at) at the
+  configs and seed counts of Phases B, S and L, draw widths 37 and 268 and
+  a 2^128 order, also against the host ``StreamSampler``. Each kernel is
+  then timed at the shapes the main path gives it, beside its plain
+  version, and checked there too (``mask_fold_rows`` at Phase S's two
+  shapes, from K5's cursors on the card; K5 at B's Sum2 and over s2's
+  2,048 seeds). K2's and K5's bounds count the xors and rotates their
+  ChaCha20 blocks need, on the ALU pipe; the built keystream loop's
+  instructions per pipe (from its SASS) are recorded beside it. K3 (the v1 wire unpack + validity
   check) and K4 (the v2 byte-planar validity check) are held byte-exact,
   planar rows and per-update verdicts, on the shipped config and three more
   (the 2^96 boundary among them) at K in {1, 3, 8, 64} and a ragged length,
@@ -82,15 +86,17 @@ Builds the hand-written CUDA kernels from ``xaynet_tpu_torch/csrc`` with
   element still ties the order).
 - **Phase S** is the whole-round simulation (``sim.SimRound``): (s1) Phase
   B's first flush of participants (its first 8 seeds and models, scalar
-  1/16 as B encoded them) at the main length in one block, the masks
-  derived into zero rows by K2 per row and folded by K1 planar; its
+  1/16 as B encoded them) at the main length in one block, the units drawn
+  by K5, the masks derived into zero rows by K2 per row (one launch) and
+  folded by K1 planar; its
   aggregates, unmasked limbs and float64 model must be, byte for byte,
   those of the same 8 through the round's own path: K1's fold of the
   masked wires Phase B serialized for them, ``sum_masks`` over their
   seeds, the unmask and decode (the oracle's identity at full width). (s2) The JAX package's bench sim shape: 2,048 participants
   x 1,000 parameters, integer/f32/b0/m6, blocks of 256, a warm-up and three
   timed runs (median participants/s with min and max), the model within
-  1e-6 of the f32 mean.
+  1e-6 of the f32 mean, one K5 and one K2-per-row launch a block, and K5's
+  time over the 2,048 seeds.
 - **Phase R** is a round through the port's coordinator: ``serve()`` on an
   event loop in a thread, no device given (CUDA), a temporary config with
   the shipped mask config and aggregation knobs (batch 64, packed staging,
@@ -125,11 +131,12 @@ Builds the hand-written CUDA kernels from ``xaynet_tpu_torch/csrc`` with
   updates and 1 sum2; one sum participant on the port's SDK; then
   ``loadgen.runner.run`` forges and replays the 2,000 updates over REST
   from two spawned driver processes (blocks of 512, 64 POSTs in flight
-  each; K2 per row in their engines); then the Sum2. It checks every
+  each; K5 and K2 per row once a block in their engines); then the Sum2
+  (K5 once over its 2,000 seeds, K2 a seed). It checks every
   update accepted, the model byte-identical to ``SimRound`` over the
   drivers' ground truth (seeds, models and scalar, rebuilt from the run's
   seeds) and within 2000 / exp_shift + 1e-6 of the mean, K4 on every
-  update, K1 on the device rows and K2 in the drivers and in Sum2; it
+  update, K1 on the device rows and K5 and K2 in the drivers and in Sum2; it
   prints the accepted updates/s over the replay window, the per-POST p50,
   p99 and max, the forge seconds and the coordinator's decrypt/parse
   seconds, and traces the round like Phase R; the drivers' device work
@@ -651,7 +658,7 @@ class Smoke:
         self.records: dict = {"checks": []}
         self.max_err = dict.fromkeys(
             ("fold_planar", "fold_packed", "mask_fold", "mask_fold_rows", "wire_unpack",
-             "packed_check"), 0
+             "packed_check", "unit_draws"), 0
         )  # fmt: skip
         self.sass = None
         self.t_start = time.perf_counter()
@@ -950,20 +957,100 @@ class Smoke:
         self.sync()
         log(f"[phase A] K2 per-row (mask_fold_rows) byte-exact vs plain in {n_cases} cases")
 
+    def phase_a_unit_draws(self) -> dict:
+        """K5 (``unit_draws``) against its plain version, units and cursors,
+        at the configs and seed counts the paths give it: the shipped
+        prime/f32/b0/m3 (Phase B, R, T: one seed a participant, 16 in B's
+        Sum2), integer/f32/b0/m6 (Phase S s2: blocks of 256, 2,048 seeds),
+        prime/f32/b0/m6 (Phase L: the drivers' blocks of 512, the Sum2's
+        2,000), and the widest draws of Phase A's K2 cases (37, 268 bytes)
+        and a 2^(32 L) order (17-byte draws); the first seeds also against
+        the host ``StreamSampler``. Timed at B's Sum2 (the kernel line's
+        entry) and over s2's 2,048 seeds. The bound counts the ChaCha blocks
+        each seed generates (to the block holding its cursor's last byte) on
+        the ALU pipe, and the key words read and units and cursors written."""
+        from xaynet_tpu_torch.core.crypto.prng import StreamSampler
+        from xaynet_tpu_torch.core.mask.config import (
+            BoundType, DataType, GroupType, MaskConfig, ModelType,
+        )  # fmt: skip
+        from xaynet_tpu_torch.ops import kernels, limbs
+        from xaynet_tpu_torch.ops.fold import to_device_u32, to_numpy_u32
+
+        m3 = MaskConfig(GroupType.PRIME, DataType.F32, BoundType.B0, ModelType.M3).order
+        s2 = MaskConfig(GroupType.INTEGER, DataType.F32, BoundType.B0, ModelType.M6).order
+        cases = [  # (label, order, seed counts)
+            ("prime/f32/b0/m3 draw6", m3, (1, 16)),
+            ("integer/f32/b0/m6 draw7", s2, (256, 2048)),
+            ("prime/f32/b0/m6 draw7",
+             MaskConfig(GroupType.PRIME, DataType.F32, BoundType.B0, ModelType.M6).order, (512, 2000)),
+            ("integer/f32/bmax/m3 draw37",
+             MaskConfig(GroupType.INTEGER, DataType.F32, BoundType.BMAX, ModelType.M3).order, (8,)),
+            ("integer/f64/bmax/m12 draw268",
+             MaskConfig(GroupType.INTEGER, DataType.F64, BoundType.BMAX, ModelType.M12).order, (8,)),
+            ("2^128 draw17",
+             MaskConfig(GroupType.POWER2, DataType.F64, BoundType.B6, ModelType.M12).order, (257,)),
+        ]  # fmt: skip
+        n_cases = 0
+        for label, order, sizes in cases:
+            for b in sizes:
+                seeds = [self.rng.bytes(32) for _ in range(b)]
+                kws = to_device_u32(np.stack([np.frombuffer(x, "<u4") for x in seeds]), self.dev)
+                units, cursors = kernels.unit_draws(kws, order)
+                want_units, want_cursors = kernels.unit_draws_plain(kws, order)
+                what = f"{label} B={b}"
+                self.compare("unit_draws", units, want_units, what + " units")
+                self.compare("unit_draws", cursors, want_cursors, what + " cursors")
+                host = to_numpy_u32(units)
+                for i in range(min(b, 4)):
+                    sampler = StreamSampler(seeds[i])
+                    unit = sampler.draw_limbs(1, order)[0]
+                    self.check(np.array_equal(unit, host[i])
+                               and sampler.consumed_bytes == int(cursors[i]),
+                               f"unit_draws: {what} seed {i} == host StreamSampler")  # fmt: skip
+                n_cases += 1
+        self.sync()
+        log(f"[phase A] K5 (unit_draws) byte-exact vs plain and host sampler in {n_cases} cases")
+
+        out = {}
+        for tag, order, b in (("main", m3, 16), ("s2", s2, 2048)):
+            kws = to_device_u32(self.rng.integers(0, 1 << 32, (b, 8), dtype=np.uint64)
+                                .astype(np.uint32), self.dev)  # fmt: skip
+            _, cursors = kernels.unit_draws(kws, order)
+            self.sync()
+            t = time.perf_counter()
+            kernels.unit_draws_plain(kws, order)
+            self.sync()
+            plain_ms = (time.perf_counter() - t) * 1e3
+            ms = self.time_ms(lambda: kernels.unit_draws(kws, order), 20)
+            blocks = float(int(((cursors + 63) // 64).sum()))
+            n_limb = limbs.n_limbs_for_order(order)
+            out[tag] = {
+                "ms": ms,
+                "plain_ms": plain_ms,
+                "blocks": blocks,
+                "ops": blocks * CHACHA_ALU_OPS_PER_BLOCK,
+                "bytes": b * (32 + 4 * n_limb + 8),
+                "shape": f"{b} seeds, draw width {limbs.draw_width_for(order)}",
+            }
+            log(f"[phase A] unit_draws over {out[tag]['shape']}: {ms:.4f} ms ({blocks:.0f} ChaCha "
+                f"blocks; plain {plain_ms:.1f} ms)")
+        return {**out["main"], "s2": out["s2"]}
+
     def phase_a_rows_main(self) -> dict:
         """``mask_fold_rows`` at Phase S's two shapes, checked against its
         plain version there and timed: (s1) 8 seeds into 8 rows of the main
         length, shipped order; (s2) 256 seeds into 256 rows of 1,000
-        elements, integer/f32/b0/m6. The kernel line's entry is s1's; s2's
-        goes beside it. The bound counts the ChaCha blocks these seeds'
-        draws need (start to end cursor) on the ALU pipe, and the rows' bytes
-        read and written once."""
+        elements, integer/f32/b0/m6. The cursors are K5's, on the card. The
+        kernel line's entry is s1's; s2's goes beside it, with the time of K5
+        and K2 per row together (a block of the sim). The bound counts the
+        ChaCha blocks these seeds' draws need (start to end cursor) on the
+        ALU pipe, and the rows' bytes read and written once."""
         from xaynet_tpu_torch.core.mask.config import (
             BoundType, DataType, GroupType, MaskConfig, ModelType,
         )  # fmt: skip
         from xaynet_tpu_torch.ops import kernels, limbs
         from xaynet_tpu_torch.ops.fold import to_device_u32
-        from xaynet_tpu_torch.ops.masking import seed_words, unit_draw
+        from xaynet_tpu_torch.ops.masking import seed_words
 
         torch = self.torch
         shapes = [
@@ -974,11 +1061,10 @@ class Smoke:
         ]  # fmt: skip
         out = {}
         for tag, cfg, b, n, reps in shapes:
-            pair = cfg.pair()
             order, n_limb = cfg.order, limbs.n_limbs_for_order(cfg.order)
             seeds = [self.rng.bytes(32) for _ in range(b)]
-            offs = [unit_draw(x, pair)[1] for x in seeds]
             kws = to_device_u32(seed_words(seeds), self.dev)
+            _, offs = kernels.unit_draws(kws, order)
             rows = to_device_u32(self.elements(order, n_limb, (b, n)), self.dev)
             got, ends = kernels.mask_fold_rows(rows.clone(), kws, offs, n, order)
             self.sync()
@@ -992,9 +1078,16 @@ class Smoke:
             del got, want
             work = rows.clone()
             ms = self.time_ms(lambda: kernels.mask_fold_rows(work, kws, offs, n, order), reps)
-            blocks = float(sum(int(e) - o for e, o in zip(ends.tolist(), offs))) / 64
+
+            def block_of_sim():
+                _, starts = kernels.unit_draws(kws, order)
+                kernels.mask_fold_rows(work, kws, starts, n, order)
+
+            with_k5 = self.time_ms(block_of_sim, reps)
+            blocks = float(int((ends - offs).sum())) / 64
             out[tag] = {
                 "ms": ms,
+                "ms_with_unit_draws": with_k5,
                 "plain_ms": plain_ms,
                 "blocks": blocks,
                 "ops": blocks * CHACHA_ALU_OPS_PER_BLOCK,
@@ -1005,7 +1098,7 @@ class Smoke:
             if self.cuda:
                 torch.cuda.empty_cache()
             log(f"[phase A] mask_fold_rows at {tag}'s shape {out[tag]['shape']}: {ms:.3f} ms "
-                f"(plain {plain_ms:.1f} ms)")
+                f"(with K5's unit draws before it {with_k5:.3f} ms; plain {plain_ms:.1f} ms)")
         return {**out["s1"], "s2": out["s2"]}
 
     def phase_a_main_shapes(self) -> dict:
@@ -1491,6 +1584,9 @@ class Smoke:
             self.check(launches["fold_planar"] == n_up, f"(d) K1 planar added {n_up} masks")
             self.check(launches["mask_fold"] == 2 * n_up,
                        f"(d) K2 derived {2 * n_up} masks (one launch per seed and trip)")
+            self.check(launches["unit_draws"] == n_up + 1,
+                       f"(d) K5 drew the units: one launch a participant, one for the Sum2's "
+                       f"{n_up} seeds ({launches['unit_draws']} == {n_up + 1})")
         log(f"[phase B] round of {n_up} updates x {length} params: checks (a)-(d) passed; "
             f"decode max err {err:.3e} <= {tol:.3e}")
         log(f"[phase B] launches {launches}")
@@ -1847,7 +1943,7 @@ class Smoke:
         from xaynet_tpu_torch.core.mask.object import MaskObject, MaskUnit, MaskVect
         from xaynet_tpu_torch.core.mask.serialization import parse_mask_object
         from xaynet_tpu_torch.ops import kernels, limbs, masking
-        from xaynet_tpu_torch.ops.masking import unit_draw
+        from xaynet_tpu_torch.ops.fold import to_device_u32
         from xaynet_tpu_torch.server.aggregation import StagedAggregator
         from xaynet_tpu_torch.sim import SimRound, SimSpec, seeds_for
 
@@ -1911,9 +2007,11 @@ class Smoke:
         blocks = -(-k // block)
         if self.cuda:
             got = s1_launches
-            self.check(got["mask_fold_rows"] == k and got["fold_planar"] == 3 * blocks
-                       and got["mask_fold"] == 0 and sim.program_calls == 1,
-                       f"(s1) launches: K2 per row {got['mask_fold_rows']} == {k}, K1 planar "
+            self.check(got["mask_fold_rows"] == blocks and got["unit_draws"] == blocks
+                       and got["fold_planar"] == 3 * blocks and got["mask_fold"] == 0
+                       and sim.program_calls == 1,
+                       f"(s1) launches: K2 per row {got['mask_fold_rows']} == {blocks} (one a "
+                       f"block of {k} seeds), K5 {got['unit_draws']} == {blocks}, K1 planar "
                        f"{got['fold_planar']} == {3 * blocks}, K2 mask_fold 0")  # fmt: skip
         del res, inner, want_limbs
         log(f"[phase S] (s1) SimRound of Phase B's first {k} participants (scalar 1/{n_up}) x "
@@ -1941,27 +2039,26 @@ class Smoke:
         self.check(res2.global_model.shape == (n,) and err <= 1e-6,
                    f"(s2) |model - f32 mean| = {err:.3e} <= 1e-6 ({p} x {n})")
         if self.cuda:
-            self.check(s2_launches["mask_fold_rows"] == 4 * p
+            self.check(s2_launches["mask_fold_rows"] == 4 * (p // block2)
+                       and s2_launches["unit_draws"] == 4 * (p // block2)
                        and s2_launches["fold_planar"] == 4 * 3 * (p // block2),
-                       f"(s2) launches over 4 runs: K2 per row {s2_launches['mask_fold_rows']} == "
-                       f"{4 * p}, K1 planar {s2_launches['fold_planar']} == {12 * (p // block2)}")
-        # the host's share: the 2,048 unit draws (the seed's first keystream
-        # draw, whose cursor K2 starts from) alone, once more
-        t = time.perf_counter()
-        for seed in seeds2:
-            unit_draw(seed, cfg2.pair())
-        unit_draw_s = time.perf_counter() - t
+                       f"(s2) launches over 4 runs: K2 per row {s2_launches['mask_fold_rows']} and "
+                       f"K5 {s2_launches['unit_draws']} == {4 * (p // block2)} (one a block and "
+                       f"trip), K1 planar {s2_launches['fold_planar']} == {12 * (p // block2)}")
+        # the unit draws' share: K5 over the 2,048 seeds in one launch
+        kw2 = to_device_u32(masking.seed_words(seeds2), self.dev)
+        unit_draws_ms = self.time_ms(lambda: kernels.unit_draws(kw2, cfg2.order), 10)
         pps = sorted(p / r for r in runs)
         log(f"[phase S] (s2) SimRound {p} participants x {n} params, integer/f32/b0/m6, blocks "
             f"of {block2}: median {pps[1]:.1f} participants/s (min {pps[0]:.1f}, max {pps[2]:.1f}; "
             f"runs {[round(r, 3) for r in runs]} s; warm-up {warm_s:.3f} s); |model - mean| "
-            f"{err:.3e}; launches {s2_launches}; the {p} host unit draws alone {unit_draw_s:.3f} s")
+            f"{err:.3e}; launches {s2_launches}; K5 over the {p} seeds {unit_draws_ms:.4f} ms")
         launches = {k: s1_launches[k] + s2_launches[k] for k in s1_launches}
         return {"s1_seconds": s1_s, "s1_launches": s1_launches, "s1_participants": k,
                 "s1_reference_s": ref_s, "s1_reference_launches": ref_launches, "s2_runs_s": runs,
                 "s2_warmup_s": warm_s, "s2_participants_per_s": {"median": pps[1], "min": pps[0],
                                                                   "max": pps[2]},
-                "s2_launches": s2_launches, "s2_mean_err": err, "s2_unit_draws_s": unit_draw_s,
+                "s2_launches": s2_launches, "s2_mean_err": err, "s2_unit_draws_ms": unit_draws_ms,
                 "launches": launches}
 
     def phase_r(self, wire: bool = False) -> dict:
@@ -2097,9 +2194,11 @@ class Smoke:
             self.check(launches["fold_packed"] == 1,
                        f"({c}5) the coordinator's flush launched K1 packed once "
                        f"({launches['fold_packed']})")
-            self.check(launches["fold_planar"] == n_up and launches["mask_fold"] == 2 * n_up,
+            self.check(launches["fold_planar"] == n_up and launches["mask_fold"] == 2 * n_up
+                       and launches["unit_draws"] == n_up + 1,
                        f"({c}6) the SDK participants: K1 planar {launches['fold_planar']} == "
-                       f"{n_up}, K2 {launches['mask_fold']} == {2 * n_up} (masking and Sum2)")
+                       f"{n_up}, K2 {launches['mask_fold']} == {2 * n_up} (masking and Sum2), "
+                       f"K5 {launches['unit_draws']} == {n_up + 1}")
             want_k4 = n_up if wire else 0
             self.check(launches["packed_check"] == want_k4 and launches["wire_unpack"] == 0,
                        f"({c}7) the coordinator's wire checks: K4 {launches['packed_check']} == "
@@ -2266,11 +2365,15 @@ class Smoke:
             self.check(launches["fold_packed"] >= -(-n_up // 8),
                        f"(l6) K1 folded the device rows ({launches['fold_packed']} launches, at "
                        f"most 8 rows each)")
-            self.check(driver_launches.get("mask_fold_rows", 0) >= n_up
-                       and launches["mask_fold"] >= n_up,
-                       f"(l7) K2: per row in the drivers' engines "
-                       f"{driver_launches.get('mask_fold_rows')}, in the sum participant's Sum2 "
-                       f"{launches['mask_fold']} (>= {n_up} each)")
+            blocks = drivers * -(-(n_up // drivers) // lg_cfg["block_size"])
+            self.check(driver_launches.get("unit_draws", 0) == blocks
+                       and driver_launches.get("mask_fold_rows", 0) >= blocks
+                       and launches["mask_fold"] >= n_up and launches["unit_draws"] == 1,
+                       f"(l7) K5 and K2 per row in the drivers' engines "
+                       f"{driver_launches.get('unit_draws')}, "
+                       f"{driver_launches.get('mask_fold_rows')} (== {blocks} blocks, one trip "
+                       f"each); the sum participant's Sum2: K5 {launches['unit_draws']} == 1 over "
+                       f"its {n_up} seeds, K2 {launches['mask_fold']} >= {n_up}")
         post = stats["post_s"]
         forge = {k: v.get("forge_s") for k, v in stats["drivers"].items()}
         log(f"[phase L] {n_up} forged updates x {length} params through the coordinator from "
@@ -2551,6 +2654,9 @@ class Smoke:
                             device=device, max_message_size=PHASE_R_PART_BYTES))  # fmt: skip
                     wait_for(lambda: marks.first(f"round {r}", "entering unmask phase"), 900,
                              f"round {r}'s sum2 to close", poll=0.05)  # fmt: skip
+                    # round r's aggregators: a participant not yet stopped can
+                    # open round r + 1, whose update phase builds its own
+                    in_round[:] = built
                     for thread in threads:
                         thread.stop()
                     threads.clear()
@@ -2559,10 +2665,11 @@ class Smoke:
 
                 kernels.reset_launches()
                 t_round = time.perf_counter()
+                in_round = []
                 model, t_model = self.traced(f"phase T round {r}", one_round)
                 launches = dict(kernels.LAUNCHES)
                 rounds.append(self.phase_t_round_checks(
-                    r, model, previous, list(trained), list(mask_s), first_post, marks, built,
+                    r, model, previous, list(trained), list(mask_s), first_post, marks, in_round,
                     launches, t_round, t_model, settings.mask))  # fmt: skip
                 rounds[-1]["peak_rss_gib"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
                 log(f"[phase T] (t2) round {r}: peak host RSS of this process so far "
@@ -2747,6 +2854,8 @@ class Smoke:
             # the XLA program X4 of the JAX package's wire ingest
             "wire_unpack": ("xaynet_tpu_torch/csrc/wire.cu", "xaynet_tpu/parallel/aggregator.py:99"),
             "packed_check": ("xaynet_tpu_torch/csrc/wire.cu", "xaynet_tpu/parallel/aggregator.py:122"),
+            # K5: the JAX package's batched in-graph unit draws (XLA)
+            "unit_draws": ("xaynet_tpu_torch/csrc/mask_fold.cu", "xaynet_tpu/ops/masking_jax.py:141"),
         }
         # K2's operations: the xors and rotates of each ChaCha block the
         # data needs, on the ALU pipe
@@ -2783,9 +2892,10 @@ class Smoke:
                 "library_ms": None,
             })  # fmt: skip
         self.records["int32_ops_per_s"] = int_rate
-        s2 = timings["mask_fold_rows"]["s2"]
-        s2["bound_ms"] = max(s2["bytes"] / MEM_BYTES_PER_S, s2["ops"] / int_rate) * 1e3
-        rows[[r["name"] for r in rows].index("mask_fold_rows")]["s2_shape"] = s2
+        for name in ("mask_fold_rows", "unit_draws"):
+            s2 = timings[name]["s2"]
+            s2["bound_ms"] = max(s2["bytes"] / MEM_BYTES_PER_S, s2["ops"] / int_rate) * 1e3
+            rows[[r["name"] for r in rows].index(name)]["s2_shape"] = s2
         return rows
 
     def idle_shares(self, timings: dict, launches: dict) -> None:
@@ -2819,7 +2929,8 @@ class Smoke:
     def device_profile(self, timings: dict) -> None:
         """Device time of each kernel (and fill) by name over one call of
         each at the main shapes: K1 packed (8 updates) and planar (1), one
-        K2 seed, K2 per row at Phase S's s1 shape (8 rows), in profiler
+        K2 seed, K2 per row at Phase S's s1 shape (8 rows, one launch), K5
+        over Phase B's Sum2 (16 seeds), in profiler
         windows with CUDA activity only (:meth:`traced`); K3 and K4 are
         profiled at Phase W's launches (:meth:`phase_w_kernels`). The calls
         run twice: launched as the window opens (the window PRs 4-6 read),
@@ -2841,11 +2952,14 @@ class Smoke:
         rows = zeros_u32((k, 2, n), self.dev)
         kws = torch.zeros((k, 8), dtype=torch.int32, device=self.dev).view(torch.uint32)
 
+        unit_kws = torch.zeros((16, 8), dtype=torch.int32, device=self.dev).view(torch.uint32)
+
         def work():
             kernels.fold_packed(acc, packed, order)
             kernels.fold_planar(acc, one, order)
             kernels.mask_fold(acc, kws[:1], [6], n, order)
             kernels.mask_fold_rows(rows, kws, [6] * k, n, order)
+            kernels.unit_draws(unit_kws, order)
 
         names = KERNEL_SYMBOLS
         found = {}
@@ -2870,16 +2984,11 @@ class Smoke:
         self.records["profile"] = profile_rows
         for r in profile_rows:
             log(f"[profile] {r['kernel'][:60]}: {r['device_ms']:.3f} ms over {r['calls']} call(s)")
-        for name in ("fold_packed", "fold_planar"):
-            hits = [r["device_ms"] for r in profile_rows if names[name] in r["kernel"]]
-            if hits and name in timings:
-                timings[name]["device_ms"] = sum(hits)
-        k2 = [r for r in profile_rows if names["mask_fold"] in r["kernel"]]
-        if k2 and k2[0]["calls"] == 1 + k:  # one seed, then k seeds into k rows
-            per_launch = k2[0]["device_ms"] / k2[0]["calls"]
-            timings["mask_fold"]["device_ms"] = per_launch
-            timings["mask_fold_rows"]["device_ms"] = per_launch * k
-        del acc, packed, one, rows
+        for name in ("fold_packed", "fold_planar", "mask_fold", "mask_fold_rows", "unit_draws"):
+            hits = [r for r in profile_rows if names[name] in r["kernel"]]
+            if sum(r["calls"] for r in hits) == 1 and name in timings:  # one launch each
+                timings[name]["device_ms"] = sum(r["device_ms"] for r in hits)
+        del acc, packed, one, rows, unit_kws
 
 
 def main() -> int:
@@ -2921,6 +3030,7 @@ def main() -> int:
         smoke.phase_a_mask_fold_rows()
         smoke.phase_a_wire()
         timings = smoke.phase_a_main_shapes()
+        timings["unit_draws"] = smoke.phase_a_unit_draws()
         timings["mask_fold_rows"] = smoke.phase_a_rows_main()
         smoke.phase_a_wire_main()
         pipeline = smoke.phase_pipeline()
@@ -2954,8 +3064,8 @@ def main() -> int:
         _write_records(smoke.records)
         log(f"chip_smoke: rehearsal on {args.device} passed in {time.perf_counter() - t0:.1f} s")
         return 0
-    # launches per path: K1 and K2 on Phase B's round, K3 and K4 on Phase W's,
-    # K2's per-row entry on Phase S's
+    # launches per path: K1, K2 and K5 on Phase B's round, K3 and K4 on Phase
+    # W's, K2's per-row entry on Phase S's
     launches = {**result["launches"],
                 **{k: wire["launches"][k] for k in ("wire_unpack", "packed_check")},
                 "mask_fold_rows": sim["launches"]["mask_fold_rows"]}
@@ -2986,11 +3096,11 @@ def main() -> int:
     return 0
 
 
-# each launch counter's kernel, by a part of its symbol's name (K2's two
-# host entries launch one kernel)
+# each launch counter's kernel, by a part of its symbol's name
 KERNEL_SYMBOLS = {"fold_packed": "fold_packed_kernel", "fold_planar": "fold_planar_kernel",
-                  "mask_fold": "mf_mask_fold_kernel", "mask_fold_rows": "mf_mask_fold_kernel",
-                  "wire_unpack": "wire_unpack_kernel", "packed_check": "packed_check_kernel"}
+                  "mask_fold": "mf_mask_fold_kernel", "mask_fold_rows": "mf_mask_fold_rows_kernel",
+                  "wire_unpack": "wire_unpack_kernel", "packed_check": "packed_check_kernel",
+                  "unit_draws": "mf_unit_draws_kernel"}
 
 
 def trace_complete(trace: dict, launches: dict) -> bool:

@@ -25,7 +25,7 @@ import torch
 from xaynet_tpu_torch.core.crypto.prng import StreamSampler
 from xaynet_tpu_torch.core.mask.config import BoundType, DataType, GroupType, MaskConfig, ModelType
 from xaynet_tpu_torch.ops import chacha, kernels, limbs
-from xaynet_tpu_torch.ops.fold import to_device_u32, widen
+from xaynet_tpu_torch.ops.fold import to_device_u32, widen, zeros_u32
 from xaynet_tpu_torch.parallel.aggregator import DeviceAggregator
 from xaynet_tpu_torch.parallel.streaming import StreamingAggregator, StreamingError
 from xaynet_tpu_torch.resilience import faults
@@ -199,7 +199,7 @@ def test_launch_counters_count_kernel_launches(cuda):
     kernels.mask_fold(acc, kws, [0, 5], 64, order)
     assert kernels.LAUNCHES == {
         "fold_planar": 1, "fold_packed": 0, "mask_fold": 2, "mask_fold_rows": 0, "wire_unpack": 0,
-        "packed_check": 0,
+        "packed_check": 0, "unit_draws": 0,
     }
 
 
@@ -561,6 +561,7 @@ def test_coordinator_round_on_card(cuda, tmp_path):
     assert out["parts_per_update"][0] > 1  # multipart
     assert launches["fold_packed"] == 1
     assert launches["fold_planar"] == n_up and launches["mask_fold"] == 2 * n_up
+    assert launches["unit_draws"] == n_up + 1  # each participant's mask, one for the Sum2
     ref = StagedAggregator(out["mask"].config, length, batch_size=n_up, device="cpu")
     for obj in out["updates"]:
         ref.validate_aggregation(obj)
@@ -610,13 +611,20 @@ def test_aggregate_masks_on_card_matches_cpu(cuda):
     assert got.vect.data.tobytes() == vect.tobytes() and got.unit.data.tobytes() == unit.tobytes()
 
 
+def _trips_needed(starts, ends, trip: int, bpn: int) -> int:
+    """Trips of ``trip`` candidates the slowest seed took (from its start
+    and end cursors)."""
+    return max((e - s - 1) // (trip * bpn) for s, e in zip(starts, ends)) + 1
+
+
 @pytest.mark.parametrize("trips", [1, 5])
-@pytest.mark.parametrize("b", [1, 8, 33])
+@pytest.mark.parametrize("b", [1, 8, 33, 256])
 @pytest.mark.parametrize("name", ["L2", "L4-draw17", "L67"])
 def test_mask_fold_rows_matches_plain(cuda, name, b, trips):
     """K2 with one accumulator per seed: each row against the plain version
-    (rows and end cursors), from mid-block cursors, one or five trips; one
-    launch per seed and trip."""
+    (rows and end cursors), from mid-block cursors that differ by seed, one
+    or five trips; one launch per trip for the whole block, not one per
+    seed."""
     order = ORDERS[name]
     bpn = limbs.draw_width_for(order)
     count = 301 if name == "L67" else 1001  # ragged
@@ -631,7 +639,82 @@ def test_mask_fold_rows_matches_plain(cuda, name, b, trips):
     launched = kernels.LAUNCHES["mask_fold_rows"]
     want, want_ends = kernels.mask_fold_rows_plain(rows0.clone(), kws, offs, count, order, chunk)
     assert _same(got, want) and ends.tolist() == want_ends.tolist()
-    assert launched >= b * (trips if trips == 1 else 2) and kernels.LAUNCHES["mask_fold"] == 0
+    plan = kernels.plan_trips(count, order, chunk)
+    assert launched == _trips_needed(offs, want_ends.tolist(), plan.trip, bpn)
+    assert (launched == 1) == (trips == 1) and kernels.LAUNCHES["mask_fold"] == 0
+
+
+@pytest.mark.parametrize("trips", [1, 4])
+@pytest.mark.parametrize("name", ["L2", "L10"])
+def test_mask_fold_rows_strided_view_from_device_cursors(cuda, name, trips):
+    """``mask_fold_rows`` into a strided view (every other row of a block
+    with one spare limb per row) from K5's cursors, which stay on the card:
+    the rows equal the plain version's, the block's other limbs and rows
+    are untouched, and each seed's mask is its host sampler draw."""
+    order = ORDERS[name]
+    n_limb, bpn = limbs.n_limbs_for_order(order), limbs.draw_width_for(order)
+    b, count = 8, 777
+    rng = np.random.default_rng(41)
+    raw = [rng.bytes(32) for _ in range(b)]
+    kws = to_device_u32(np.stack([np.frombuffer(s, "<u4") for s in raw]), cuda)
+    kernels.reset_launches()
+    units, starts = kernels.unit_draws(kws, order)
+    assert starts.device.type == "cuda" and kernels.LAUNCHES["unit_draws"] == 1
+    chunk = None if trips == 1 else max(7, count * (1 << (8 * bpn)) // order // trips)
+    block = to_device_u32(np.zeros((2 * b, n_limb + 1, count), np.uint32), cuda)
+    rows = block[::2, :n_limb]
+    assert not rows.is_contiguous()
+    _, ends = kernels.mask_fold_rows(rows, kws, starts, count, order, chunk)
+    want, want_ends = kernels.mask_fold_rows_plain(
+        zeros_u32(tuple(rows.shape), cuda), kws, starts.cpu().tolist(), count, order, chunk
+    )
+    assert _same(rows, want) and ends.tolist() == want_ends.tolist()
+    assert not widen(block[1::2]).any() and not widen(block[::2, n_limb]).any()
+    plan = kernels.plan_trips(count, order, chunk)
+    assert kernels.LAUNCHES["mask_fold_rows"] == _trips_needed(
+        starts.tolist(), ends.tolist(), plan.trip, bpn
+    )
+    for i in (0, b - 1):
+        sampler = StreamSampler(raw[i])
+        unit = sampler.draw_limbs(1, order)[0]
+        assert sampler.consumed_bytes == int(starts[i])
+        assert np.array_equal(unit, units[i].cpu().view(torch.int32).numpy().view(np.uint32))
+        host = sampler.draw_limbs(count, order)
+        got = rows[i].cpu().view(torch.int32).numpy().view(np.uint32).T
+        assert np.array_equal(got, host) and sampler.consumed_bytes == int(ends[i])
+
+
+UNIT_ORDERS = {
+    "draw6": ORDERS["L2"],
+    "draw7": MaskConfig(GroupType.INTEGER, DataType.F32, BoundType.B0, ModelType.M6).order,
+    "draw8": MaskConfig(GroupType.INTEGER, DataType.F32, BoundType.B2, ModelType.M6).order,
+    "draw12": MaskConfig(GroupType.POWER2, DataType.F32, BoundType.B4, ModelType.M12).order,
+    "draw13-2^96": ORDERS["L3-2^96"],
+    "draw16": MaskConfig(GroupType.PRIME, DataType.F64, BoundType.B4, ModelType.M12).order,
+    "draw17-2^128": ORDERS["L4-draw17"],
+    "draw37": ORDERS["L10"],
+    "draw268": ORDERS["L67"],
+}
+
+
+@pytest.mark.parametrize("b", [1, 3, 257])
+@pytest.mark.parametrize("name", sorted(UNIT_ORDERS))
+def test_unit_draws_match_plain(cuda, name, b):
+    """K5 against its plain version (units and cursors) at every draw width
+    K2 is tested at, the 2^(32 L) orders among them; one launch; the first
+    seed against the host sampler."""
+    order = UNIT_ORDERS[name]
+    kws = np.random.default_rng(b).integers(0, 1 << 32, (b, 8), dtype=np.uint64).astype(np.uint32)
+    kw = to_device_u32(kws, cuda)
+    kernels.reset_launches()
+    units, cursors = kernels.unit_draws(kw, order)
+    assert kernels.LAUNCHES["unit_draws"] == 1
+    want_units, want_cursors = kernels.unit_draws_plain(kw, order)
+    assert _same(units, want_units) and cursors.tolist() == want_cursors.tolist()
+    sampler = StreamSampler(kws[0].astype("<u4").tobytes())
+    unit = sampler.draw_limbs(1, order)[0]
+    assert np.array_equal(unit, units[0].cpu().view(torch.int32).numpy().view(np.uint32))
+    assert int(cursors[0]) == sampler.consumed_bytes
 
 
 def test_sim_and_engine_on_card_equal_cpu(cuda):
@@ -652,7 +735,9 @@ def test_sim_and_engine_on_card_equal_cpu(cuda):
         spec = SimSpec(pair, n, block_size=16, fuse_mask_sum=fuse, return_internals=True)
         kernels.reset_launches()
         on_card = SimRound(spec).run(seeds, weights, scalar)
-        assert kernels.LAUNCHES["mask_fold_rows"] >= p and kernels.LAUNCHES["fold_planar"] > 0
+        blocks = -(-p // 16)  # one K5 and one K2-per-row launch a block (one trip each)
+        assert kernels.LAUNCHES["mask_fold_rows"] == blocks and kernels.LAUNCHES["fold_planar"] > 0
+        assert kernels.LAUNCHES["unit_draws"] == blocks + (not fuse)  # + the Sum2's one
         on_cpu = SimRound(spec, device="cpu").run(seeds, weights, scalar)
         assert on_card.global_model.tobytes() == on_cpu.global_model.tobytes()
         for key, value in on_cpu.internals.items():

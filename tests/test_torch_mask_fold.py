@@ -144,6 +144,44 @@ def test_plain_mask_fold_word_draw_widths(cfg):
     assert np.array_equal(planar_to_wire(acc), ref) and ends == ref_ends
 
 
+@pytest.mark.parametrize("cfg", CONFIGS + WORD_DRAWS[:1], ids=IDS + ["draw8"])
+def test_plain_mask_fold_rows_tensor_cursors_multi_trip(cfg):
+    """``mask_fold_rows_plain`` with its cursors as an int64 tensor (K5's
+    output: each seed's unit-draw cursor, ``extra`` bytes on so they start
+    mid-block) and a trip far shorter than the row: each row is its seed's
+    host vector draw and each end cursor the sampler's, as in one trip and
+    as with the cursors given as a list."""
+    pair = cfg.pair()
+    order, n = pair.vect.order, 41
+    n_limb = ref_limbs.n_limbs_for_order(order)
+    seeds = _seeds(3, 0x2D)
+    kws, offs = _words_offsets(seeds, pair, extra=23)
+    kw = fold.to_device_u32(kws, CPU)
+    cursors = torch.tensor(offs, dtype=torch.int64)
+    chunk = _short_trip(n, order, 6)
+    rows, ends = kernels.mask_fold_rows_plain(fold.zeros_u32((3, n_limb, n), CPU), kw, cursors, n,
+                                              order, chunk)  # fmt: skip
+    whole, whole_ends = kernels.mask_fold_rows(fold.zeros_u32((3, n_limb, n), CPU), kw, offs, n,
+                                               order)  # fmt: skip
+    assert torch.equal(rows, whole) and ends.tolist() == whole_ends.tolist()
+    for b, seed in enumerate(seeds):
+        ref, ref_ends = _reference_sum([seed], n, pair, extra=23)
+        assert np.array_equal(planar_to_wire(fold.to_numpy_u32(rows[b])), ref)
+        assert int(ends[b]) == ref_ends[0]
+    units, starts = kernels.unit_draws(kw, convert.config_pair(pair).unit.order)
+    assert starts.tolist() == [o - 23 for o in offs]
+    masks, _ = kernels.mask_fold_rows(fold.zeros_u32((3, n_limb, n), CPU), kw, starts, n, order,
+                                      chunk)  # fmt: skip
+    for b, seed in enumerate(seeds):
+        want = MaskSeed(seed).derive_mask(n, pair)
+        assert np.array_equal(fold.to_numpy_u32(units[b]), want.unit.data)
+        assert np.array_equal(planar_to_wire(fold.to_numpy_u32(masks[b])), want.vect.data)
+    with pytest.raises(ValueError, match="int64"):
+        kernels.mask_fold_rows_plain(rows, kw, cursors.to(torch.int32), n, order)
+    with pytest.raises(ValueError, match="non-negative"):
+        kernels.mask_fold_rows_plain(rows, kw, torch.tensor([-1, 0, 0]), n, order)
+
+
 def test_plain_mask_fold_accumulates_into_nonzero_acc():
     """K2 adds into whatever the accumulator holds (a second group)."""
     pair = CONFIGS[1].pair()

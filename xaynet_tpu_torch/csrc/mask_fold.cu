@@ -41,7 +41,25 @@
 // 17-byte candidates for a 16-byte element): the comparison takes all draw
 // bytes, the add the first L limbs.
 //
-// C interface (route (b): nvcc -> shared library -> ctypes). The entry
+// K2's per-row entry (`xn_mask_fold_rows_trip`) runs the same tile body for
+// a block of B seeds in one launch per trip, seed b folding into its own row
+// (the whole-round simulation's and the load generator's masks): the grid
+// is B x n_tiles blocks, and the one tile counter hands out ids seed-major
+// (seed = id / n_tiles, tile = id % n_tiles), so a tile still waits only on
+// lower tiles of its own seed, which took lower ids and are running. Each
+// seed's start cursor and earlier acceptances are read from device arrays:
+// the host never reads the cursors before the launch.
+//
+// K5 (`xn_unit_draws`) replaces the XLA program `_unit_offsets_fn`
+// (xaynet_tpu/ops/masking_jax.py): for every seed, the first accepted
+// candidate of the unit order from keystream byte 0 (what
+// `MaskSeed.derive_mask` draws first) and the byte cursor after it, where
+// the seed's vector draw starts. One thread per seed walks its candidates in
+// order, generating ChaCha blocks into a ring in shared memory as the
+// candidates reach them; at the shipped configs that is one or two blocks.
+// It is bound by launch latency; its operations are its blocks' rounds.
+//
+// C interface (route (b): nvcc -> shared library -> ctypes). Each entry
 // point returns the first non-zero CUDA error of its memset and launch.
 
 #include <cstdint>
@@ -100,6 +118,8 @@ __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) { return __funnels
 // One ChaCha20 block. Word w of a tile's local block lb is stored at
 // lb*16 + (w ^ (lb & 15)): the swizzle spreads a warp's stores (one block
 // per thread) over the shared-memory banks.
+// (S > 1: word w at out[w * S], for K5's ring with one column per thread)
+template <int S = 1>
 __device__ __forceinline__ void chacha_block(const uint32_t* key, unsigned long long ctr,
                                              uint32_t* out, int swz) {
   const uint32_t j0 = 0x61707865u, j1 = 0x3320646Eu, j2 = 0x79622D32u, j3 = 0x6B206574u;
@@ -120,22 +140,22 @@ __device__ __forceinline__ void chacha_block(const uint32_t* key, unsigned long 
     XN_QR(x2, x7, x8, x13)
     XN_QR(x3, x4, x9, x14)
   }
-  out[0 ^ swz] = x0 + j0;
-  out[1 ^ swz] = x1 + j1;
-  out[2 ^ swz] = x2 + j2;
-  out[3 ^ swz] = x3 + j3;
-  out[4 ^ swz] = x4 + key[0];
-  out[5 ^ swz] = x5 + key[1];
-  out[6 ^ swz] = x6 + key[2];
-  out[7 ^ swz] = x7 + key[3];
-  out[8 ^ swz] = x8 + key[4];
-  out[9 ^ swz] = x9 + key[5];
-  out[10 ^ swz] = x10 + key[6];
-  out[11 ^ swz] = x11 + key[7];
-  out[12 ^ swz] = x12 + j12;
-  out[13 ^ swz] = x13 + j13;
-  out[14 ^ swz] = x14;
-  out[15 ^ swz] = x15;
+  out[(0 ^ swz) * S] = x0 + j0;
+  out[(1 ^ swz) * S] = x1 + j1;
+  out[(2 ^ swz) * S] = x2 + j2;
+  out[(3 ^ swz) * S] = x3 + j3;
+  out[(4 ^ swz) * S] = x4 + key[0];
+  out[(5 ^ swz) * S] = x5 + key[1];
+  out[(6 ^ swz) * S] = x6 + key[2];
+  out[(7 ^ swz) * S] = x7 + key[3];
+  out[(8 ^ swz) * S] = x8 + key[4];
+  out[(9 ^ swz) * S] = x9 + key[5];
+  out[(10 ^ swz) * S] = x10 + key[6];
+  out[(11 ^ swz) * S] = x11 + key[7];
+  out[(12 ^ swz) * S] = x12 + j12;
+  out[(13 ^ swz) * S] = x13 + j13;
+  out[(14 ^ swz) * S] = x14;
+  out[(15 ^ swz) * S] = x15;
 }
 
 // word wi of the tile's keystream (undoing the swizzle)
@@ -272,37 +292,27 @@ __device__ __forceinline__ long long look_back(unsigned long long* status, long 
   }
 }
 
-// One trip of one seed. scratch: [0] tile counter, [1] done flag,
-// [2 + t] status of tile t; zeroed before the launch.
+// One tile of one seed's trip, after its block took `tile` and found the
+// seed short of `count`: `done_flag` and `status` are the seed's done flag
+// and its tiles' look-back status words; acc is the seed's accumulator,
+// limb j of element k at acc[j * stride + k].
 template <int LT>
-__global__ void __launch_bounds__(kThreads)
-mf_mask_fold_kernel(const uint32_t* __restrict__ kw, long long trip_off, long long n_cand,
-                    int bpn, int tile_cands, const uint8_t* __restrict__ order_bytes,
-                    const uint32_t* __restrict__ order_limbs, int n_limb, int pow2,
-                    long long base0, long long count, uint32_t* __restrict__ acc,
-                    long long* __restrict__ base_out, long long* __restrict__ end,
-                    unsigned long long* __restrict__ scratch) {
+__device__ __forceinline__ void fold_tile(const uint32_t* __restrict__ kw, long long trip_off,
+                                          long long n_cand, int bpn, int tile_cands,
+                                          const uint8_t* __restrict__ order_bytes,
+                                          const uint32_t* __restrict__ order_limbs, int n_limb,
+                                          int pow2, long long base0, long long count,
+                                          uint32_t* __restrict__ acc, long long stride,
+                                          long long* __restrict__ base_out,
+                                          long long* __restrict__ end,
+                                          unsigned long long* done_flag,
+                                          unsigned long long* status, long long tile) {
   extern __shared__ __align__(16) uint32_t ks[];
   __shared__ uint32_t s_ow[kMaxDraw / 4 + 1];
   __shared__ uint32_t s_ol[kMaxLimbs];
   __shared__ int s_warp[kThreads / 32];
-  __shared__ long long s_tile, s_excl;
-  __shared__ int s_done;
-  unsigned long long* status = scratch + 2;
+  __shared__ long long s_excl;
 
-  if (threadIdx.x == 0) {
-    const long long t = (long long)atomicAdd(scratch, 1ull);
-    const bool done = Atomic64(scratch[1]).load(cuda::memory_order_relaxed) != 0;
-    // a tile past the count-th acceptance still publishes, for the tiles
-    // behind it that are already looking back
-    if (done) Atomic64(status[t]).store(kInclusive | kPast, cuda::memory_order_release);
-    s_tile = t;
-    s_done = done;
-  }
-  __syncthreads();
-  if (s_done) return;
-
-  const long long tile = s_tile;
   const int L = LT > 0 ? LT : n_limb;
   const long long c0 = tile * tile_cands;
   const int nc = (int)min((long long)tile_cands, n_cand - c0);
@@ -369,14 +379,133 @@ mf_mask_fold_kernel(const uint32_t* __restrict__ kw, long long trip_off, long lo
   const long long take = min((long long)total, count - prefix);
   for (int k = threadIdx.x; k < take; k += kThreads) {
     const int ci = s_idx[k];
-    add_candidate<LT>(ks, intra + ci * bpn, bpn, L, s_ol, pow2, acc + prefix + k, count);
+    add_candidate<LT>(ks, intra + ci * bpn, bpn, L, s_ol, pow2, acc + prefix + k, stride);
     if (prefix + k == count - 1) {
       *end = trip_off + (c0 + ci + 1) * bpn;
       *base_out = count;
-      Atomic64(scratch[1]).store(1ull, cuda::memory_order_relaxed);
+      Atomic64(*done_flag).store(1ull, cuda::memory_order_relaxed);
     }
   }
   if (threadIdx.x == 0 && c0 + nc == n_cand && prefix + total < count) *base_out = prefix + total;
+}
+
+// One trip of one seed. scratch: [0] tile counter, [1] done flag,
+// [2 + t] status of tile t; zeroed before the launch.
+template <int LT>
+__global__ void __launch_bounds__(kThreads)
+mf_mask_fold_kernel(const uint32_t* __restrict__ kw, long long trip_off, long long n_cand,
+                    int bpn, int tile_cands, const uint8_t* __restrict__ order_bytes,
+                    const uint32_t* __restrict__ order_limbs, int n_limb, int pow2,
+                    long long base0, long long count, uint32_t* __restrict__ acc,
+                    long long* __restrict__ base_out, long long* __restrict__ end,
+                    unsigned long long* __restrict__ scratch) {
+  __shared__ long long s_tile;
+  __shared__ int s_done;
+  unsigned long long* status = scratch + 2;
+
+  if (threadIdx.x == 0) {
+    const long long t = (long long)atomicAdd(scratch, 1ull);
+    const bool done = Atomic64(scratch[1]).load(cuda::memory_order_relaxed) != 0;
+    // a tile past the count-th acceptance still publishes, for the tiles
+    // behind it that are already looking back
+    if (done) Atomic64(status[t]).store(kInclusive | kPast, cuda::memory_order_release);
+    s_tile = t;
+    s_done = done;
+  }
+  __syncthreads();
+  if (s_done) return;
+  fold_tile<LT>(kw, trip_off, n_cand, bpn, tile_cands, order_bytes, order_limbs, n_limb, pow2,
+                base0, count, acc, count, base_out, end, scratch + 1, status, s_tile);
+}
+
+// Trip `trip` of a block of seeds, seed b into its own row. scratch: [0]
+// the tile counter, then per seed b at 1 + b * (1 + n_tiles): its done flag
+// and the status words of its n_tiles tiles; zeroed before the launch.
+// done_in[b] holds seed b's acceptances before this trip; a seed that
+// already has `count` exits at once.
+template <int LT>
+__global__ void __launch_bounds__(kThreads)
+mf_mask_fold_rows_kernel(const uint32_t* __restrict__ kw, const long long* __restrict__ starts,
+                         long long trip, long long n_cand, long long n_tiles, int bpn,
+                         int tile_cands, const uint8_t* __restrict__ order_bytes,
+                         const uint32_t* __restrict__ order_limbs, int n_limb, int pow2,
+                         long long count, const long long* __restrict__ done_in,
+                         uint32_t* __restrict__ rows, long long row_stride,
+                         long long limb_stride, long long* __restrict__ base_out,
+                         long long* __restrict__ ends, unsigned long long* __restrict__ scratch) {
+  __shared__ long long s_seed, s_tile;
+  __shared__ int s_done;
+
+  if (threadIdx.x == 0) {
+    const long long id = (long long)atomicAdd(scratch, 1ull);
+    const long long b = id / n_tiles, t = id % n_tiles;
+    unsigned long long* region = scratch + 1 + b * (1 + n_tiles);
+    const bool done = done_in[b] >= count ||
+                      Atomic64(region[0]).load(cuda::memory_order_relaxed) != 0;
+    if (done) Atomic64(region[1 + t]).store(kInclusive | kPast, cuda::memory_order_release);
+    s_seed = b;
+    s_tile = t;
+    s_done = done;
+  }
+  __syncthreads();
+  if (s_done) return;
+  const long long b = s_seed;
+  unsigned long long* region = scratch + 1 + b * (1 + n_tiles);
+  fold_tile<LT>(kw + 8 * b, starts[b] + trip * n_cand * bpn, n_cand, bpn, tile_cands,
+                order_bytes, order_limbs, n_limb, pow2, done_in[b], count,
+                rows + b * row_stride, limb_stride, base_out + b, ends + b, region, region + 1,
+                s_tile);
+}
+
+// K5: one thread per seed. Keystream block c of the thread's seed lives in
+// ring slot c % kRing, word w at ring[(slot * 16 + w) * kUnitThreads + tid];
+// a candidate spans at most ceil((63 + kMaxDraw) / 64) = 6 < kRing blocks,
+// so the blocks it reads are always in the ring.
+constexpr int kUnitThreads = 64;
+constexpr int kRing = 8;
+
+__device__ __forceinline__ uint32_t ring_byte(const uint32_t* ring, long long q) {
+  const int slot = (int)((q >> 6) & (kRing - 1)), w = (int)((q >> 2) & 15);
+  return (ring[(slot * 16 + w) * kUnitThreads] >> (8 * (int)(q & 3))) & 0xFFu;
+}
+
+__global__ void __launch_bounds__(kUnitThreads)
+mf_unit_draws_kernel(const uint32_t* __restrict__ kw, int n_seeds, int bpn,
+                     const uint8_t* __restrict__ order_bytes, int n_limb,
+                     uint32_t* __restrict__ units, long long* __restrict__ cursors) {
+  __shared__ uint32_t s_ring[kRing * 16 * kUnitThreads];
+  __shared__ uint8_t s_ob[kMaxDraw];
+  for (int i = threadIdx.x; i < bpn; i += kUnitThreads) s_ob[i] = order_bytes[i];
+  __syncthreads();
+  const int b = blockIdx.x * kUnitThreads + threadIdx.x;
+  if (b >= n_seeds) return;
+  uint32_t key[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) key[i] = __ldg(kw + 8 * b + i);
+  uint32_t* ring = s_ring + threadIdx.x;
+  long long have = 0;  // keystream blocks [0, have) generated
+  for (long long p = 0;; p += bpn) {
+    for (const long long last = (p + bpn - 1) >> 6; have <= last; ++have)
+      chacha_block<kUnitThreads>(key, (unsigned long long)have,
+                                 ring + (int)(have & (kRing - 1)) * 16 * kUnitThreads, 0);
+    // the acceptance rule, byte by byte from the top: candidate < order
+    bool lt = false;
+    for (int k = bpn - 1; k >= 0; --k) {
+      const uint32_t c = ring_byte(ring, p + k), o = s_ob[k];
+      if (c != o) {
+        lt = c < o;
+        break;
+      }
+    }
+    if (!lt) continue;
+    for (int j = 0; j < n_limb; ++j) {
+      uint32_t w = 0;
+      for (int i = 0; i < 4 && 4 * j + i < bpn; ++i) w |= ring_byte(ring, p + 4 * j + i) << (8 * i);
+      units[(long long)b * n_limb + j] = w;
+    }
+    cursors[b] = p + bpn;
+    return;
+  }
 }
 
 template <int LT>
@@ -392,6 +521,24 @@ int launch(unsigned grid, int smem, cudaStream_t s, const uint32_t* kw, long lon
   mf_mask_fold_kernel<LT><<<grid, kThreads, smem, s>>>(kw, trip_off, n_cand, bpn, tile_cands, ob,
                                                        ol, n_limb, pow2, base0, count, acc,
                                                        base_out, end, scratch);
+  return (int)cudaGetLastError();
+}
+
+template <int LT>
+int launch_rows(unsigned grid, int smem, cudaStream_t s, const uint32_t* kw, const long long* st,
+                long long trip, long long n_cand, long long n_tiles, int bpn, int tile_cands,
+                const uint8_t* ob, const uint32_t* ol, int n_limb, int pow2, long long count,
+                const long long* done_in, uint32_t* rows, long long row_stride,
+                long long limb_stride, long long* base_out, long long* ends,
+                unsigned long long* scratch) {
+  if (smem > kDefaultSmem) {
+    cudaError_t e = cudaFuncSetAttribute(mf_mask_fold_rows_kernel<LT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  mf_mask_fold_rows_kernel<LT><<<grid, kThreads, smem, s>>>(
+      kw, st, trip, n_cand, n_tiles, bpn, tile_cands, ob, ol, n_limb, pow2, count, done_in, rows,
+      row_stride, limb_stride, base_out, ends, scratch);
   return (int)cudaGetLastError();
 }
 
@@ -439,6 +586,67 @@ int xn_mask_fold_trip(const void* kw, long long trip_off, long long n_cand, int 
     case 5: return launch<5>(grid, smem, s, k, trip_off, n_cand, bpn, tile_cands, ob, ol, n_limb, pow2, base0, count, a, b, en, sc);
     default: return launch<0>(grid, smem, s, k, trip_off, n_cand, bpn, tile_cands, ob, ol, n_limb, pow2, base0, count, a, b, en, sc);
   }
+}
+
+// Trip `trip` of n_seeds seeds, seed b folding its mask into its own row:
+// rows uint32 with row b at rows + b * row_stride and limb j of element k
+// at + j * limb_stride + k (in place), kw uint32[B, 8], starts int64[B] (the
+// byte cursor each seed's vector draw starts at; trip t of seed b begins at
+// starts[b] + t * n_cand * bpn), done_in int64[B] (acceptances before this
+// trip), base_out int64[B] (after it; a seed done before it keeps its
+// value), ends int64[B] (written when a seed reaches count), scratch
+// int64[1 + B * (1 + n_tiles)] (zeroed here). One memset, one launch.
+int xn_mask_fold_rows_trip(const void* kw, const void* starts, long long trip, long long n_cand,
+                           int bpn, int tile_cands, int n_limb, int pow2, const void* order_bytes,
+                           const void* order_limbs, void* rows, long long row_stride,
+                           long long limb_stride, int n_seeds, long long count,
+                           const void* done_in, void* base_out, void* ends, void* scratch,
+                           void* stream) {
+  if (n_cand <= 0 || count <= 0 || trip < 0 || n_seeds < 1 || limb_stride < count)
+    return (int)cudaErrorInvalidValue;
+  if (bpn < 1 || bpn > kMaxDraw || n_limb < 1 || n_limb > kMaxLimbs)
+    return (int)cudaErrorInvalidValue;
+  if (tile_cands < 1 || tile_cands > kThreads * kMaxCandsPerThread)
+    return (int)cudaErrorInvalidValue;
+  const int smem = smem_bytes(tile_cands, bpn);
+  const long long n_tiles = (n_cand + tile_cands - 1) / tile_cands;
+  if (smem > kMaxSmem || n_tiles * n_seeds > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  auto sc = static_cast<unsigned long long*>(scratch);
+  const size_t words = 1 + (size_t)n_seeds * (size_t)(1 + n_tiles);
+  cudaError_t e = cudaMemsetAsync(sc, 0, words * sizeof(unsigned long long), s);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned grid = (unsigned)(n_tiles * n_seeds);
+  auto k = static_cast<const uint32_t*>(kw);
+  auto st = static_cast<const long long*>(starts);
+  auto ob = static_cast<const uint8_t*>(order_bytes);
+  auto ol = static_cast<const uint32_t*>(order_limbs);
+  auto dn = static_cast<const long long*>(done_in);
+  auto r = static_cast<uint32_t*>(rows);
+  auto b = static_cast<long long*>(base_out);
+  auto en = static_cast<long long*>(ends);
+  switch (n_limb) {
+    case 2: return launch_rows<2>(grid, smem, s, k, st, trip, n_cand, n_tiles, bpn, tile_cands, ob, ol, n_limb, pow2, count, dn, r, row_stride, limb_stride, b, en, sc);
+    case 3: return launch_rows<3>(grid, smem, s, k, st, trip, n_cand, n_tiles, bpn, tile_cands, ob, ol, n_limb, pow2, count, dn, r, row_stride, limb_stride, b, en, sc);
+    case 4: return launch_rows<4>(grid, smem, s, k, st, trip, n_cand, n_tiles, bpn, tile_cands, ob, ol, n_limb, pow2, count, dn, r, row_stride, limb_stride, b, en, sc);
+    case 5: return launch_rows<5>(grid, smem, s, k, st, trip, n_cand, n_tiles, bpn, tile_cands, ob, ol, n_limb, pow2, count, dn, r, row_stride, limb_stride, b, en, sc);
+    default: return launch_rows<0>(grid, smem, s, k, st, trip, n_cand, n_tiles, bpn, tile_cands, ob, ol, n_limb, pow2, count, dn, r, row_stride, limb_stride, b, en, sc);
+  }
+}
+
+// K5: for each of n_seeds seeds (kw uint32[B, 8]), the first accepted
+// bpn-byte candidate below the order (order_bytes uint8[bpn], little-endian)
+// from keystream byte 0, as n_limb limbs into units uint32[B, n_limb], and
+// the byte after it into cursors int64[B]. One launch.
+int xn_unit_draws(const void* kw, int n_seeds, int bpn, int n_limb, const void* order_bytes,
+                  void* units, void* cursors, void* stream) {
+  if (n_seeds < 1 || bpn < 1 || bpn > kMaxDraw || n_limb < 1 || 4 * n_limb > bpn + 3)
+    return (int)cudaErrorInvalidValue;
+  const unsigned grid = (unsigned)((n_seeds + kUnitThreads - 1) / kUnitThreads);
+  mf_unit_draws_kernel<<<grid, kUnitThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(kw), n_seeds, bpn, static_cast<const uint8_t*>(order_bytes),
+      n_limb, static_cast<uint32_t*>(units), static_cast<long long*>(cursors));
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -64,9 +64,18 @@ def keystream_words(key_words, block_start: int, nblocks: int, device=None) -> t
     kw = [int(w) & _M32 for w in (key_words.tolist() if torch.is_tensor(key_words) else key_words)]
     if len(kw) != 8:
         raise ValueError("ChaCha20 key must be 8 words")
-    ctr = block_start + torch.arange(nblocks, dtype=torch.int64, device=device)
-    full = lambda v: torch.full((nblocks,), v, dtype=torch.int64, device=device)  # noqa: E731
-    state = [full(c) for c in _CONSTANTS] + [full(w) for w in kw]
+    kw = torch.tensor([kw], dtype=torch.int64, device=device)
+    return keystream_words_batch(kw, block_start, nblocks)[0]
+
+
+def keystream_words_batch(key_words: torch.Tensor, block_start: int, nblocks: int) -> torch.Tensor:
+    """The blocks of :func:`keystream_words` for many seeds at once: int64
+    key words ``[B, 8]`` -> int64 ``[B, nblocks, 16]``, on their device."""
+    kw = key_words.to(torch.int64) & _M32
+    shape = (kw.shape[0], nblocks)
+    ctr = (block_start + torch.arange(nblocks, dtype=torch.int64, device=kw.device)).expand(shape)
+    full = lambda v: torch.full(shape, v, dtype=torch.int64, device=kw.device)  # noqa: E731
+    state = [full(c) for c in _CONSTANTS] + [kw[:, i : i + 1].expand(shape) for i in range(8)]
     state += [ctr & _M32, (ctr >> 32) & _M32, full(0), full(0)]
     w = list(state)
     for _ in range(10):

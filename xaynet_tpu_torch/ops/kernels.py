@@ -9,8 +9,15 @@ JAX package (``xaynet_tpu/ops/fold_pallas.py``):
   (:func:`fold_packed`);
 - **K2** ``csrc/mask_fold.cu`` — the fused Sum2 keystream -> reject -> fold
   (``mask_fold_planar_pallas``), :func:`mask_fold` (every seed into one
-  accumulator) and :func:`mask_fold_rows` (each seed into its own row: the
-  whole-round simulation's and the load generator's masks).
+  accumulator) and :func:`mask_fold_rows` (each seed into its own row, a
+  block of seeds in one launch: the whole-round simulation's and the load
+  generator's masks).
+
+One replaces an XLA program of the JAX package's mask derivation
+(``xaynet_tpu/ops/masking_jax.py`` ``_unit_offsets_fn``):
+
+- **K5** ``csrc/mask_fold.cu`` — every seed's unit draw and the byte cursor
+  its vector draw starts at, :func:`unit_draws`.
 
 Two more replace the XLA program of the JAX package's device wire ingest
 (``xaynet_tpu/parallel/aggregator.py`` ``_build_wire_unpack`` /
@@ -33,17 +40,20 @@ plain torch version beside it (``*_plain``), a CUDA tensor launches the
 kernel or raises. There is no fallback from the kernel to the plain
 version. ``LAUNCHES`` counts the kernel launches of each wrapper, under a
 lock (the streaming pipeline's fold worker launches K1 from its own
-thread): K1 one per batch fold, K2 one per seed and trip for either entry
-(``mask_fold`` and ``mask_fold_rows`` count apart; a trip is one
-pass over a provisioned run of keystream candidates; a seed takes one
-trip except with probability < 2^-60, or when a caller shrinks
-``chunk_candidates``), K3 and K4 one per group of wire updates.
+thread): K1 one per batch fold; K2 one per seed and trip for
+``mask_fold`` and one per trip for a whole block of seeds for
+``mask_fold_rows`` (a trip is one pass over a provisioned run of
+keystream candidates; a seed takes one trip except with probability
+< 2^-60, or when a caller shrinks ``chunk_candidates``); K3 and K4 one per
+group of wire updates; K5 one per call.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import itertools
+import math
 import os
 import shutil
 import subprocess
@@ -83,6 +93,7 @@ LAUNCHES = {
     "mask_fold_rows": 0,
     "wire_unpack": 0,
     "packed_check": 0,
+    "unit_draws": 0,
 }
 _LAUNCHES_LOCK = threading.Lock()
 
@@ -181,6 +192,12 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
     elif name == "mask_fold":
         lib.xn_mask_fold_trip.argtypes = [p, ll, ll, i, i, i, i, p, p, p, ll, ll, p, p, p, p]
         lib.xn_mask_fold_trip.restype = i
+        lib.xn_mask_fold_rows_trip.argtypes = [
+            p, p, ll, ll, i, i, i, i, p, p, p, ll, ll, i, ll, p, p, p, p, p,
+        ]  # fmt: skip
+        lib.xn_mask_fold_rows_trip.restype = i
+        lib.xn_unit_draws.argtypes = [p, i, i, i, p, p, p, p]
+        lib.xn_unit_draws.restype = i
     else:
         lib.xn_wire_unpack.argtypes = [p, p, p, p, i, i, i, ll, i, p]
         lib.xn_wire_unpack.restype = i
@@ -436,9 +453,9 @@ def mask_fold(
     folded with a modular add, and the mask never exists in device memory.
     ``chunk_candidates`` is the candidates one trip covers (default: the
     2^-60 provisioning, one trip); a small value forces the multi-trip path.
-    A trip is one launch per seed (:func:`plan_trips`); after each trip the
-    host reads the group's acceptance counts once, to learn which seeds
-    need another.
+    A trip is one launch per seed (:func:`plan_trips`): seeds that share the
+    accumulator run one after another. After each trip the host reads the
+    group's acceptance counts once, to learn which seeds need another.
     Cursors are int64 (the JAX kernel's int32 cursors stop at 2 GiB of
     keystream, which a 25M-element mask of the default config nearly fills).
     """
@@ -446,19 +463,64 @@ def mask_fold(
     if acc.device.type == "cpu":
         return mask_fold_plain(acc, key_words, offs, count, order, chunk_candidates)
     _require_cuda(acc, key_words)
-    ends = _k2_trips(acc.device, lambda b: acc.data_ptr(), key_words, offs, count, order,
-                     chunk_candidates, "mask_fold")  # fmt: skip
+    dev = acc.device
+    ends = torch.tensor(offs, dtype=torch.int64).to(dev)
+    if count == 0 or not offs:
+        return acc, ends
+    n_limb = host_limbs.n_limbs_for_order(order)
+    plan = _plan_k2(count, order, chunk_candidates)
+    lib = load("mask_fold")
+    scratch = torch.empty(plan.scratch_words, dtype=torch.int64, device=dev)
+    base = torch.zeros(len(offs), dtype=torch.int64, device=dev)
+    _, order_bytes, order_limbs = _order_buffers(order, n_limb, dev)
+    pow2 = int(order == 1 << (32 * n_limb))
+    stream = _stream(dev)
+    pending, done, t = list(range(len(offs))), [0] * len(offs), 0
+    with torch.cuda.device(dev):
+        while pending:
+            for b in pending:
+                rc = lib.xn_mask_fold_trip(
+                    key_words.data_ptr() + 32 * b, plan.offset(offs[b], t), plan.trip,
+                    plan.bpn, plan.tile, n_limb, pow2, order_bytes.data_ptr(),
+                    order_limbs.data_ptr(), acc.data_ptr(), count, done[b],
+                    base.data_ptr() + 8 * b, ends.data_ptr() + 8 * b, scratch.data_ptr(), stream,
+                )  # fmt: skip
+                _check(rc, "K2 mask fold", lib)
+                _launched("mask_fold")
+            done = base.cpu().tolist()  # the one sync of a trip
+            pending = [b for b in pending if done[b] < count]
+            t += 1
     return acc, ends
 
 
-def _check_rows_args(rows, key_words, offsets, count, order) -> list[int]:
+def _plan_k2(count: int, order: int, chunk_candidates: int | None) -> TripPlan:
+    plan = plan_trips(count, order, chunk_candidates)
+    if plan.bpn > K2_MAX_DRAW:
+        raise ValueError(f"draw width {plan.bpn} is out of the kernel's range")
+    return plan
+
+
+def _check_rows_args(rows, key_words, offsets, count, order):
+    """Checks of :func:`mask_fold_rows`' arguments; returns the cursors, a
+    list, or the int64 tensor they were given as (never read here)."""
     n_limb = host_limbs.n_limbs_for_order(order)
     if rows.dtype != torch.uint32 or rows.ndim != 3 or tuple(rows.shape[1:]) != (n_limb, count):
         raise ValueError(f"rows must be uint32[B, {n_limb}, {count}]")
-    if key_words.ndim != 2 or key_words.shape[0] != rows.shape[0]:
-        raise ValueError("need one seed per row")
-    return _check_mask_fold_args(rows[0] if len(rows) else rows.new_empty((n_limb, count)),
-                                 key_words, offsets, count, order)  # fmt: skip
+    b = rows.shape[0]
+    if key_words.dtype != torch.uint32 or tuple(key_words.shape) != (b, 8):
+        raise ValueError("need one seed per row: key_words must be uint32[B, 8]")
+    if key_words.device != rows.device:
+        raise ValueError("key words and rows live on different devices")
+    if torch.is_tensor(offsets):
+        if offsets.dtype != torch.int64 or tuple(offsets.shape) != (b,):
+            raise ValueError("need one byte cursor per seed: offsets must be int64[B]")
+        if offsets.device != rows.device:
+            raise ValueError("cursors and rows live on different devices")
+        return offsets
+    offs = [int(o) for o in offsets]
+    if len(offs) != b or any(o < 0 for o in offs):
+        raise ValueError("need one non-negative byte cursor per seed")
+    return offs
 
 
 def mask_fold_rows_plain(
@@ -473,6 +535,10 @@ def mask_fold_rows_plain(
     ``count`` mask elements from its byte cursor, modular-added into
     ``rows[b]`` (in place). Returns ``(rows, end cursors int64[B])``."""
     offs = _check_rows_args(rows, key_words, offsets, count, order)
+    if torch.is_tensor(offs):
+        offs = offs.tolist()
+        if any(o < 0 for o in offs):
+            raise ValueError("need one non-negative byte cursor per seed")
     ends = []
     for b, kw in enumerate(widen(key_words).tolist()):
         mask, end = chacha.derive_uniform_limbs(
@@ -495,56 +561,125 @@ def mask_fold_rows(
     vector draw from byte ``offsets[b]``) derives its mask and modular-adds
     it into ``rows[b]`` of the planar ``uint32[B, L, count]`` block, in
     place. Into zero rows that is each seed's mask itself (the batched
-    derivation); into encoded models, the masked models.
+    derivation); into encoded models, the masked models. ``rows`` may be a
+    view whose rows and limbs are strided; each limb's elements must be
+    contiguous.
 
-    The same launches as :func:`mask_fold`, one per seed and trip, with the
-    accumulator pointer at row ``b``; the host reads the block's acceptance
-    counts once per trip, never once per seed. Returns ``(rows, end cursors
+    ``offsets`` is a list of ints or an int64 ``[B]`` tensor on the rows'
+    device (:func:`unit_draws`' cursors), which the host never reads. One
+    launch per trip covers the whole block (``xn_mask_fold_rows_trip``);
+    after it the host reads the block's acceptance counts once and launches
+    the next trip only if a seed is short. Returns ``(rows, end cursors
     int64[B])``."""
     offs = _check_rows_args(rows, key_words, offsets, count, order)
     if rows.device.type == "cpu":
         return mask_fold_rows_plain(rows, key_words, offs, count, order, chunk_candidates)
-    _require_cuda(rows, key_words)
-    row_bytes = rows.stride(0) * rows.element_size()
-    ends = _k2_trips(rows.device, lambda b: rows.data_ptr() + b * row_bytes, key_words, offs,
-                     count, order, chunk_candidates, "mask_fold_rows")  # fmt: skip
+    _require_cuda(key_words)
+    if rows.device.type != "cuda" or (count > 1 and rows.stride(2) != 1):
+        raise ValueError("rows must be a CUDA tensor whose limbs hold contiguous elements")
+    dev, b = rows.device, rows.shape[0]
+    starts = offs.contiguous() if torch.is_tensor(offs) else torch.tensor(offs).to(dev)
+    if count == 0 or b == 0:
+        return rows, starts.clone()
+    n_limb = host_limbs.n_limbs_for_order(order)
+    plan = _plan_k2(count, order, chunk_candidates)
+    lib = load("mask_fold")
+    scratch = torch.empty(1 + b * (1 + plan.n_tiles), dtype=torch.int64, device=dev)
+    done = torch.zeros(b, dtype=torch.int64, device=dev)
+    base = torch.zeros(b, dtype=torch.int64, device=dev)
+    ends = torch.empty(b, dtype=torch.int64, device=dev)
+    _, order_bytes, order_limbs = _order_buffers(order, n_limb, dev)
+    pow2 = int(order == 1 << (32 * n_limb))
+    limb_stride = rows.stride(1) if n_limb > 1 else count
+    stream = _stream(dev)
+    with torch.cuda.device(dev):
+        for t in itertools.count():
+            rc = lib.xn_mask_fold_rows_trip(
+                key_words.data_ptr(), starts.data_ptr(), t, plan.trip, plan.bpn, plan.tile,
+                n_limb, pow2, order_bytes.data_ptr(), order_limbs.data_ptr(), rows.data_ptr(),
+                rows.stride(0), limb_stride, b, count, done.data_ptr(), base.data_ptr(),
+                ends.data_ptr(), scratch.data_ptr(), stream,
+            )  # fmt: skip
+            _check(rc, "K2 mask fold (rows)", lib)
+            _launched("mask_fold_rows")
+            if int(base.min()) >= count:  # the one sync of a trip
+                break
+            done.copy_(base)
     return rows, ends
 
 
-def _k2_trips(dev, acc_ptr, key_words, offs, count, order, chunk_candidates, counter):
-    """Launch K2 trip by trip on ``dev`` until every seed has ``count``
-    acceptances; seed ``b`` folds into the accumulator at ``acc_ptr(b)`` and
-    each launch counts under ``counter``. Returns the end cursors (int64[B]
-    on the device)."""
-    ends = torch.tensor(offs, dtype=torch.int64).to(dev)
-    if count == 0 or not offs:
-        return ends
-    n_limb = host_limbs.n_limbs_for_order(order)
-    plan = plan_trips(count, order, chunk_candidates)
-    if plan.bpn > K2_MAX_DRAW:
-        raise ValueError(f"draw width {plan.bpn} is out of the kernel's range")
+# --- K5: the unit draws ------------------------------------------------------
+
+# candidate bytes the plain version draws for all seeds at once before it
+# continues seed by seed (bounds its int64 temporaries to tens of MB)
+_UNIT_WINDOW_BYTES = 1 << 22
+
+
+def _check_unit_args(key_words: torch.Tensor, order: int) -> tuple[int, int]:
+    if key_words.dtype != torch.uint32 or key_words.ndim != 2 or key_words.shape[1] != 8:
+        raise ValueError("key_words must be uint32[B, 8]")
+    bpn = host_limbs.draw_width_for(order)
+    if bpn > K2_MAX_DRAW:
+        raise ValueError(f"draw width {bpn} is out of the kernel's range")
+    return bpn, host_limbs.n_limbs_for_order(order)
+
+
+def unit_draws_plain(key_words: torch.Tensor, order: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch :func:`unit_draws`, any device: the keystream of every
+    seed at once (enough candidates for about 16 acceptances, within
+    ``_UNIT_WINDOW_BYTES``), chopped, the first accepted index per seed;
+    a seed with none there continues alone from the window's end."""
+    bpn, n_limb = _check_unit_args(key_words, order)
+    b, dev = key_words.shape[0], key_words.device
+    if b == 0:
+        return key_words.new_empty((0, n_limb)), torch.zeros(0, dtype=torch.int64, device=dev)
+    cand_limbs = host_limbs.n_limbs_for_bytes(bpn)
+    order_cl = tuple(int(x) for x in host_limbs.int_to_limbs(order, cand_limbs))
+    accept = order / (1 << (8 * bpn))
+    n_cand = max(1, min(math.ceil(16 / accept), _UNIT_WINDOW_BYTES // (b * bpn)))
+    kw = widen(key_words)
+    words = chacha.keystream_words_batch(kw, 0, -(-n_cand * bpn // 64))
+    shifts = torch.tensor([0, 8, 16, 24], dtype=torch.int64, device=dev)
+    stream = ((words[..., None] >> shifts) & 0xFF).to(torch.uint8).reshape(b, -1)
+    cand = chacha.chop_candidates(stream[:, : n_cand * bpn].reshape(-1), b * n_cand, bpn)
+    ok = chacha.accept_mask(cand, order_cl).view(b, n_cand)
+    first = ok.to(torch.int32).argmax(dim=1)  # the first accepted index (0 where none)
+    units = cand.view(b, n_cand, cand_limbs)[torch.arange(b, device=dev), first, :n_limb]
+    cursors = (first.to(torch.int64) + 1) * bpn
+    for i in torch.nonzero(~ok.any(dim=1)).flatten().tolist():
+        limbs, end = chacha.derive_uniform_limbs(kw[i], 1, order, n_cand * bpn, device=dev)
+        units[i] = limbs[:, 0]
+        cursors[i] = end
+    return narrow(units), cursors
+
+
+def unit_draws(key_words: torch.Tensor, order: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K5: each seed's unit draw, what ``MaskSeed.derive_mask`` draws first:
+    the first candidate below ``order`` from keystream byte 0, at ``order``'s
+    draw width. ``key_words`` is ``uint32[B, 8]``; returns ``(units
+    uint32[B, L], cursors int64[B])`` on its device, the cursor being the
+    byte each seed's vector draw starts at (:func:`mask_fold`,
+    :func:`mask_fold_rows`). One launch for the whole batch; the JAX
+    function returns int32 cursors of the same values."""
+    bpn, n_limb = _check_unit_args(key_words, order)
+    if key_words.device.type == "cpu":
+        return unit_draws_plain(key_words, order)
+    _require_cuda(key_words)
+    dev, b = key_words.device, key_words.shape[0]
+    units = torch.empty((b, n_limb), dtype=torch.int32, device=dev).view(torch.uint32)
+    cursors = torch.empty(b, dtype=torch.int64, device=dev)
+    if b == 0:
+        return units, cursors
+    _, order_bytes, _ = _order_buffers(order, n_limb, dev)
     lib = load("mask_fold")
-    scratch = torch.empty(plan.scratch_words, dtype=torch.int64, device=dev)
-    base = torch.zeros(len(offs), dtype=torch.int64, device=dev)
-    _, order_bytes, order_limbs = _order_buffers(order, n_limb, dev)
-    pow2 = int(order == 1 << (32 * n_limb))
-    stream = _stream(dev)
-    pending, done, t = list(range(len(offs))), [0] * len(offs), 0
     with torch.cuda.device(dev):
-        while pending:
-            for b in pending:
-                rc = lib.xn_mask_fold_trip(
-                    key_words.data_ptr() + 32 * b, plan.offset(offs[b], t), plan.trip,
-                    plan.bpn, plan.tile, n_limb, pow2, order_bytes.data_ptr(),
-                    order_limbs.data_ptr(), acc_ptr(b), count, done[b],
-                    base.data_ptr() + 8 * b, ends.data_ptr() + 8 * b, scratch.data_ptr(), stream,
-                )  # fmt: skip
-                _check(rc, "K2 mask fold", lib)
-                _launched(counter)
-            done = base.cpu().tolist()  # the one sync of a trip
-            pending = [b for b in pending if done[b] < count]
-            t += 1
-    return ends
+        rc = lib.xn_unit_draws(
+            key_words.data_ptr(), b, bpn, n_limb, order_bytes.data_ptr(), units.data_ptr(),
+            cursors.data_ptr(), _stream(dev),
+        )  # fmt: skip
+    _check(rc, "K5 unit draws", lib)
+    _launched("unit_draws")
+    return units, cursors
 
 
 # --- K3 and K4: device wire ingest -----------------------------------------

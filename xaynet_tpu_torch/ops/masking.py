@@ -6,18 +6,19 @@ rust/xaynet-sdk/src/state_machine/phases/sum2.rs:170-193 mask aggregation,
 rust/xaynet-server/src/state_machine/phases/unmask.rs unmask subtract):
 
 - ``derive_mask_limbs``: seed -> (unit element, planar vector limbs on the
-  device): the unit draw on the host ``StreamSampler``, the vector draws by
-  kernel K2 into a zero accumulator from the handed-off byte cursor;
+  device): the unit draw by kernel K5 (``kernels.unit_draws``), the vector
+  draws by kernel K2 into a zero accumulator from the handed-off byte
+  cursor;
 - ``mask_update``: a participant's masked model (encoded weights plus the
   seed's mask), with the mask derived by K2 and the add done by K1;
 - ``sum_masks``: aggregate many seed-derived masks (the Sum2 hot loop) on
-  the fused route only: host unit draws plus one K2 launch sequence per
-  seed group, so no mask is ever materialized;
+  the fused route only: one K5 launch for every seed's unit draw, then one
+  K2 launch sequence per seed group, so no mask is ever materialized;
 - ``unmask_vect_limbs``: the Unmask subtract ``(masked - mask) mod order``;
 - ``derive_mask_limbs_batch``: many seeds' masks, each in its own row of a
-  planar block on the device (host unit draws, then K2 per row through
-  ``kernels.mask_fold_rows``): the whole-round simulation's and the load
-  generator's derivation;
+  planar block on the device (K5's unit draws, then K2 per row through
+  ``kernels.mask_fold_rows`` from K5's cursors, which stay on the device):
+  the whole-round simulation's and the load generator's derivation;
 - ``encode_models_batch``: the fixed-point encode of a population of models
   sharing one scalar, on the host.
 
@@ -33,7 +34,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.crypto.prng import StreamSampler
 from ..core.mask.config import MaskConfigPair
 from ..core.mask.encode import clamp_scalar, encode_unit, encode_vect_limbs
 from ..core.mask.model import Scalar
@@ -59,12 +59,11 @@ def seed_words(seeds: list[bytes]) -> np.ndarray:
     return np.stack([np.frombuffer(s, dtype="<u4") for s in seeds])
 
 
-def unit_draw(seed: bytes, config: MaskConfigPair) -> tuple[np.ndarray, int]:
-    """The seed's unit element and the byte cursor its vector draw starts at
-    (``MaskSeed.derive_mask`` draws the unit first, from the same stream)."""
-    sampler = StreamSampler(seed)
-    unit = sampler.draw_limbs(1, config.unit.order)[0]
-    return unit, sampler.consumed_bytes
+def _download_draws(units: torch.Tensor, cursors: torch.Tensor) -> tuple[np.ndarray, list[int]]:
+    """K5's outputs on the host in one copy: (units ``uint32[B, L1]``,
+    cursors as ints)."""
+    both = torch.cat([units.view(torch.int32).to(torch.int64), cursors[:, None]], dim=1).cpu()
+    return both[:, :-1].to(torch.int32).numpy().view(np.uint32), both[:, -1].tolist()
 
 
 def derive_mask_limbs(
@@ -74,12 +73,12 @@ def derive_mask_limbs(
     planar ``uint32[L, length]`` tensor on the device). The JAX function
     returns the vector in wire layout ``[length, L]``."""
     dev = resolve_device(device)
-    unit, offset = unit_draw(seed, config)
+    kw = to_device_u32(seed_words([seed]), dev)
+    units, offsets = _download_draws(*kernels.unit_draws(kw, config.unit.order))
     n_limb = host_limbs.n_limbs_for_order(config.vect.order)
     acc = zeros_u32((n_limb, length), dev)
-    kw = to_device_u32(seed_words([seed]), dev)
-    kernels.mask_fold(acc, kw, [offset], length, config.vect.order)
-    return unit, acc
+    kernels.mask_fold(acc, kw, offsets, length, config.vect.order)
+    return units[0], acc
 
 
 def derive_mask_limbs_batch(
@@ -88,19 +87,20 @@ def derive_mask_limbs_batch(
     """``derive_mask_limbs`` for many seeds: (units ``uint32[B, L1]`` on the
     host, vector limbs as a planar ``uint32[B, L, length]`` tensor on the
     device). Row ``b`` is bit-identical to ``MaskSeed.derive_mask`` with
-    seed ``b``. The unit draws and their cursor handoffs run on the host;
-    the vector draws are K2 into zero rows (``kernels.mask_fold_rows``), one
-    host sync per trip for the whole batch. The JAX function returns the
-    vectors in wire layout ``[B, length, L]``."""
+    seed ``b``. The unit draws and their cursor handoffs are K5
+    (``kernels.unit_draws``), the vector draws K2 into zero rows from K5's
+    cursors on the device (``kernels.mask_fold_rows``): one launch and one
+    host sync per trip for the whole batch, then the units' download. The
+    JAX function returns the vectors in wire layout ``[B, length, L]``."""
     if not seeds:
         raise ValueError("no seeds")
     dev = resolve_device(device)
-    draws = [unit_draw(s, config) for s in seeds]
+    kw = to_device_u32(seed_words(seeds), dev)
+    units, starts = kernels.unit_draws(kw, config.unit.order)
     n_limb = host_limbs.n_limbs_for_order(config.vect.order)
     rows = zeros_u32((len(seeds), n_limb, length), dev)
-    kw = to_device_u32(seed_words(seeds), dev)
-    kernels.mask_fold_rows(rows, kw, [off for _, off in draws], length, config.vect.order)
-    return np.stack([unit for unit, _ in draws]), rows
+    kernels.mask_fold_rows(rows, kw, starts, length, config.vect.order)
+    return to_numpy_u32(units), rows
 
 
 def encode_models_batch(
@@ -160,30 +160,22 @@ def sum_masks_planar(
     device=None,
 ) -> tuple[np.ndarray, torch.Tensor]:
     """The fused Sum2 route, keeping the mask sum on the device: returns
-    (unit limbs, planar ``uint32[L, length]`` tensor). Per group of
-    ``seed_batch`` seeds: host unit draws and cursor handoffs, then one K2
-    call that derives and folds every seed's mask into the accumulator."""
+    (unit limbs, planar ``uint32[L, length]`` tensor). Every seed's unit
+    draw and cursor handoff is one K5 launch and one download; the units
+    are summed on the host; then, per group of ``seed_batch`` seeds, one K2
+    call derives and folds every seed's mask into the accumulator."""
     if not seeds:
         raise ValueError("no seeds to aggregate")
     dev = resolve_device(device)
     n_limb = host_limbs.n_limbs_for_order(config.vect.order)
-    ol_u = host_limbs.order_limbs_for(config.unit.order)
+    kw = to_device_u32(seed_words(seeds), dev)
+    units, offsets = _download_draws(*kernels.unit_draws(kw, config.unit.order))
+    unit_acc = host_limbs.batch_mod_sum(units, host_limbs.order_limbs_for(config.unit.order))
     acc = zeros_u32((n_limb, length), dev)
-    unit_acc: np.ndarray | None = None
     step = max(1, seed_batch)
     for g0 in range(0, len(seeds), step):
-        group = seeds[g0 : g0 + step]
-        draws = [unit_draw(s, config) for s in group]
-        kw = to_device_u32(seed_words(group), dev)
-        kernels.mask_fold(
-            acc, kw, [off for _, off in draws], length, config.vect.order, chunk_candidates
-        )
-        for unit, _ in draws:
-            unit_acc = (
-                unit
-                if unit_acc is None
-                else host_limbs.mod_add(unit_acc[None, :], unit[None, :], ol_u)[0]
-            )
+        kernels.mask_fold(acc, kw[g0 : g0 + step], offsets[g0 : g0 + step], length,
+                          config.vect.order, chunk_candidates)  # fmt: skip
     return unit_acc, acc
 
 

@@ -4,8 +4,10 @@ Port of ``xaynet_tpu/sim/round.py``. A round is a pure function of (mask
 config, participant seeds, local models, scalar), so ``SimRound`` computes
 it without a server, sockets or phases in between:
 
-    update:  per block of ``block_size`` participants, each seed's mask
-             derived into its own row by K2 (``kernels.mask_fold_rows``)
+    update:  per block of ``block_size`` participants, the seeds' unit
+             draws by K5 (``kernels.unit_draws``), then each seed's mask
+             derived into its own row by K2 (``kernels.mask_fold_rows``),
+             one launch for the block
     fold:    the block's masked models folded into the masked-sum
              accumulator by K1 (``kernels.fold_planar``)
     sum2:    the sum mask, the modular sum of every participant's mask:
@@ -59,7 +61,7 @@ from ..ops.fold import (
     to_numpy_u32,
     zeros_u32,
 )
-from ..ops.masking import unit_draw, seed_words, sum_masks_planar
+from ..ops.masking import seed_words, sum_masks_planar
 from ..telemetry import profiling
 
 # elements encoded per host call: a 25M-parameter model is one row per call
@@ -119,16 +121,18 @@ def encode_block(weights: np.ndarray, s_clamped: Fraction, config) -> np.ndarray
 
 def mask_rows(rows, kw: np.ndarray, s_clamped: Fraction, config) -> tuple[np.ndarray, np.ndarray]:
     """Mask a block of participants in place, each as ``Masker.mask`` would:
-    seed ``b``'s vect mask is derived by K2 into ``rows[b]``
-    (``kernels.mask_fold_rows``), its unit mask is drawn on the host and
-    added to the encoded scalar. ``rows`` are the block's encoded models
-    ``uint32[B, L, n]`` on the device (or zeros: the masks alone), ``kw``
-    the block's seed words ``uint32[B, 8]`` on the host. Returns (unit
-    masks, masked units), ``uint32[B, L1]`` each."""
-    draws = [unit_draw(row.astype("<u4").tobytes(), config) for row in kw]
-    kernels.mask_fold_rows(rows, to_device_u32(kw, rows.device), [off for _, off in draws],
-                           rows.shape[-1], config.vect.order)  # fmt: skip
-    units = np.stack([unit for unit, _ in draws])
+    the seeds' unit masks and cursors are drawn by K5
+    (``kernels.unit_draws``), seed ``b``'s vect mask is derived by K2 into
+    ``rows[b]`` from its cursor on the device (``kernels.mask_fold_rows``),
+    and the unit masks are downloaded and added to the encoded scalar.
+    ``rows`` are the block's encoded models ``uint32[B, L, n]`` on the
+    device (or zeros: the masks alone), ``kw`` the block's seed words
+    ``uint32[B, 8]`` on the host. Returns (unit masks, masked units),
+    ``uint32[B, L1]`` each."""
+    kw_dev = to_device_u32(kw, rows.device)
+    units, starts = kernels.unit_draws(kw_dev, config.unit.order)
+    kernels.mask_fold_rows(rows, kw_dev, starts, rows.shape[-1], config.vect.order)
+    units = to_numpy_u32(units)
     unit_enc = host_limbs.int_to_limbs(
         encode_unit(s_clamped, config.unit), host_limbs.n_limbs_for_order(config.unit.order)
     )

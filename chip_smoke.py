@@ -25,8 +25,9 @@ Builds the hand-written CUDA kernels from ``xaynet_tpu_torch/csrc`` with
   a 2^128 order, also against the host ``StreamSampler``. Each kernel is
   then timed at the shapes the main path gives it, beside its plain
   version, and checked there too (``mask_fold_rows`` at Phase S's two
-  shapes, from K5's cursors on the card; K5 at B's Sum2 and over s2's
-  2,048 seeds). K2's and K5's bounds count the xors and rotates their
+  shapes, from K5's cursors on the card, the plain version over the first
+  of s1's 8 rows and all of s2's 256; K5 at B's Sum2 and over s2's 2,048
+  seeds). K2's and K5's bounds count the xors and rotates their
   ChaCha20 blocks need, on the ALU pipe; the built keystream loop's
   instructions per pipe (from its SASS) are recorded beside it. K3 (the v1 wire unpack + validity
   check) and K4 (the v2 byte-planar validity check) are held byte-exact,
@@ -163,6 +164,26 @@ Builds the hand-written CUDA kernels from ``xaynet_tpu_torch/csrc`` with
   The four training examples at their defaults, ``python -m
   xaynet_tpu_torch.examples.<name> --check-loss``, started together: each
   exits 0 and prints its eval loss.
+- **Phase M** is the multi-tenant coordinator: one ``serve()`` (in a
+  thread, no device: CUDA) with ``[tenancy] enabled``, tenants ``resnet``
+  (Phase T's 25,557,032 parameters, the shipped prime/f32/b0/m3, batch 64,
+  packed staging, 1 sum, 3 updates, 1 sum2) and ``lenet``
+  (``cifar_lenet``'s 136,886, integer/f32/b0/m3, wire ingest with v2
+  uploads, the ``file`` store, 1 sum, 8 updates, 1 sum2), each from its own
+  file in the ``config_dir``, and an admin token. The port's SDK drives
+  both rounds at once over the socket at ``/t/resnet`` and ``/t/lenet``
+  inside one profiler window; then ``mlp`` (``house_prices``' 3,009) is
+  onboarded through ``POST /admin/tenants``, runs one round and is drained
+  through ``DELETE`` at its next round boundary. It checks each model
+  byte-identical to the plain CPU fold and unmask of what the participants
+  sent and within ``n / exp_shift + 1e-6`` of the mean, the bare
+  ``/params`` (resnet's) and ``/t/nope/params`` (404), every fold on CUDA
+  and each path's launches, the scheduler's split over both round tenants,
+  the pool balanced for all three tenants in both arenas, and mlp's routes
+  404 after the drain; it prints each tenant's walls from its first update
+  POST, the pool's page-locked bytes and each flush's pin seconds, the
+  device ledger's pages per tenant, the peak host RSS and the window's idle
+  share.
 
 Prints what it found on earlier lines; on its last lines the card's name
 and power limit, the kernel table as one JSON object, and
@@ -351,14 +372,17 @@ def write_coordinator_config(path: Path, port: int, length: int, model_dir: Path
 
 
 def http_call(base: str, method: str, path: str, body: bytes = b"",
-              timeout: float = 900.0) -> tuple[int, bytes]:
+              timeout: float = 900.0, headers: dict | None = None) -> tuple[int, bytes]:
+    """One request to ``base`` + ``path`` (a tenant route's base,
+    ``.../t/<id>``, prefixes its path)."""
     import http.client
     from urllib.parse import urlparse
 
     url = urlparse(base)
     conn = http.client.HTTPConnection(url.hostname, url.port, timeout=timeout)
     try:
-        conn.request(method, path, body=body or None, headers={"Connection": "close"})
+        conn.request(method, url.path.rstrip("/") + path, body=body or None,
+                     headers={"Connection": "close", **(headers or {})})  # fmt: skip
         resp = conn.getresponse()
         return resp.status, resp.read()
     finally:
@@ -1039,7 +1063,9 @@ class Smoke:
     def phase_a_rows_main(self) -> dict:
         """``mask_fold_rows`` at Phase S's two shapes, checked against its
         plain version there and timed: (s1) 8 seeds into 8 rows of the main
-        length, shipped order; (s2) 256 seeds into 256 rows of 1,000
+        length, shipped order, the plain version on the first of them only
+        (seed b goes into row b alone, and Phase S holds all 8 rows against
+        the round's own path); (s2) 256 seeds into 256 rows of 1,000
         elements, integer/f32/b0/m6. The cursors are K5's, on the card. The
         kernel line's entry is s1's; s2's goes beside it, with the time of K5
         and K2 per row together (a block of the sim). The bound counts the
@@ -1053,14 +1079,14 @@ class Smoke:
         from xaynet_tpu_torch.ops.masking import seed_words
 
         torch = self.torch
-        shapes = [
+        shapes = [  # tag, config, seeds, count, timing reps, rows held against plain
             ("s1", MaskConfig(GroupType.PRIME, DataType.F32, BoundType.B0, ModelType.M3), 8,
-             self.args.length, 3),
+             self.args.length, 3, 1),
             ("s2", MaskConfig(GroupType.INTEGER, DataType.F32, BoundType.B0, ModelType.M6), 256,
-             1000, 10),
+             1000, 10, 256),
         ]  # fmt: skip
         out = {}
-        for tag, cfg, b, n, reps in shapes:
+        for tag, cfg, b, n, reps, plain_rows in shapes:
             order, n_limb = cfg.order, limbs.n_limbs_for_order(cfg.order)
             seeds = [self.rng.bytes(32) for _ in range(b)]
             kws = to_device_u32(seed_words(seeds), self.dev)
@@ -1069,12 +1095,14 @@ class Smoke:
             got, ends = kernels.mask_fold_rows(rows.clone(), kws, offs, n, order)
             self.sync()
             t = time.perf_counter()
-            want, want_ends = kernels.mask_fold_rows_plain(rows.clone(), kws, offs, n, order)
+            p = plain_rows
+            want, want_ends = kernels.mask_fold_rows_plain(rows[:p].clone(), kws[:p], offs[:p],
+                                                           n, order)  # fmt: skip
             self.sync()
             plain_ms = (time.perf_counter() - t) * 1e3
-            what = f"{tag} shape B={b} count={n}"
-            self.compare("mask_fold_rows", got, want, what + " rows")
-            self.compare("mask_fold_rows", ends, want_ends, what + " end cursors")
+            what = f"{tag} shape B={b} count={n}" + (f", rows 0-{p - 1}" if p < b else "")
+            self.compare("mask_fold_rows", got[:p], want, what + " rows")
+            self.compare("mask_fold_rows", ends[:p], want_ends, what + " end cursors")
             del got, want
             work = rows.clone()
             ms = self.time_ms(lambda: kernels.mask_fold_rows(work, kws, offs, n, order), reps)
@@ -1089,6 +1117,7 @@ class Smoke:
                 "ms": ms,
                 "ms_with_unit_draws": with_k5,
                 "plain_ms": plain_ms,
+                "plain_rows": plain_rows,
                 "blocks": blocks,
                 "ops": blocks * CHACHA_ALU_OPS_PER_BLOCK,
                 "bytes": 2 * rows.numel() * 4,
@@ -1098,7 +1127,8 @@ class Smoke:
             if self.cuda:
                 torch.cuda.empty_cache()
             log(f"[phase A] mask_fold_rows at {tag}'s shape {out[tag]['shape']}: {ms:.3f} ms "
-                f"(with K5's unit draws before it {with_k5:.3f} ms; plain {plain_ms:.1f} ms)")
+                f"(with K5's unit draws before it {with_k5:.3f} ms; plain {plain_ms:.1f} ms "
+                f"over {plain_rows} of its {b} rows)")
         return {**out["s1"], "s2": out["s2"]}
 
     def phase_a_main_shapes(self) -> dict:
@@ -1877,8 +1907,9 @@ class Smoke:
         the fold leg (the worker: upload out of the pinned ring and K1's
         launch, until the copy completed), how long after ``flush``
         returned the fold leg ended, K1 packed's device time (CUDA events),
-        the overlap ratio, and the staging ring's buffers, how many came
-        from the process's pinned pool and what pinning the others cost."""
+        the overlap ratio, and the staging ring's buffers, how many landed
+        in page-locked slabs of the page pool and what pinning the others'
+        slabs cost."""
         import resource
 
         window = pipeline.last_window or {}
@@ -1913,8 +1944,8 @@ class Smoke:
         ratio = record["overlap_ratio"]
         log(f"[phase B] pipeline overlap ratio {'none' if ratio is None else f'{ratio:.3f}'} "
             f"(window {record['window_wall_s']:.3f} s); staging ring {record['ring_buffers']} "
-            f"buffer(s), {record['ring_bytes']} bytes, {record['ring_reused']} reused from the "
-            f"process's pinned pool, new ones pinned in {record['ring_pin_s']:.3f} s (RLIMIT_MEMLOCK "
+            f"buffer(s), {record['ring_bytes']} bytes, {record['ring_reused']} in pool slabs locked "
+            f"before, the others' slabs pinned in {record['ring_pin_s']:.3f} s (RLIMIT_MEMLOCK "
             f"{record['rlimit_memlock'] or 'unlimited'})")
         return record
 
@@ -2162,7 +2193,7 @@ class Smoke:
         window = (built[0]._stream.last_window or {}) if built else {}
         drain = {
             "ring_bytes": None if ring is None else ring.nbytes,
-            "ring_buffer_rows": None if ring is None else [len(b) for b in ring._bufs],
+            "ring_buffer_rows": None if ring is None else list(ring.buffer_rows),
             "ring_pin_s": None if ring is None else ring.pin_seconds,
             "ring_reused": None if ring is None else ring.reused,
             "stage_s": window.get("stage_seconds"),
@@ -2573,6 +2604,7 @@ class Smoke:
         from xaynet_tpu_torch.sdk.simulation import keys_for_task
         from xaynet_tpu_torch.server import settings as settings_mod
         from xaynet_tpu_torch.server.phases import update as update_phase
+        from xaynet_tpu_torch.tenancy import get_pool
 
         args = self.args
         device = None if self.cuda else self.dev  # no device: CUDA
@@ -2666,11 +2698,25 @@ class Smoke:
                 kernels.reset_launches()
                 t_round = time.perf_counter()
                 in_round = []
+                pool = get_pool()
+                pin0, slabs0 = pool.pin_seconds, pool.stats()["slabs"]
                 model, t_model = self.traced(f"phase T round {r}", one_round)
                 launches = dict(kernels.LAUNCHES)
                 rounds.append(self.phase_t_round_checks(
                     r, model, previous, list(trained), list(mask_s), first_post, marks, in_round,
                     launches, t_round, t_model, settings.mask))  # fmt: skip
+                # what the round's flush paid to page-lock pool slabs (0 when
+                # its staging lease landed in a slab locked before)
+                rounds[-1]["pool_pin_s"] = pool.pin_seconds - pin0
+                rounds[-1]["pool_new_slabs"] = pool.stats()["slabs"] - slabs0
+                rounds[-1]["pool_pinned_bytes"] = pool.pinned_bytes()
+                log(f"[phase T] (t2) round {r}: the flush's staging lease page-locked pool slabs "
+                    f"for {rounds[-1]['pool_pin_s']:.3f} s ({rounds[-1]['pool_new_slabs']} new "
+                    f"slab(s); {rounds[-1]['pool_pinned_bytes']} bytes of the pool locked)")
+                if r == 2 and self.cuda:
+                    self.check(rounds[-1]["pool_pin_s"] == 0.0,
+                               "(t2) round 2's flush pinned no new slab: its staging lease "
+                               "reused the page-locked slab of round 1")
                 rounds[-1]["peak_rss_gib"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
                 log(f"[phase T] (t2) round {r}: peak host RSS of this process so far "
                     f"{rounds[-1]['peak_rss_gib']:.2f} GiB")
@@ -2787,6 +2833,277 @@ class Smoke:
                     proc.wait()
         return results
 
+    # -- phase M: the multi-tenant coordinator --------------------------------
+
+    def phase_m(self, resnet_length: int) -> dict:
+        """Several tenants on one card through one ``serve()`` (in a thread,
+        no device: CUDA), ``[tenancy] enabled``, tenants ``resnet`` and
+        ``lenet``, an admin token and a ``config_dir`` with one file per
+        tenant: ``resnet`` at ``resnet_length`` (Phase T's ResNet-50 count)
+        with the shipped prime/f32/b0/m3, batch 64 and packed staging;
+        ``lenet`` at ``cifar_lenet``'s LeNet length (136,886) with
+        integer/f32/b0/m3, wire ingest with v2 uploads and the ``file``
+        store; each 1 sum, ``n`` updates (3 and 8), 1 sum2. The port's SDK
+        drives both rounds at once over the socket (``sdk_round`` at
+        ``/t/resnet`` and ``/t/lenet``, each in its own thread, inside one
+        profiler window). Then a third tenant, ``mlp`` (``house_prices``'
+        MLP, 3,009 parameters), is onboarded through ``POST
+        /admin/tenants``, runs one round of 1 sum and 3 updates and is
+        drained through ``DELETE /admin/tenants/mlp`` at its next round
+        boundary (its file gives the sum phase a 10 s window, so the round
+        after its first fails soon and closes the drain). Checks: each
+        tenant's model byte-identical to the plain CPU fold and unmask of
+        what its participants sent, and within ``n / exp_shift + 1e-6`` of
+        the mean; the bare ``GET /params`` answers ``resnet``'s parameters
+        and ``/t/nope/params`` 404; every tenant's aggregator folded on
+        CUDA and the launches each path needs; the scheduler granted slots
+        to both round tenants; the pool balanced for all three tenants in
+        both arenas; ``mlp``'s routes 404 after the drain. Prints each
+        tenant's walls from its first update POST, the pool's page-locked
+        bytes and each flush's pin seconds, the ledger's device pages per
+        tenant, the peak host RSS and the window's idle share."""
+        import json as json_mod
+        import os
+        import resource
+        import shutil
+        import tempfile
+        import threading
+
+        import torch
+
+        from xaynet_tpu_torch.examples import house_prices
+        from xaynet_tpu_torch.models import lenet, mlp
+        from xaynet_tpu_torch.models.federated import model_length
+        from xaynet_tpu_torch.ops import kernels
+        from xaynet_tpu_torch.server import settings as settings_mod
+        from xaynet_tpu_torch.server.aggregation import StagedAggregator
+        from xaynet_tpu_torch.server.phases import update as update_phase
+        from xaynet_tpu_torch.tenancy import get_pool, get_scheduler
+
+        gen = torch.Generator().manual_seed(1)
+        lengths = {
+            "resnet": resnet_length,
+            "lenet": model_length(lenet.init_params(gen, image_shape=(32, 32, 3), device="cpu")),
+            "mlp": model_length(mlp.init_params(gen, house_prices.INPUT_DIM, device="cpu")),
+        }
+        n_updates = {"resnet": 3, "lenet": 8, "mlp": 3}
+        groups = {"resnet": "prime", "lenet": "integer", "mlp": "prime"}
+        token = "phase-m-admin-token"
+        work = Path(tempfile.mkdtemp(prefix="xn_phase_m_"))
+        port = free_port()
+        base = f"http://127.0.0.1:{port}"
+        window = 'time = {{ min = 0.0, max = {t} }}\ncount = {{ min = {n}, max = {n} }}'
+        for tenant, length in lengths.items():
+            wire = tenant == "lenet"
+            extra = '[ingest]\nwire_format = "packed"\n' if wire else ""
+            store = 'coordinator = "file"\n' if wire else ""
+            # mlp's sum window is short: the round after its first fails
+            # soon, which is the round boundary its drain waits for
+            sum_t = 10.0 if tenant == "mlp" else 900.0
+            (work / f"{tenant}.toml").write_text(
+                f'[pet.sum]\nprob = 0.01\n{window.format(t=sum_t, n=1)}\n'
+                f'[pet.update]\nprob = 0.1\n{window.format(t=900.0, n=n_updates[tenant])}\n'
+                f'[pet.sum2]\n{window.format(t=900.0, n=1)}\n'
+                f'[mask]\ngroup_type = "{groups[tenant]}"\ndata_type = "f32"\n'
+                'bound_type = "b0"\nmodel_type = "m3"\n'
+                f"[model]\nlength = {length}\n"
+                "[aggregation]\ndevice = true\nbatch_size = 64\npacked_staging = true\n"
+                f"wire_ingest = {str(wire).lower()}\n{extra}"
+                f'[storage]\nbackend = "filesystem"\n{store}model_dir = "{work / "models"}"\n'
+                f'[metrics]\nflight_dir = "{work / "flight"}"\n'
+            )
+        cfg = work / "config.toml"
+        cfg.write_text(
+            f'[api]\nbind_address = "127.0.0.1:{port}"\n'
+            f'[tenancy]\nenabled = true\ntenants = "resnet,lenet"\nconfig_dir = "{work}"\n'
+            f'admin_token = "{token}"\ndrain_timeout_s = 120.0\n'
+            f'[metrics]\nflight_dir = "{work / "flight"}"\n'
+        )
+        settings = settings_mod.Settings.load(str(cfg), env={})
+        self.check(settings.tenancy.enabled and settings.tenancy.tenants == ["resnet", "lenet"],
+                   "(m0) Phase M's config: tenancy on, tenants resnet and lenet")
+        built: dict = {}  # tenant -> (aggregator, its rings, ledger pages at build)
+        real_build = update_phase.build_staged_aggregator
+
+        def spy(shared):
+            agg = real_build(shared)
+            stream, close = agg._stream, agg._stream.close
+            rings: dict = {}
+
+            def keep_rings_then_close():  # close() releases the rings' leases
+                rings.update(stream._rings)
+                close()
+
+            stream.close = keep_rings_then_close
+            ledger = sum(e["pages"] for e in get_pool().page_table(shared.tenant).values()
+                         if e["arena"] == "device")  # fmt: skip
+            built.setdefault(shared.tenant, []).append((agg, rings, ledger))
+            return agg
+
+        def admin(method: str, path: str, body: bytes = b"") -> tuple[int, dict | bytes]:
+            status, payload = http_call(base, method, path, body, timeout=300,
+                                        headers={"x-admin-token": token})  # fmt: skip
+            try:
+                return status, json_mod.loads(payload)
+            except ValueError:
+                return status, payload
+
+        update_phase.build_staged_aggregator = spy
+        device = None if self.cuda else self.dev  # no device: CUDA
+        rng = np.random.default_rng(self.args.seed + 9)
+        weights = {t: [rng.uniform(-0.9, 0.9, lengths[t]).astype(np.float32)
+                       for _ in range(n_updates[t])] for t in lengths}  # fmt: skip
+        outs: dict = {}
+        coordinator = InProcessCoordinator(settings, device)
+        try:
+            t = time.perf_counter()
+            for tenant in ("resnet", "lenet"):
+                wait_for(lambda: coordinator_phase(f"{base}/t/{tenant}") == "sum", 120,
+                         f"tenant {tenant}'s sum phase")  # fmt: skip
+            start_s = time.perf_counter() - t
+            bare = json_mod.loads(http_call(base, "GET", "/params")[1])
+            tenant_params = {t: json_mod.loads(http_call(f"{base}/t/{t}", "GET", "/params")[1])
+                             for t in ("resnet", "lenet")}  # fmt: skip
+            nope = http_call(base, "GET", "/t/nope/params")[0]
+            self.check(bare == tenant_params["resnet"] != tenant_params["lenet"] and nope == 404,
+                       f"(m1) the bare GET /params answers resnet's round parameters "
+                       f"(length {bare['model_length']}), /t/nope/params {nope}")
+            errors: dict = {}
+
+            def drive(tenant: str) -> None:
+                try:
+                    outs[tenant] = sdk_round(f"{base}/t/{tenant}", weights[tenant], device,
+                                             PHASE_R_PART_BYTES, timeout=600)  # fmt: skip
+                except BaseException as exc:  # re-raised on this thread below
+                    errors[tenant] = exc
+
+            def both_rounds() -> None:
+                threads = [threading.Thread(target=drive, args=(t,)) for t in ("resnet", "lenet")]
+                for th in threads:
+                    th.start()
+                for th in threads:
+                    th.join()
+
+            pool = get_pool()
+            pin0 = pool.pin_seconds
+            kernels.reset_launches()
+            self.traced("phase M", both_rounds)
+            launches = dict(kernels.LAUNCHES)
+            for tenant, exc in errors.items():
+                raise Failure(f"tenant {tenant}'s round failed: {exc!r}") from exc
+            split = get_scheduler().split()
+            # the third tenant's lifecycle: onboard, one round, drain
+            status, onboarded = admin("POST", "/admin/tenants",
+                                      json_mod.dumps({"tenant": "mlp"}).encode())  # fmt: skip
+            self.check(status == 200 and onboarded["state"] == "serving",
+                       f"(m2) POST /admin/tenants onboarded mlp ({status}, {onboarded})")
+            kernels.reset_launches()
+            outs["mlp"] = sdk_round(f"{base}/t/mlp", weights["mlp"], device, PHASE_R_PART_BYTES,
+                                    timeout=300)  # fmt: skip
+            launches_mlp = dict(kernels.LAUNCHES)
+            t = time.perf_counter()
+            status, drained = admin("DELETE", "/admin/tenants/mlp")
+            drain_s = time.perf_counter() - t
+            self.check(status == 200 and drained == {"tenant": "mlp", "state": "drained",
+                                                     "outcome": "graceful"},
+                       f"(m3) DELETE /admin/tenants/mlp drained it at its round boundary "
+                       f"({status}, {drained}, {drain_s:.2f} s)")  # fmt: skip
+            after = {path: http_call(base, "GET", path)[0]
+                     for path in ("/t/mlp/params", "/t/mlp/healthz")}  # fmt: skip
+            self.check(set(after.values()) == {404}, f"(m4) mlp's routes after the drain: {after}")
+            states = admin("GET", "/admin/tenants")[1]
+            health = json_mod.loads(http_call(base, "GET", "/healthz")[1])
+            pool_end = {t: (pool.balanced(t), pool.page_table(t)) for t in lengths}
+            stats_end = pool.stats()
+            pinned_bytes = pool.pinned_bytes()
+            pin_s = pool.pin_seconds - pin0
+        finally:
+            update_phase.build_staged_aggregator = real_build
+            coordinator.stop()
+            shutil.rmtree(work, ignore_errors=True)
+        peak_rss_gib = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+        self.check(states == {"tenants": {"resnet": "serving", "lenet": "serving",
+                                          "mlp": "drained"}},
+                   f"(m5) the lifecycle's states: {states}")  # fmt: skip
+        self.check(set(health["tenancy"]["tenants"]) == {"resnet", "lenet"},
+                   "(m6) /healthz lists the two serving tenants and the pool")
+        checks = {}
+        for c, tenant in enumerate(lengths):
+            out, n_up, length = outs[tenant], n_updates[tenant], lengths[tenant]
+            model = out["model"]
+            t = time.perf_counter()
+            ref = StagedAggregator(out["mask"].config, length, batch_size=n_up, device="cpu")
+            for obj in out["updates"]:
+                ref.validate_aggregation(obj)
+                ref.aggregate(obj)
+            ref_model = ref.finalize_inplace().unmask_array(out["mask"])
+            plain_s = time.perf_counter() - t
+            mean = np.sum([w.astype(np.float64) for w in weights[tenant]], axis=0) / n_up
+            tol = n_up / out["mask"].config.vect.exp_shift + 1e-6
+            err = float(np.max(np.abs(model - mean)))
+            used = [a.kernel_used for a, _, _ in built.get(tenant, [])]
+            self.check(model.shape == (length,) and model.tobytes() == ref_model.tobytes()
+                       and err <= tol,
+                       f"(m7.{c}) tenant {tenant}: model byte-identical to the plain CPU fold + "
+                       f"unmask of what its {n_up} participants sent; |model - mean| = {err:.3e} "
+                       f"<= {tol:.3e}")  # fmt: skip
+            self.check(used == ["cuda" if self.cuda else "plain"],
+                       f"(m8.{c}) tenant {tenant}'s update phase folded on {self.dev.type} "
+                       f"(kernel_used {used})")  # fmt: skip
+            self.check(out["wire_planar"] == [tenant == "lenet"] * n_up,
+                       f"(m9.{c}) tenant {tenant}'s SDK sent wire v{2 if tenant == 'lenet' else 1} "
+                       f"updates")  # fmt: skip
+            _, rings, ledger = built[tenant][0]
+            ring = rings.get("packed")
+            checks[tenant] = {
+                "walls": out["walls"], "decode_max_err": err, "plain_reference_s": plain_s,
+                "parts_per_update": out["parts_per_update"],
+                "ledger_device_pages": ledger,
+                "ring_buffer_rows": None if ring is None else list(ring.buffer_rows),
+                "ring_bytes": None if ring is None else ring.nbytes,
+                "ring_pin_s": None if ring is None else ring.pin_seconds,
+                "ring_reused": None if ring is None else ring.reused,
+                "balanced_at_end": pool_end[tenant][0],
+            }  # fmt: skip
+        self.check(all(balanced for balanced, _ in pool_end.values())
+                   and stats_end["host_pages_in_use"] == stats_end["device_pages_in_use"] == 0,
+                   f"(m10) the pool balanced for all three tenants, host and device arenas "
+                   f"({stats_end})")  # fmt: skip
+        self.check({"resnet", "lenet"} <= set(split) and split["resnet"] >= 1
+                   and split["lenet"] >= 1,
+                   f"(m11) the scheduler granted fold-batch slots to both round tenants "
+                   f"({split})")  # fmt: skip
+        if self.cuda:
+            # the two rounds: K1 packed for resnet's flush and lenet's device
+            # rows (one chunk of 8), K4 for each lenet upload, and each
+            # participant's masking (K5 + K2 + K1 planar) and Sum2 (K5 + K2 a seed)
+            want = {"fold_packed": 2, "fold_planar": 11, "mask_fold": 22, "unit_draws": 13,
+                    "packed_check": 8, "wire_unpack": 0}
+            got = {k: launches[k] for k in want}
+            self.check(got == want, f"(m12) the two rounds' launches {got} == {want}")
+            want_mlp = {"fold_packed": 1, "fold_planar": 3, "mask_fold": 6, "unit_draws": 4,
+                        "packed_check": 0, "wire_unpack": 0}
+            got = {k: launches_mlp[k] for k in want_mlp}
+            self.check(got == want_mlp, f"(m13) mlp's round launches {got} == {want_mlp}")
+        for tenant, rec in checks.items():
+            w = rec["walls"]
+            log(f"[phase M] tenant {tenant} ({lengths[tenant]} params, {n_updates[tenant]} "
+                f"updates): from its first update POST, update POSTs {w['update_posts']:.3f} s, "
+                f"model available {w['model_available']:.3f} s; participants mask "
+                f"{w['participants_mask']:.3f} s; the flush's ring {rec['ring_buffer_rows']} rows, "
+                f"{rec['ring_bytes']} bytes, pinned in {rec['ring_pin_s']} s (reused "
+                f"{rec['ring_reused']}); ledger {rec['ledger_device_pages']} device pages; plain "
+                f"CPU reference {rec['plain_reference_s']:.3f} s")
+        log(f"[phase M] pool: {pinned_bytes} bytes page-locked, {pin_s:.3f} s of pinning in the "
+            f"phase; split {split}; coordinator up in {start_s:.3f} s; mlp onboarded in "
+            f"{onboarded.get('onboard_s')} s, drained in {drain_s:.3f} s; peak host RSS of this "
+            f"process so far {peak_rss_gib:.2f} GiB")
+        log(f"[phase M] launches {launches}; mlp's round {launches_mlp}")
+        return {"tenants": checks, "launches": launches, "launches_mlp": launches_mlp,
+                "split": split, "pool_pinned_bytes": pinned_bytes, "pool_pin_s": pin_s,
+                "pool_stats_end": stats_end, "onboard": onboarded, "drain": drained,
+                "drain_s": drain_s, "peak_rss_gib": peak_rss_gib, "coordinator_start_s": start_s}
+
     def phase_r_cli(self) -> dict:
         """``python -m xaynet_tpu_torch.server.runner -c <cfg>`` at a small
         length: ``GET /params`` answers, SIGTERM stops it with exit code 0
@@ -2887,6 +3204,8 @@ class Smoke:
                 "max_abs_err": self.max_err[name],
                 "ms": t["ms"],
                 "plain_ms": t["plain_ms"],
+                # mask_fold_rows: the plain version ran over the first of s1's rows
+                **({"plain_rows": t["plain_rows"]} if "plain_rows" in t else {}),
                 "bound_ms": max(bytes_ms, ops_ms),
                 "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
                 "library_ms": None,
@@ -3043,6 +3362,7 @@ def main() -> int:
         coordinator_wire = smoke.phase_r(wire=True)
         loadgen = smoke.phase_l()
         training = smoke.phase_t()
+        multi = smoke.phase_m(training["rounds"]["length"])
         if smoke.cuda:  # the runner CLI resolves CUDA; without a card it exits
             coordinator["runner_cli"] = smoke.phase_r_cli()
     except Exception as exc:  # every phase failure ends the run without a result
@@ -3059,7 +3379,8 @@ def main() -> int:
     smoke.records.update(timings=timings, pipeline=pipeline, round=result, wire_round=wire,
                          sim=sim, coordinator_round=coordinator,
                          coordinator_round_wire=coordinator_wire, loadgen_round=loadgen,
-                         training=training, seconds=time.perf_counter() - t0)
+                         training=training, multi_tenant=multi,
+                         seconds=time.perf_counter() - t0)
     if not smoke.cuda:
         _write_records(smoke.records)
         log(f"chip_smoke: rehearsal on {args.device} passed in {time.perf_counter() - t0:.1f} s")
@@ -3077,11 +3398,14 @@ def main() -> int:
         "launches_sim": sim["launches"],
         "launches_loadgen": loadgen_launches,
         "launches_training_rounds": training["rounds"]["launches"],
+        "launches_multi_tenant": {k: v + multi["launches_mlp"].get(k, 0)
+                                  for k, v in multi["launches"].items()},
     })  # fmt: skip
     smoke.records["kernels"] = table
     smoke.idle_shares(timings, {"phase R": coordinator["launches"],
                                 "phase R-wire": coordinator_wire["launches"],
                                 "phase L": loadgen["launches"],
+                                "phase M": multi["launches"],
                                 **{f"phase T round {i}": r["launches"] for i, r in
                                    enumerate(training["rounds"]["rounds"], start=1)}})  # fmt: skip
     _write_records(smoke.records)

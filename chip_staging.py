@@ -13,8 +13,9 @@ and reused by every round) each validated and aggregated, then
 Unmask handoff) and a device synchronize. It prints one JSON line per
 round: the ``update_aggregate`` and ``finalize`` walls, and where the
 checkout stages through a pinned ring, the ring's bytes, the seconds its
-new buffers took to pin and how many it reused from the process's pool,
-and the process's peak host RSS so far.
+new buffers took to pin and how many it reused pinned (a checkout with
+the page pool: how many leases landed in a slab the pool had locked
+before), and the process's peak host RSS so far.
 Each round's aggregate is checked against python big-int sums at 2,048
 positions; a mismatch exits non-zero.
 
@@ -117,6 +118,7 @@ def main() -> int:
         if not ok:
             print("chip_staging: aggregate or count wrong", file=sys.stderr)
             return 1
+        getattr(view, "release_pool", lambda: None)()  # the Unmask tail's release
         del agg, view
         torch.cuda.empty_cache()
     return 0

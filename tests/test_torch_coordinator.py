@@ -269,7 +269,8 @@ def test_pipeline_depths_reach_the_round_aggregator():
         mask_config=settings.mask.to_config().pair(), model_length=MODEL_LEN
     )
     shared = SimpleNamespace(
-        settings=settings, device="cpu", state=SimpleNamespace(round_params=round_params)
+        settings=settings, device="cpu", tenant="default",
+        state=SimpleNamespace(round_params=round_params),
     )
     agg = build_staged_aggregator(shared)
     stream = agg._stream
@@ -384,7 +385,9 @@ def test_rest_server_stops_with_keep_alive_open():
 
 
 UNSUPPORTED = {
-    "tenancy": ("tenancy", "enabled", True, "item 16"),
+    "tenancy-ingest": ("ingest", "enabled", True, "item 17"),
+    "tenancy-edge": ("edge", "enabled", True, "item 18"),
+    "tenant-file-kernel-xla": ("aggregation", "kernel", "xla", "Queue 2"),
     "ingest": ("ingest", "enabled", True, "item 17"),
     "edge": ("edge", "enabled", True, "item 18"),
     "redis": ("storage", "coordinator", "redis", "item 19"),
@@ -400,16 +403,31 @@ UNSUPPORTED = {
 
 
 @pytest.mark.parametrize("case", list(UNSUPPORTED))
-def test_port_settings_refuse_what_the_port_lacks(case):
+def test_port_settings_refuse_what_the_port_lacks(case, tmp_path):
+    """Each key the port lacks is refused by name, where the JAX package
+    accepts the same settings. The port serves tenants (``[tenancy]
+    enabled``) but not together with the ingest pipeline, and a tenant's
+    own settings file is held to the same refusals."""
     section, key, value, item = UNSUPPORTED[case]
     settings = _settings(port_settings, device=True)
-    if case == "tenancy":
-        settings.tenancy.tenants = ["t0"]
-    setattr(getattr(settings, section), key, value)
     theirs = _settings(jax_settings, device=True)
-    if case == "tenancy":
-        theirs.tenancy.tenants = ["t0"]
-    if case not in ("edge",):  # the JAX package's edge section validates alone
+    if case.startswith("tenan"):
+        for s in (settings, theirs):
+            s.tenancy.enabled = True
+            s.tenancy.tenants = ["t0"]
+    if case == "tenant-file-kernel-xla":
+        from xaynet_tpu.server import runner as jax_runner
+
+        settings.validate()  # tenancy alone is accepted
+        (tmp_path / "t0.toml").write_text(f'[{section}]\n{key} = "{value}"\n')
+        for s in (settings, theirs):
+            s.tenancy.config_dir = str(tmp_path)
+        assert getattr(getattr(jax_runner._tenant_settings(theirs, "t0"), section), key) == value
+        with pytest.raises(port_settings.SettingsError, match=item):
+            runner._tenant_settings(settings, "t0")
+        return
+    setattr(getattr(settings, section), key, value)
+    if case not in ("edge", "tenancy-edge"):  # the JAX package's edge section validates alone
         setattr(getattr(theirs, section), key, value)
         theirs.validate()  # the JAX package accepts the same settings
     with pytest.raises(port_settings.SettingsError, match=item):

@@ -29,6 +29,7 @@ from xaynet_tpu_torch.ops.fold import to_device_u32, widen, zeros_u32
 from xaynet_tpu_torch.parallel.aggregator import DeviceAggregator
 from xaynet_tpu_torch.parallel.streaming import StreamingAggregator, StreamingError
 from xaynet_tpu_torch.resilience import faults
+from xaynet_tpu_torch.tenancy import LOCAL_TENANT, PagePool, TenantScheduler
 
 pytestmark = pytest.mark.cuda
 
@@ -451,16 +452,18 @@ def test_pipeline_fold_error_after_launch_poisons_without_retry(cuda):
 
 
 def test_pipeline_pins_each_buffer_once_per_process(cuda):
-    """A closed pipeline's pinned buffers go to the process-wide pool; the
-    next round's ring of the same shape reuses them without pinning, and
-    its aggregate is exact. Each batch drains before the next, so each
-    round's ring holds one buffer (a producer that runs ahead adds more)."""
+    """A closed pipeline's leases go back to the page pool, whose slab stays
+    page-locked; the next round's ring leases the same pages without
+    pinning, and its aggregate is exact. Each batch drains before the
+    next, so each round's ring holds one buffer (a producer that runs
+    ahead adds more)."""
     n, k = 40_961, 4
     wires = _wire_batches(n, 4, k, seed=500)
+    pool = PagePool()
     rings = []
     for _ in range(2):
         agg = DeviceAggregator(PIPE_CFG, n, device=cuda)
-        stream = StreamingAggregator(agg, max_batch=k)
+        stream = StreamingAggregator(agg, max_batch=k, pool=pool)
         for w in wires:
             stream.submit_batch(w)
             stream.drain()
@@ -470,37 +473,41 @@ def test_pipeline_pins_each_buffer_once_per_process(cuda):
     first, second = rings
     assert first.allocated == first.reused + 1 == 1 and first.pin_seconds > 0.0
     assert second.allocated == second.reused == 1 and second.pin_seconds == 0.0
+    assert pool.balanced(LOCAL_TENANT) and pool.pinned_bytes() > 0
 
 
 def test_short_flush_pins_a_buffer_sized_to_its_rows(cuda):
     """A flush of 3 rows at ``max_batch`` 64 stages through a pinned buffer
     of 4 rows, not 64, and folds exactly; the next pipeline's flush of 3
-    takes that buffer from the process's pool without pinning."""
-    n = 77_777  # a shape no other case pins
+    leases the same pinned pages from the page pool without pinning."""
+    n = 77_777
     wires = _wire_batches(n, 1, 3, seed=700)
+    pool = PagePool()
     rings = []
     for _ in range(2):
         agg = DeviceAggregator(PIPE_CFG, n, device=cuda)
-        stream = StreamingAggregator(agg, max_batch=64)
+        stream = StreamingAggregator(agg, max_batch=64, pool=pool)
         stream.submit_batch(wires[0])
         stream.drain()
         assert np.array_equal(agg.snapshot(), _plain_fold(n, wires).snapshot())
         rings.append(stream._rings["packed"])
         stream.close()
     first, second = rings
-    assert [len(b) for b in first._bufs] == [len(b) for b in second._bufs] == [4]
+    assert first.buffer_rows == second.buffer_rows == [4]
     assert first.nbytes == 4 * agg.packed_width * agg.padded_length
     assert first.pin_seconds > 0.0 and second.reused == 1 and second.pin_seconds == 0.0
 
 
 def test_pipeline_closes_after_poison_with_its_copies_done(cuda):
     """A fold seam that raises (as a failed launch does) poisons the
-    pipeline; ``close`` still waits out the fold stream and hands the ring
-    buffers back, and a new pipeline reusing them folds exactly."""
+    pipeline; ``close`` still waits out the fold stream and gives the ring's
+    leases back, and a new pipeline reusing their pinned pages folds
+    exactly."""
     n, k = 32_771, 4
     wires = _wire_batches(n, 2, k, seed=600)
+    pool = PagePool()
     agg = DeviceAggregator(PIPE_CFG, n, device=cuda)
-    stream = StreamingAggregator(agg, max_batch=k)
+    stream = StreamingAggregator(agg, max_batch=k, pool=pool)
 
     def failed_launch(acc, staged):
         raise RuntimeError("K1 launch failed (injected)")
@@ -511,14 +518,84 @@ def test_pipeline_closes_after_poison_with_its_copies_done(cuda):
         stream.drain()
     assert stream._rings["packed"].in_use == 0
     stream.close()
+    assert pool.balanced(LOCAL_TENANT)
     agg = DeviceAggregator(PIPE_CFG, n, device=cuda)
-    stream = StreamingAggregator(agg, max_batch=k)
+    stream = StreamingAggregator(agg, max_batch=k, pool=pool)
     for w in wires:
         stream.submit_batch(w)
     stream.drain()
     assert stream._rings["packed"].reused >= 1
     assert np.array_equal(agg.snapshot(), _plain_fold(n, wires).snapshot())
     stream.close()
+
+
+def test_pool_slab_stays_pinned_across_release_and_re_lease(cuda):
+    """A pinned lease's slab is page-locked once: the lease's tensor view is
+    pinned, the run released and leased again by another tenant is the
+    same pinned memory (zeroed, no new pinning), and only the compaction's
+    trim of the free slab unlocks it."""
+    pool = PagePool(page_bytes=1 << 20, slab_pages=4)
+    first = pool.lease_host("a", (2, 1 << 20), np.uint8, pinned=True)
+    assert torch.from_numpy(first.array).is_pinned() and first.pin_seconds > 0.0
+    first.array[:] = 0xAB
+    where = (first.slab, first.offset)
+    assert pool.pinned_bytes() == 4 << 20
+    pool.release(first)
+    again = pool.lease_host("b", (2, 1 << 20), np.uint8, pinned=True)
+    assert (again.slab, again.offset) == where and again.pin_seconds == 0.0
+    assert torch.from_numpy(again.array).is_pinned() and not again.array.any()
+    # an asynchronous copy out of the re-leased run reads what was written
+    again.array[:] = 7
+    dev = torch.from_numpy(again.array).to(cuda, non_blocking=True)
+    torch.cuda.synchronize()
+    assert int(dev.min()) == int(dev.max()) == 7
+    pool.release(again)
+    assert pool.pinned_bytes() == 4 << 20  # still held, still locked
+    pool.compact()  # trims the free trailing slab: unlocked before dropped
+    assert pool.pinned_bytes() == 0 and pool.stats()["slabs"] == 0
+    third = pool.lease_host("a", (2, 1 << 20), np.uint8, pinned=True)
+    assert third.pin_seconds > 0.0 and torch.from_numpy(third.array).is_pinned()
+    pool.release(third)
+
+
+def test_two_tenants_pipelines_on_card_at_once(cuda):
+    """Two tenants' streaming pipelines fold on the card at the same time,
+    each from its own thread, on one page pool and one scheduler with fewer
+    slots than their batches: each aggregate equals the plain fold of its
+    own batches, every batch held a slot, and the pool balances."""
+    import threading
+
+    pool, sched = PagePool(), TenantScheduler(max_inflight=2)
+    lengths = {"a": 250_007, "b": 40_961}
+    wires = {t: _wire_batches(n, 6, 4, seed=800 + i) for i, (t, n) in enumerate(lengths.items())}
+    aggs = {t: DeviceAggregator(PIPE_CFG, n, device=cuda, tenant=t, pool=pool)
+            for t, n in lengths.items()}  # fmt: skip
+    streams = {t: StreamingAggregator(aggs[t], max_batch=4, tenant=t, pool=pool, scheduler=sched)
+               for t in lengths}  # fmt: skip
+    errors = []
+
+    def run(tenant):
+        try:
+            torch.cuda.set_device(aggs[tenant].device.index or 0)  # per thread
+            for w in wires[tenant]:
+                streams[tenant].submit_batch(w)
+            streams[tenant].drain()
+        except Exception as e:  # surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(t,)) for t in lengths]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+        assert not t.is_alive()
+    assert not errors, errors
+    for tenant, n in lengths.items():
+        assert np.array_equal(aggs[tenant].snapshot(), _plain_fold(n, wires[tenant]).snapshot())
+        streams[tenant].close()
+        aggs[tenant].release_plan_pages()
+        assert pool.balanced(tenant)
+    assert sched.split() == {"a": 6, "b": 6} and sched._inflight == 0
 
 
 def _sdk_round_on(tmp_path, device, length: int, seed: int, wire: bool = False) -> dict:

@@ -18,7 +18,11 @@
   without a device given they build and train on CUDA;
 - the coordinator (``server.runner.serve``, ``StateMachineInitializer``, the
   ``python -m xaynet_tpu_torch.server.runner`` CLI) with ``[aggregation]
-  device`` true or false and no device given refuses to run without CUDA.
+  device`` true or false and no device given refuses to run without CUDA,
+  the multi-tenant one (``[tenancy] enabled``) too;
+- the tenancy package (``tenancy``: the page pool, the scheduler, the
+  registry, the lifecycle) imports alone without JAX, and a CPU pipeline
+  leases its staging pages from the pool without page-locking any.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ from xaynet_tpu_torch.server.aggregation import StagedAggregator
 from xaynet_tpu_torch.server.settings import Settings
 from xaynet_tpu_torch.server.state_machine import StateMachineInitializer
 from xaynet_tpu_torch.sim import SimRound, SimSpec
+from xaynet_tpu_torch.tenancy import LOCAL_TENANT, PagePool
 
 REPO = Path(__file__).resolve().parents[1]
 PAIR = MaskConfig(GroupType.PRIME, DataType.F32, BoundType.B0, ModelType.M3).pair()
@@ -176,12 +181,14 @@ def test_pipeline_on_cpu_device_needs_no_cuda(no_cuda, monkeypatch):
         raise AssertionError("the CPU path reached the CUDA runtime")
 
     monkeypatch.setattr(torch.cuda, "cudart", no_cudart)
+    pool = PagePool(page_bytes=4096, slab_pages=4)
     agg = DeviceAggregator(PAIR.vect, 8, device="cpu")
-    stream = StreamingAggregator(agg, max_batch=2)
+    stream = StreamingAggregator(agg, max_batch=2, pool=pool)
     stream.submit_batch(np.zeros((2, 8, agg.n_limbs), np.uint32))
     stream.drain()
+    assert pool.stats()["host_pages_in_use"] == 1 and pool.pinned_bytes() == 0
     stream.close()
-    assert agg.nb_models == 2 and agg.stream is None
+    assert agg.nb_models == 2 and agg.stream is None and pool.balanced(LOCAL_TENANT)
 
 
 def test_wrappers_refuse_non_cpu_non_cuda_tensors():
@@ -213,7 +220,7 @@ _ALONE = sorted(
         for m in _port_modules()
         if m.split(".")[1:2] in (["server"], ["core"], ["storage"], ["telemetry"],
                                  ["resilience"], ["utils"], ["sdk"], ["sim"], ["loadgen"],
-                                 ["models"], ["examples"])
+                                 ["models"], ["examples"], ["tenancy"])
     }
 )  # fmt: skip
 
@@ -257,8 +264,8 @@ def imported_alone() -> dict:
 def test_wire_ingest_modules_import_alone_without_jax(module, imported_alone):
     """Each module on the wire-ingest path and the coordinator's, every
     module of the port's ``server``, ``core``, ``storage``, ``telemetry``,
-    ``resilience``, ``utils``, ``sdk``, ``sim``, ``loadgen``, ``models`` and
-    ``examples`` among them, imported alone, pulls in neither ``jax``,
+    ``resilience``, ``utils``, ``sdk``, ``sim``, ``loadgen``, ``models``,
+    ``examples`` and ``tenancy`` among them, imported alone, pulls in neither ``jax``,
     ``flax``, ``optax`` nor the JAX package."""
     assert module in _port_modules()
     assert imported_alone[module] == []
@@ -317,6 +324,20 @@ def test_coordinator_device_round_without_cuda_raises(no_cuda):
     for flag in (False, True):
         settings.aggregation.device = flag
         assert StateMachineInitializer(settings, store, device="cpu").device.type == "cpu"
+
+
+def test_multi_tenant_coordinator_without_cuda_raises(no_cuda):
+    """``serve`` with ``[tenancy] enabled`` and no device given resolves
+    CUDA for every tenant, so without one it refuses before any tenant is
+    built; a CPU device is taken when asked (the tests' way)."""
+    settings = _device_round_settings()
+    settings.tenancy.enabled = True
+    settings.tenancy.tenants = ["t0", "t1"]
+    settings.validate()
+    with pytest.raises(DeviceUnavailable, match="no CUDA device"):
+        asyncio.run(runner.serve(settings))
+    with pytest.raises(DeviceUnavailable, match="no CUDA device"):
+        asyncio.run(runner.serve_tenants(settings))
 
 
 def _free_port() -> int:

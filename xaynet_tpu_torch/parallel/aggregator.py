@@ -20,12 +20,20 @@ group in one copy and unpack + validity-check it on the card (kernels K3
 and K4), so a coordinator never parses elements on the host; accepted rows
 stay on the device until a flush folds them.
 
+With a ``tenant``, the accumulator's bytes go on the page pool's device
+ledger (``tenancy.pool``) under that tenant when the accumulator is
+allocated, and ``release_plan_pages`` gives them back (the round's Unmask
+tail); one device has no shard plan, so the single accumulator is the
+one lease. A GC finalizer backstops an aggregator dropped without the
+release.
+
 The reference analogue is rust/xaynet-server/src/state_machine/phases/
 update.rs:119-152, one sequential big-int pass per accepted update.
 """
 
 from __future__ import annotations
 
+import weakref
 from contextlib import contextmanager
 
 import numpy as np
@@ -46,6 +54,13 @@ from ..ops.fold import (
     wire_to_planar,
     zeros_u32,
 )
+from ..tenancy.pool import PagePool, get_pool
+
+
+def _release_leases(pool: PagePool, leases: list) -> None:
+    """Module-level so an aggregator's GC finalizer holds no reference to it."""
+    for lease in leases:
+        pool.release(lease)
 
 
 class DeviceAggregator:
@@ -58,7 +73,8 @@ class DeviceAggregator:
     one on an instance, as with the JAX package's. Both fold in place.
     """
 
-    def __init__(self, config: MaskConfig, model_length: int, device=None):
+    def __init__(self, config: MaskConfig, model_length: int, device=None,
+                 tenant: str | None = None, pool: PagePool | None = None):
         self.device = resolve_device(device)
         self.config = config
         self.model_length = model_length
@@ -71,6 +87,23 @@ class DeviceAggregator:
         self.kernel_used = "cuda" if self.device.type == "cuda" else "plain"
         self.stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         self.reset()
+        # the accumulator's device memory on the pool's ledger (a round's
+        # aggregator; the sim and the SDK's helpers lease nothing)
+        self.tenant = tenant
+        self._pool = None
+        self._leases: list = []
+        if tenant is not None:
+            self._pool = pool if pool is not None else get_pool()
+            self._leases.append(
+                self._pool.lease_device(tenant, self.n_limbs * self.padded_length * 4)
+            )
+            weakref.finalize(self, _release_leases, self._pool, self._leases)
+
+    def release_plan_pages(self) -> None:
+        """Give the accumulator's ledger pages back (the round's Unmask
+        tail, once nothing reads ``acc`` any more). Idempotent."""
+        if self._pool is not None:
+            _release_leases(self._pool, self._leases)
 
     def _fold_fn(self, acc: torch.Tensor, staged: torch.Tensor) -> None:
         fold_planar_batch(acc, staged, self.order)

@@ -5,26 +5,33 @@ synchronous flush serializes host staging (the byte-plane pack), the
 host-to-device copy and the fold, so host and device take turns idling.
 Here:
 
-- **staging ring** — host buffers, allocated as the traffic needs them
-  and page-locked on CUDA so the copy to the device is asynchronous; batch
+- **staging ring** — host buffers, leased as the traffic needs them from
+  the shared page pool (``tenancy.pool``) under the pipeline's tenant,
+  page-locked on CUDA so the copy to the device is asynchronous; batch
   N+1 is packed into one, straight from the wire rows, while batch N
   crosses to the device and folds. A batch of ``k`` rows stages through a
   buffer of ``bucket(k)`` rows: ``k`` rounded up to a power of two, capped
   at ``max_batch``, so a short flush (the Update phase's last) does not
-  allocate and pin a full batch's buffer. Each bucket holds up to
-  ``staging_buffers`` buffers; the buckets of one kind (packed or planar)
-  are 1, 2, 4, ... rows and ``max_batch``, so together they hold fewer
-  than ``2 * max_batch * staging_buffers`` rows, which bounds what one
-  pipeline stages (and pins). A buffer goes back to the ring only once the
-  copy out of it has completed (a CUDA event recorded after the copy); on
-  the CPU the fold reads the ring buffer itself and has finished when it
-  returns. Page-locked buffers outlive their ring: a closed ring hands
-  them to a process-wide pool keyed by shape, and the next ring takes them
-  from there, so a process pins each buffer once, not once per round.
+  lease and pin a full batch's buffer. Each buffer is one lease. Each
+  bucket holds up to ``staging_buffers`` buffers; the buckets of one kind
+  (packed or planar) are 1, 2, 4, ... rows and ``max_batch``, so together
+  they hold fewer than ``2 * max_batch * staging_buffers`` rows, which
+  bounds what one pipeline stages. A buffer goes back to the ring only
+  once its batch's fold has completed on the device (a CUDA event
+  recorded after the fold); on the CPU the fold reads the ring buffer
+  itself and has finished when it returns. ``close()`` releases the
+  leases. The pool keeps its slabs page-locked, so the next ring's leases
+  land in pinned pages and a process pins each slab once, not once per
+  round.
 - **dispatch-ahead** — up to ``dispatch_ahead`` batches queue to one fold
   worker thread, which enters the accumulator's own CUDA stream
   (``DeviceAggregator.on_stream``) and launches K1 there, while the
   producer stages ahead.
+- **tenant fold-batch slots** — every batch holds one slot of the shared
+  ``tenancy.scheduler`` from dispatch until its fold has completed on the
+  device, and a caller-thread fold of device rows holds one per chunk, so
+  tenants sharing the card interleave their folds fairly and the slots
+  bound the folds queued on it.
 
 Fold order is FIFO (one worker) and the fold is an exact modular sum, so
 the aggregate is byte-identical to sequential ``add_batch`` calls however
@@ -52,10 +59,9 @@ them on the caller's thread, on the accumulator's stream.
 One device has no shards, so the JAX package's shard plan, per-shard
 workers and eager per-shard unmask have no counterpart here. Raw wire
 batches with deferred acceptance (``submit_wire_batch``) are not ported
-yet; the JAX package's registry gauges, spans, flight dumps, tenant page
-pool and scheduler slots are not part of the port: stage and fold seconds
-and the overlap ratio of the last drain window are plain attributes
-(``last_window``).
+yet; the JAX package's registry gauges, spans and flight dumps are not
+part of the port: stage and fold seconds and the overlap ratio of the last
+drain window are plain attributes (``last_window``).
 """
 
 from __future__ import annotations
@@ -72,18 +78,13 @@ import torch
 from ..ops import limbs as host_limbs
 from ..ops.fold import MAX_LAZY_BATCH
 from ..resilience.faults import maybe_fail
+from ..tenancy.pool import LOCAL_TENANT, PagePool, get_pool
+from ..tenancy.scheduler import TenantScheduler, get_scheduler
 from .aggregator import DeviceAggregator
 
 logger = logging.getLogger(__name__)
 
 _SHUTDOWN = object()
-_PAGE = 4096
-
-# Page-locked staging buffers free for the next ring, by (shape, dtype).
-# Pinning runs at about 1.4 GB/s on the host (PERF.md §5), so buffers stay
-# pinned for the life of the process and every later round reuses them.
-_PINNED_FREE: dict[tuple, list[np.ndarray]] = {}  # guarded-by: _PINNED_LOCK
-_PINNED_LOCK = threading.Lock()
 
 
 class StreamingError(RuntimeError):
@@ -102,26 +103,18 @@ class _UnsafeFoldError(Exception):
         self.settled = settled
 
 
-def _page_aligned_empty(shape: tuple, dtype) -> np.ndarray:
-    """``np.empty`` whose data starts and ends on page boundaries (what
-    ``cudaHostRegister`` page-locks)."""
-    nbytes = int(np.prod(shape)) * np.dtype(dtype).itemsize
-    raw = np.empty(nbytes + 2 * _PAGE, dtype=np.uint8)
-    off = (-raw.ctypes.data) % _PAGE
-    return raw[off : off + nbytes].view(dtype).reshape(shape)
+def _release_ring_leases(pool: PagePool, leases: list) -> None:
+    """Module-level so a ring's GC finalizer holds no ring reference."""
+    for lease in leases:
+        pool.release(lease)
 
 
-def _pool_key(shape: tuple, dtype) -> tuple:
-    return tuple(shape), np.dtype(dtype).str
-
-
-def _give_back_pinned(bufs: list) -> None:
-    """Hand a ring's pinned buffers to the process-wide pool, each under its
-    own shape. Module-level so a ring's finalizer holds no reference to the
-    ring."""
-    with _PINNED_LOCK:
-        for buf in bufs:
-            _PINNED_FREE.setdefault(_pool_key(buf.shape, buf.dtype), []).append(buf)
+def _ring_migrator(view) -> None:
+    """Compaction swap hook for a QUIESCENT ring lease: the pool already
+    rewrote ``lease.array`` to the migrated view under its lock, and the
+    ring's free queue holds the lease object, not the array, so there is
+    no ring state left to fix up. Module-level so a lease never strongly
+    references its ring."""
 
 
 def bucket_rows(k: int, max_rows: int) -> int:
@@ -131,83 +124,84 @@ def bucket_rows(k: int, max_rows: int) -> int:
 
 
 class _StagingRing:
-    """Bounded pool of host staging buffers, allocated as the traffic needs
-    them, in buckets by rows.
+    """Bounded pool of host staging buffers, leased from the page pool as
+    the traffic needs them, in buckets by rows.
 
-    ``acquire(k)`` takes a free buffer of ``bucket_rows(k)`` rows, adds one
-    more to that bucket while it holds fewer than ``size``, and otherwise
-    blocks until an in-flight batch gives one of them back: the producer
-    runs at most ``size`` batches of one bucket ahead of the fold worker,
-    which is the pipeline's memory bound (the buckets' rows sum to less
-    than ``2 * shape[0]``, so the ring holds fewer than ``2 * shape[0] *
-    size`` rows). A pipeline whose folds keep up holds one buffer per
-    bucket its batches need, not ``size``. With ``pin`` (a CUDA device)
-    each buffer is page-locked, so the copy to the device runs
-    asynchronously at the bus's rate: taken from the process-wide pool when
-    one of its shape is free there (``reused``), else allocated and pinned
-    with ``cudaHostRegister``; a buffer that cannot be pinned raises with
-    the bytes asked for (there is no pageable ring). ``close()`` returns
-    the pinned buffers to the pool; a GC finalizer does the same for
-    abandoned pipelines. ``nbytes`` is what the ring holds, ``pin_seconds``
-    what allocating and pinning its new buffers took.
+    ``acquire(k)`` takes a free buffer of ``bucket_rows(k)`` rows, leases
+    one more for that bucket while it holds fewer than ``size``, and
+    otherwise blocks until an in-flight batch gives one of them back: the
+    producer runs at most ``size`` batches of one bucket ahead of the fold
+    worker, which is the pipeline's memory bound (the buckets' rows sum to
+    less than ``2 * shape[0]``, so the ring holds fewer than ``2 *
+    shape[0] * size`` rows). A pipeline whose folds keep up holds one
+    buffer per bucket its batches need, not ``size``.
+
+    Each buffer is one lease of the pool under the ring's tenant, zeroed
+    by the pool. With ``pin`` (a CUDA device) the lease lands in a
+    page-locked slab, so the copy to the device runs asynchronously at the
+    bus's rate: the pool locks a slab once, so a lease in a slab an
+    earlier ring already locked costs no pinning (``reused``); a slab that
+    cannot be locked raises with its size (there is no pageable ring).
+    ``nbytes`` is what the ring holds, ``pin_seconds`` what locking slabs
+    for its leases took, ``buffer_rows`` the rows of each buffer.
+
+    Free buffers opt into the pool's compaction: while a lease sits in the
+    free queue it carries a migrator, so a between-round defrag may slide
+    it; ``acquire`` clears the migrator through the pool lock BEFORE
+    reading the array, making every in-flight buffer an immovable
+    barrier, and ``release`` (called once the batch's fold, and so the
+    copy out of the buffer, has completed) registers it again.
+    ``close()`` releases the leases; a GC finalizer does the same for
+    abandoned pipelines.
     """
 
-    def __init__(self, size: int, shape: tuple, dtype, pin: bool):
+    def __init__(self, size: int, shape: tuple, dtype, pin: bool,
+                 pool: PagePool | None = None, tenant: str = LOCAL_TENANT):
         self.size = size
         self._shape, self._dtype, self._pin = tuple(shape), np.dtype(dtype), pin
-        self._free: dict[int, queue_mod.Queue] = {}  # rows -> free buffers  # guarded-by: _lock
-        self._inflight: dict[int, np.ndarray] = {}  # id(buf) -> buf  # guarded-by: _lock
+        self._pool = pool if pool is not None else get_pool()
+        self._tenant = tenant
+        self._free: dict[int, queue_mod.Queue] = {}  # rows -> free leases  # guarded-by: _lock
+        self._inflight: dict[int, object] = {}  # id(buf) -> lease  # guarded-by: _lock
         self._lock = threading.Lock()
-        self._bufs: list[np.ndarray] = []  # guarded-by: _lock
-        self._finalizer = (
-            weakref.finalize(self, _give_back_pinned, self._bufs) if pin else None
-        )
+        self._leases: list = []  # guarded-by: _lock
+        self.buffer_rows: list[int] = []  # guarded-by: _lock
+        # abandoned pipelines give their pages back when the ring is
+        # collected: by then nothing can alias them
+        weakref.finalize(self, _release_ring_leases, self._pool, self._leases)
         self.nbytes = 0
         self.pin_seconds = 0.0
         self.reused = 0
 
-    def _take_pinned(self, shape: tuple) -> np.ndarray:
-        with _PINNED_LOCK:
-            free = _PINNED_FREE.get(_pool_key(shape, self._dtype))
-            if free:
-                self.reused += 1
-                return free.pop()
-        t0 = time.perf_counter()
-        buf = _page_aligned_empty(shape, self._dtype)
-        cudart = torch.cuda.cudart()
-        try:
-            torch.cuda.check_error(cudart.cudaHostRegister(buf.ctypes.data, buf.nbytes, 0))
-        except torch.cuda.CudaError as e:
-            raise RuntimeError(
-                f"cannot page-lock a {buf.nbytes}-byte staging buffer of shape {shape} "
-                f"(the ring holds up to {self.size} per bucket of rows, at most "
-                f"{self._shape[0]} rows, {self.nbytes} bytes held so far); lower "
-                "staging_buffers or the batch size"
-            ) from e
-        self.pin_seconds += time.perf_counter() - t0
-        return buf
-
-    def _grow(self, rows: int) -> np.ndarray | None:
-        """One more buffer of ``rows`` rows, or None when that bucket holds
-        ``size``."""
+    def _grow(self, rows: int):
+        """One more lease of ``rows`` rows, or None when that bucket holds
+        ``size``. The lease is in flight from here (no migrator)."""
         with self._lock:
-            if sum(len(b) == rows for b in self._bufs) >= self.size:
+            if self.buffer_rows.count(rows) >= self.size:
                 return None
             shape = (rows, *self._shape[1:])
-            if self._pin:
-                buf = self._take_pinned(shape)
-            else:
-                buf = _page_aligned_empty(shape, self._dtype)
-            self._bufs.append(buf)
-            self.nbytes += buf.nbytes
-            return buf
+            try:
+                lease = self._pool.lease_host(self._tenant, shape, self._dtype, pinned=self._pin)
+            except RuntimeError as e:
+                raise RuntimeError(
+                    f"cannot lease a pinned staging buffer of shape {shape} (the ring "
+                    f"holds up to {self.size} per bucket of rows, at most "
+                    f"{self._shape[0]} rows, {self.nbytes} bytes held so far); lower "
+                    "staging_buffers or the batch size"
+                ) from e
+            self._leases.append(lease)
+            self.buffer_rows.append(rows)
+            self.nbytes += lease.array.nbytes
+            self.pin_seconds += lease.pin_seconds
+            if self._pin and lease.pin_seconds == 0.0:
+                self.reused += 1
+            return lease
 
     def close(self) -> None:
-        """Give the pinned buffers to the process-wide pool (idempotent;
-        none may still be in flight: the pipeline drains and waits for its
-        copies before it closes)."""
-        if self._finalizer is not None:
-            self._finalizer()
+        """Release the ring's leases (idempotent; none may still be in
+        flight: the pipeline drains and waits for its folds before it
+        closes)."""
+        _release_ring_leases(self._pool, self._leases)
 
     def _free_of(self, rows: int) -> queue_mod.Queue:
         with self._lock:
@@ -218,20 +212,27 @@ class _StagingRing:
         rows = bucket_rows(k, self._shape[0])
         free = self._free_of(rows)
         try:
-            buf = free.get_nowait()
+            lease = free.get_nowait()
         except queue_mod.Empty:
-            buf = self._grow(rows)
-            if buf is None:
-                buf = free.get()
+            lease = self._grow(rows)
+            if lease is None:
+                lease = free.get()
+        # pin first, read second: set_migrator takes the pool lock, so a
+        # compaction mid-flight either finished (lease.array is the new
+        # view) or will now skip this lease entirely
+        self._pool.set_migrator(lease, None)
+        buf = lease.array
         with self._lock:
-            self._inflight[id(buf)] = buf
+            self._inflight[id(buf)] = lease
         return buf
 
     def release(self, buf: np.ndarray) -> None:
         with self._lock:
-            if self._inflight.pop(id(buf), None) is None:
-                return
-        self._free_of(len(buf)).put(buf)
+            lease = self._inflight.pop(id(buf), None)
+        if lease is None:
+            return
+        self._pool.set_migrator(lease, _ring_migrator)
+        self._free_of(len(buf)).put(lease)
 
     @property
     def in_use(self) -> int:
@@ -243,7 +244,7 @@ class _StagingRing:
     def allocated(self) -> int:
         """Buffers the ring holds (at most ``size`` per bucket of rows)."""
         with self._lock:
-            return len(self._bufs)
+            return len(self._leases)
 
 
 def _worker_main(ref: "weakref.ref[StreamingAggregator]", q: queue_mod.Queue) -> None:
@@ -275,7 +276,13 @@ class StreamingAggregator:
     device's.
 
     Not thread-safe for concurrent producers: submits come from one thread
-    at a time.
+    at a time. ``close()`` may come from any thread, a submit in progress
+    on another one included.
+
+    ``tenant`` labels the pipeline's page leases and scheduler slots (a
+    coordinator's rounds pass theirs; the default, ``LOCAL_TENANT``, is no
+    coordinator's); ``pool`` and ``scheduler`` default to the process-wide
+    ones, which every tenant and the single-tenant path share.
     """
 
     def __init__(
@@ -285,6 +292,9 @@ class StreamingAggregator:
         dispatch_ahead: int = 2,
         max_batch: int = 64,
         packed: bool | None = None,
+        tenant: str = LOCAL_TENANT,
+        pool: PagePool | None = None,
+        scheduler: TenantScheduler | None = None,
     ):
         if staging_buffers < 2:
             raise ValueError("staging_buffers must be >= 2 (no overlap below that)")
@@ -303,6 +313,16 @@ class StreamingAggregator:
             agg.packed_staging_usable() if packed is None
             else bool(packed) and agg.packed_staging_usable()
         )
+        # multi-tenant seam: the tenant labels this pipeline's page leases
+        # and scheduler slots; the shared pool backs the staging rings; the
+        # scheduler interleaves this tenant's fold batches with other
+        # tenants' on the one device
+        self.tenant = tenant
+        self._pool = pool if pool is not None else get_pool()
+        self._sched = scheduler if scheduler is not None else get_scheduler()
+        self._sched_owner = self._sched.new_owner()
+        # abandoned pipelines give their slots back at collection time
+        weakref.finalize(self, self._sched.release_owner, self._sched_owner)
         self._queue: queue_mod.Queue = queue_mod.Queue(maxsize=dispatch_ahead)
         self._rings: dict[str, _StagingRing] = {}  # lazy: planar / packed  # guarded-by: _lock
         self._in_flight_models = 0  # submitted, not yet folded  # guarded-by: _lock
@@ -311,7 +331,12 @@ class StreamingAggregator:
         self._degraded = False  # sync path for the rest of the round  # guarded-by: _lock
         self._batch_seq = 0  # submit-order index: producer-thread confined
         self._worker: threading.Thread | None = None
-        self._closed = False
+        # a producer holds _produce_lock from its closed check to its
+        # dispatch, and close() takes it to mark the pipeline closed: once
+        # close() has had it, no producer touches a ring again
+        self._produce_lock = threading.Lock()
+        self._closed = False  # guarded-by: _produce_lock
+        self._shut = threading.Event()  # set when close() has finished
         self._lock = threading.Lock()
         # the drain window's legs: per batch (seq, start, end) on the
         # monotonic clock; stage on the producer, fold on the worker
@@ -335,12 +360,25 @@ class StreamingAggregator:
             weakref.finalize(self, self._queue.put, _SHUTDOWN)
 
     def close(self) -> None:
-        """Drain, stop the fold worker and hand the pinned ring buffers back
-        to the process-wide pool. Idempotent; a poisoned pipeline still
-        shuts down (its error has surfaced, or will, through
-        ``drain``/``submit``)."""
-        if self._closed:
+        """Drain, stop the fold worker, release the ring's page leases and
+        return any scheduler slot still held. Safe from any thread: it
+        waits for a submit in progress on another thread (a flush that a
+        cancelled round left running), after which every submit raises,
+        and returns once every queued fold, and so every copy out of a
+        ring buffer, has completed. Idempotent: a second caller waits for
+        the first to finish. A poisoned pipeline still shuts down (its
+        error has surfaced, or will, through ``drain``/``submit``)."""
+        with self._produce_lock:
+            first, self._closed = not self._closed, True
+        if not first:
+            self._shut.wait()
             return
+        try:
+            self._shut_down()
+        finally:
+            self._shut.set()
+
+    def _shut_down(self) -> None:
         try:
             self.drain()
         except StreamingError:
@@ -352,7 +390,6 @@ class StreamingAggregator:
                     self.agg.stream.synchronize()
                 except Exception:  # noqa: BLE001 - surfaced through drain already
                     logger.warning("fold stream failed while closing", exc_info=True)
-        self._closed = True
         if self._worker is not None and self._worker.is_alive():
             self._queue.put(_SHUTDOWN)
             self._worker.join(timeout=60.0)
@@ -361,6 +398,7 @@ class StreamingAggregator:
             self._rings.clear()
         for ring in rings:
             ring.close()
+        self._sched.release_owner(self._sched_owner)
 
     # -- producer side -----------------------------------------------------
 
@@ -394,10 +432,11 @@ class StreamingAggregator:
                 else:  # byte-planar packed planes: bpn/(4L) of the planar ring
                     shape, dtype = (self.max_batch, agg.packed_width, agg.padded_length), np.uint8
                 # one ring per kind, made at its first submit; its buffers
-                # (of max_batch rows or fewer) are added, and pinned or
-                # reused pinned, as the traffic needs them
+                # (of max_batch rows or fewer) are leased as the traffic
+                # needs them
                 ring = self._rings[kind] = _StagingRing(
-                    self.staging_buffers, shape, dtype, pin=agg.device.type == "cuda"
+                    self.staging_buffers, shape, dtype, pin=agg.device.type == "cuda",
+                    pool=self._pool, tenant=self.tenant,
                 )
             return ring
 
@@ -434,10 +473,25 @@ class StreamingAggregator:
         if self._window_start is None:
             self._window_start = time.monotonic()
 
+    # -- tenant fold-batch slots ------------------------------------------
+    #
+    # Every batch holds ONE scheduler slot from dispatch until its fold has
+    # completed on the device (the worker's event wait, or the degraded
+    # path's finally). The slot is the cross-tenant interleave point: the
+    # scheduler grants it fairly across tenants and bounds the device-wide
+    # in-flight total, which is the multi-tenant backpressure.
+
+    def _slot_acquire(self) -> None:
+        self._sched.acquire(self.tenant, self._sched_owner)
+
+    def _slot_release(self) -> None:
+        self._sched.release(self._sched_owner)
+
     def _dispatch(self, item: tuple) -> None:
         """Queue to the fold worker, or, once degraded, fold synchronously
         on the caller's thread (same math, no overlap)."""
         buf, payload, kind, k, seq = item
+        self._slot_acquire()  # released when the fold settles (_process)
         with self._lock:
             self._in_flight_models += k
             degraded = self._degraded
@@ -464,6 +518,7 @@ class StreamingAggregator:
             self._poison(cause, seq, k, settled=unsafe and e.settled)
             raise self._poison_error() from cause
         finally:
+            self._slot_release()
             self._ring(kind).release(buf)
             with self._lock:
                 self._fold_log.append((seq, t0, time.monotonic()))
@@ -481,20 +536,21 @@ class StreamingAggregator:
         for row in rows:
             if np.shape(row) != want:
                 raise ValueError(f"expected wire rows uint32{list(want)}, got {np.shape(row)}")
-        self._check(k)
-        kind = "packed" if self._packed else "planar"
-        t0 = time.monotonic()
-        buf = self._ring(kind).acquire(k)
-        view = buf[:k]
-        for i, row in enumerate(rows):
-            if self._packed:
-                # the first bpn wire bytes of each element, straight into the ring
-                host_limbs.pack_wire(row, self.agg.packed_width, out=view[i])
-            else:
-                view[i] = np.asarray(row, dtype=np.uint32).T
-        self._batch_seq += 1
-        self._stage_log.append((self._batch_seq, t0, time.monotonic()))
-        self._dispatch((buf, view, kind, k, self._batch_seq))
+        with self._produce_lock:
+            self._check(k)
+            kind = "packed" if self._packed else "planar"
+            t0 = time.monotonic()
+            buf = self._ring(kind).acquire(k)
+            view = buf[:k]
+            for i, row in enumerate(rows):
+                if self._packed:
+                    # the first bpn wire bytes of each element, straight into the ring
+                    host_limbs.pack_wire(row, self.agg.packed_width, out=view[i])
+                else:
+                    view[i] = np.asarray(row, dtype=np.uint32).T
+            self._batch_seq += 1
+            self._stage_log.append((self._batch_seq, t0, time.monotonic()))
+            self._dispatch((buf, view, kind, k, self._batch_seq))
 
     def fold_planar_rows_now(self, rows: list) -> None:
         """Fold device-resident, validity-checked planar ``uint32[L, n]``
@@ -505,7 +561,9 @@ class StreamingAggregator:
         once. Queued work finishes first (``agg.acc`` has one mutator at a
         time); each chunk is stacked and folded by K1 on the accumulator's
         stream, after the caller's stream, and the references to it are
-        dropped, so the card holds the staged rows plus one chunk's copy."""
+        dropped, so the card holds the staged rows plus one chunk's copy.
+        Each chunk holds a scheduler slot until its fold has completed on
+        the device, so this fast path cannot starve other tenants."""
         self._fold_rows_now(rows, packed=False)
 
     def fold_packed_rows_now(self, rows: list) -> None:
@@ -518,26 +576,38 @@ class StreamingAggregator:
     def _fold_rows_now(self, rows: list, packed: bool) -> None:
         if not rows:
             return
+        with self._produce_lock:
+            if self._closed:
+                raise StreamingError("pipeline is closed")
+            self._fold_rows_locked(rows, packed)
+
+    def _fold_rows_locked(self, rows: list, packed: bool) -> None:
         self._queue.join()
         err = self._poisoned()
         if err is not None:
             raise self._poison_error() from err
-        if self._closed:
-            raise StreamingError("pipeline is closed")
         agg = self.agg
         fold = agg._packed_fold_fn if packed else agg._fold_fn
         rows = list(rows)
         while rows:
             piece, rows = rows[:8], rows[8:]
-            with agg.on_stream(*piece):
-                staged = torch.stack(piece)
-                try:
-                    fold(agg.acc, staged)
-                except Exception as e:
-                    # K1 folds in place: acc may hold part of the chunk
-                    self._poison(e, None, 0, settled=True)
-                    raise self._poison_error() from e
-                del staged
+            self._slot_acquire()
+            try:
+                with agg.on_stream(*piece):
+                    staged = torch.stack(piece)
+                    try:
+                        fold(agg.acc, staged)
+                        if agg.stream is not None:
+                            folded = torch.cuda.Event()
+                            folded.record()
+                            folded.synchronize()
+                    except Exception as e:
+                        # K1 folds in place: acc may hold part of the chunk
+                        self._poison(e, None, 0, settled=True)
+                        raise self._poison_error() from e
+                    del staged
+            finally:
+                self._slot_release()
             with self._lock:
                 agg.nb_models += len(piece)
 
@@ -571,9 +641,10 @@ class StreamingAggregator:
 
     def _fold_payload(self, payload: np.ndarray, kind: str, k: int) -> None:
         """Fold one staged batch out of its ring view, on the fold stream.
-        Returns once the copy out of the ring buffer has completed, whether
-        the fold launched or failed, so the buffer may be reused; the fold
-        itself may still run on the device (``drain`` waits for it)."""
+        Returns once the fold has completed on the device (or, if it did
+        not launch, once the copy out of the ring buffer has), so the
+        buffer may be reused and the batch's scheduler slot returned: a
+        slot released at the launch would bound nothing on the card."""
         agg = self.agg
         with agg.on_stream():
             # retry-safe up to here: the allocation and the copy's enqueue
@@ -590,8 +661,12 @@ class StreamingAggregator:
                 # freed into the fold stream's pool: reused only in its order
                 del staged
                 if copied is not None:
+                    done = copied
+                    if settled:  # behind the fold: the copy and the fold ran
+                        done = torch.cuda.Event()
+                        done.record()
                     try:
-                        copied.synchronize()
+                        done.synchronize()
                     except Exception as e:
                         raise _UnsafeFoldError(settled=settled) from e
 
@@ -634,6 +709,7 @@ class StreamingAggregator:
         except Exception as first:
             self._degrade_and_retry(payload, kind, k, seq, first)
         finally:
+            self._slot_release()
             self._ring(kind).release(buf)
             with self._lock:
                 self._fold_log.append((seq, t0, time.monotonic()))

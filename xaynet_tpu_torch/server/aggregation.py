@@ -65,6 +65,7 @@ from ..ops import limbs as limb_ops
 from ..parallel.aggregator import DeviceAggregator
 from ..parallel.streaming import StreamingAggregator
 from ..resilience.checkpoint import AggSnapshot
+from ..tenancy.pool import LOCAL_TENANT
 
 
 def build_staged_aggregator(shared) -> "StagedAggregator":
@@ -74,7 +75,7 @@ def build_staged_aggregator(shared) -> "StagedAggregator":
     configuration it crashed under. ``shared.device`` is the torch device
     the runner resolved."""
     settings = shared.settings
-    return StagedAggregator(
+    agg = StagedAggregator(
         config=shared.state.round_params.mask_config,
         object_size=shared.state.round_params.model_length,
         batch_size=settings.aggregation.batch_size,
@@ -82,7 +83,12 @@ def build_staged_aggregator(shared) -> "StagedAggregator":
         dispatch_ahead=settings.aggregation.dispatch_ahead,
         staging_buffers=settings.aggregation.staging_buffers,
         device=shared.device,
+        tenant=shared.tenant,
     )
+    # the round's live aggregator: Idle and a tenant's teardown close it
+    # (waiting out its flush and folds) before they reclaim its pages
+    shared.round_aggregator = agg
+    return agg
 
 
 def _device_context(dev: torch.device):
@@ -204,12 +210,21 @@ class DeviceAggregation(Aggregation):
         values = limb_ops.limbs_to_ints(n_vect)
         return Model(decode_vect_exact(values, self._config.vect, self.nb_models, scalar_sum))
 
+    def release_pool(self) -> None:
+        """Round-end page release (the Unmask phase calls this AFTER the
+        unmasked model is decoded and persisted — see
+        ``StagedAggregator.release_pool``)."""
+        self._device.release_plan_pages()
+
 
 class StagedAggregator:
     """Stages validated masked updates and folds them in batches on the
     device (``cuda`` unless ``device`` says otherwise), through the
     streaming pipeline (``dispatch_ahead`` and ``staging_buffers`` are its
-    depths, as ``[aggregation]`` sets them)."""
+    depths, as ``[aggregation]`` sets them). ``tenant`` labels the round's
+    page leases (the accumulator on the pool's device ledger, the staging
+    ring's host pages) and its scheduler slots; the default,
+    ``LOCAL_TENANT``, is no coordinator's."""
 
     def __init__(
         self,
@@ -220,15 +235,17 @@ class StagedAggregator:
         dispatch_ahead: int = 2,
         staging_buffers: int = 3,
         device=None,
+        tenant: str = LOCAL_TENANT,
     ):
         self.config = config
         self.object_size = object_size
+        self.tenant = tenant
         self.batch_size = max(1, batch_size)
         # host wire rows uint32[model_len, L], or device rows validated by
         # wire ingest (planar uint32[L, model_len], packed uint8[bpn, model_len])
         self._staged_vect: list = []
         self._staged_unit: list[np.ndarray] = []
-        self._device = DeviceAggregator(config.vect, object_size, device=device)
+        self._device = DeviceAggregator(config.vect, object_size, device=device, tenant=tenant)
         # flush() submits micro-batches here; drain()/finalize() sync
         self._stream = StreamingAggregator(
             self._device,
@@ -236,6 +253,7 @@ class StagedAggregator:
             dispatch_ahead=dispatch_ahead,
             max_batch=self.batch_size,
             packed=packed_staging,
+            tenant=tenant,
         )
         # the tiny unit part stays on the host
         self._unit_acc = np.zeros(limb_ops.n_limbs_for_order(config.unit.order), dtype=np.uint32)
@@ -472,6 +490,26 @@ class StagedAggregator:
         )
         agg.nb_models = self._device.nb_models
         return agg
+
+    @_on_device
+    def close(self) -> None:
+        """Stop the round's pipeline and give its pages back: waits for a
+        flush in progress on another thread (a cancelled round's executor
+        job) and for every queued fold, the copies out of the staging
+        ring's buffers included, then releases the ring's leases and the
+        accumulator's ledger pages. The next round's Idle and a drained
+        tenant's teardown call it before they force-reclaim the tenant's
+        pages. Idempotent."""
+        self._stream.close()
+        self.release_pool()
+
+    def release_pool(self) -> None:
+        """Round-end page release (the Unmask tail, docs/DESIGN.md §19):
+        the accumulator's ledger pages go back to the shared pool once the
+        unmasked model is decoded — nothing reads the accumulator past this
+        point. The staging ring's pages went back when the pipeline
+        closed."""
+        self._device.release_plan_pages()
 
     @_on_device
     def finalize_inplace(self, defer_drain: bool = False) -> Aggregation:

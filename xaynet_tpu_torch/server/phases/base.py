@@ -149,6 +149,10 @@ class Shared:
     # the runner's SIGTERM/SIGINT path can persist a final journal entry
     # before exiting; per-event-journaling phases leave it None
     flush_hook: Optional[object] = None
+    # the round's StagedAggregator (``build_staged_aggregator`` sets it):
+    # Idle closes it, waiting out a flush a failed or cancelled phase left
+    # running, before it reclaims the tenant's pages
+    round_aggregator: Optional[object] = None
 
     def set_round_id(self, round_id: int) -> None:
         self.state.round_id = round_id

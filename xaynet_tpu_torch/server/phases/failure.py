@@ -71,6 +71,12 @@ class Failure(PhaseState):
             # streak — a checkpoint resume keeps the round alive, and its
             # eventual completion/failure is what gets counted
             self.shared.round_ctl.round_failed()
+        # tenant lifecycle (docs/DESIGN.md §23): a failed round is both a
+        # breaker strike for quarantine AND a round boundary for a pending
+        # drain — a resume above is neither (the round is still alive)
+        from ...tenancy import lifecycle as _lifecycle
+
+        _lifecycle.note_round_failed(self.shared.tenant)
         from .idle import Idle
 
         return Idle(self.shared)

@@ -10,6 +10,7 @@ state, then broadcast keys and parameters.
 
 from __future__ import annotations
 
+import asyncio
 import struct
 
 from ...core.common import RoundSeed
@@ -37,6 +38,10 @@ class Idle(PhaseState):
         # cannot outlive the dictionaries it is consistent with
         await self.shared.store.coordinator.delete_round_checkpoint()
         self.shared.resume_attempts = 0  # lint: tenant-ok: round reset within this tenant's own Shared
+        # off the event loop: closing the last round's pipeline waits for
+        # its folds, and the reclaim's GC pass stalls every tenant's loop
+        agg, self.shared.round_aggregator = self.shared.round_aggregator, None
+        await asyncio.to_thread(self._reconcile_pool, agg)
         # a stale graceful-flush hook would journal a dead phase's state
         self.shared.flush_hook = None
         # per-edge envelope watermarks are round-scoped: window sequences
@@ -74,6 +79,40 @@ class Idle(PhaseState):
         keys = EncryptKeyPair.generate()
         self.shared.state.keys = keys
         self.shared.state.round_params.pk = keys.public.as_bytes()
+
+    def _reconcile_pool(self, agg) -> None:
+        """Round-boundary page accounting (docs/DESIGN.md §19): at Idle the
+        tenant must hold ZERO pool leases — the previous round's unmask
+        released them on the clean path. A crashed round (Failure -> Idle)
+        leaves its aggregator open instead, and a flush of the failed phase
+        may still be folding: close it first (``agg``, the last round's
+        aggregator: it waits for the folds and gives the ring's pages
+        back), then run the GC so dropped aggregators' and rings'
+        finalizers return their pages safely (the buffers are unreachable,
+        nothing can alias them), then force-reclaim any stragglers,
+        counted on ``xaynet_pool_reclaimed_total`` so the invariant break
+        is visible on /metrics rather than silent. Runs on a worker
+        thread."""
+        from ...tenancy.pool import get_pool
+
+        if agg is not None:
+            agg.close()
+        pool = get_pool()
+        if not pool.balanced(self.shared.tenant):
+            import gc
+
+            gc.collect()
+            pool.reclaim(self.shared.tenant)
+        # between-round defrag (docs/DESIGN.md §23): Idle is the only phase
+        # where this tenant holds no transient fold views, so compaction's
+        # memmove-under-lock cannot race this tenant's copies. Other
+        # tenants' live runs are protected by the migrator protocol (only
+        # quiescent, migrator-registered leases move: a ring buffer gets
+        # its migrator back only once its fold has completed on the card).
+        ten = getattr(self.shared.settings, "tenancy", None)
+        if ten is not None and ten.defrag_enabled:
+            if pool.fragmentation() > ten.defrag_threshold:
+                pool.compact()
 
     def _update_round_probabilities(self) -> None:
         # constant probabilities; adaptive strategies plug in here

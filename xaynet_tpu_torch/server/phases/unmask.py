@@ -73,8 +73,10 @@ class Unmask(PhaseState):
         # republish idempotently (ModelStorage contract), never corrupt
         maybe_kill("unmask:publish")
         await self._publish_proof()
-        # round-end page release, where the aggregation holds pool pages
-        # (the port's aggregations hold none and have no release_pool)
+        # round-end page release (docs/DESIGN.md §19): the accumulator's
+        # pool pages go back the moment the unmasked model is decoded and
+        # persisted — this is the clean half of the leases == releases
+        # round invariant (Idle's reclaim is the crash-path backstop)
         release = getattr(self.model_agg, "release_pool", None)
         if release is not None:
             release()
@@ -93,6 +95,11 @@ class Unmask(PhaseState):
             # the round is complete: feed the controller's hysteresis (full
             # vs degraded is derived from the per-phase window outcomes)
             self.shared.round_ctl.round_completed()
+        # tenant lifecycle (docs/DESIGN.md §23): a completed round is the
+        # breaker's probe success (quarantine lift) and a drain boundary
+        from ...tenancy import lifecycle as _lifecycle
+
+        _lifecycle.note_round_completed(self.shared.tenant)
         from .idle import Idle
 
         return Idle(self.shared)

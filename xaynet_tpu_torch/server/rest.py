@@ -12,16 +12,22 @@ rust/xaynet-server/src/rest.rs:40-315):
 - ``GET /healthz``  — liveness JSON (status, phase, round id, uptime)
 - ``GET /alerts``   — SLO engine state: active alerts + transition ring
 
+A multi-tenant coordinator (``runner.serve_tenants``) serves every route
+of each tenant under ``/t/<tenant>/...``; the bare routes serve the first
+tenant, an unknown tenant answers 404, and a draining or quarantined
+tenant's ``POST /message`` sheds with 429. With an admin token the
+authenticated ``/admin/tenants`` surface onboards, reconfigures and
+drains tenants at runtime, and ``/healthz`` carries the tenants and the
+shared page pool's stats.
+
 Responses are JSON (parameters, dictionaries) or raw bytes (model) — a
 readable stand-in for the reference's bincode bodies; both ends of the wire
 are this framework. Implemented directly on asyncio streams (no third-party
 HTTP dependency); optional TLS via ``ssl.SSLContext``.
 
-The port's copy serves one tenant: the JAX package's tenant routes
-(``/t/<tenant>/...``, ``/admin/tenants``), its edge-tier routes and its
-operator console (``/statusz``) are not part of it, and the ingest
-pipeline's admission path is not either (settings refuse tenancy, the
-edge tier and the ingest pipeline).
+The JAX package's edge-tier routes and operator console (``/statusz``)
+are not part of the port, and the ingest pipeline's admission path is not
+either (settings refuse the edge tier and the ingest pipeline).
 ``stop()`` closes the connections it holds open before it waits for the
 listener to close: from Python 3.12 ``asyncio.Server.wait_closed`` waits
 for every connection, and a participant's idle keep-alive connection
@@ -33,8 +39,10 @@ from __future__ import annotations
 import asyncio
 import json
 import logging
+import math
 import ssl
 import time
+from dataclasses import dataclass
 from typing import Optional
 from urllib.parse import parse_qs, urlparse
 
@@ -47,6 +55,18 @@ from .services import Fetcher, PetMessageHandler, ServiceError
 
 logger = logging.getLogger("xaynet.rest")
 
+
+@dataclass
+class TenantRoutes:
+    """One tenant's REST surface: what ``/t/<tenant>/...`` dispatches to.
+
+    The default tenant's routes double as the bare legacy paths
+    (``/params`` == ``/t/<default>/params``), so single-tenant deployments
+    and old SDKs keep working unchanged (docs/DESIGN.md §19).
+    """
+
+    fetcher: Fetcher
+    handler: PetMessageHandler
 
 
 MAX_BODY = 1 << 32  # u32 length field ceiling, as in the reference
@@ -69,7 +89,7 @@ _UNTRACED_PATHS = {
 # both tokens are attacker-controlled, and every distinct label value is a
 # permanent registry child
 _KNOWN_PATHS = {"/message", "/params", "/sums", "/seeds", "/model",
-                "/health", "/healthz", "/metrics", "/alerts"}
+                "/health", "/healthz", "/metrics", "/alerts", "/admin/tenants"}
 _KNOWN_METHODS = {"GET", "POST", "HEAD", "PUT", "DELETE", "OPTIONS", "PATCH"}
 
 
@@ -80,14 +100,34 @@ class RestServer:
         handler: PetMessageHandler,
         read_timeout: float = 120.0,
         registry: Optional[MetricsRegistry] = None,
+        tenants: Optional[dict[str, TenantRoutes]] = None,
+        lifecycle=None,
+        admin_token: str = "",
+        default_tenant: str = "",
     ):
         # `registry` selects what GET /metrics renders. Hot-path modules
         # (request queue, message pipeline, kernel profiling, dispatcher)
         # record into the PROCESS registry at import time, so a custom
         # registry exposes only the families created against it (unit
         # tests); production keeps the default.
-        self.fetcher = fetcher
-        self.handler = handler
+        # `tenants` maps tenant id -> TenantRoutes for /t/<tenant>/...
+        # routing; the positional args above stay the DEFAULT tenant (and
+        # the bare legacy routes). None = single-tenant, as before.
+        # `lifecycle` (tenancy.TenantLifecycle) turns the tenant set
+        # elastic: mutating traffic consults its admission verdicts
+        # (draining / quarantined tenants shed with 429) and `admin_token`
+        # enables the authenticated /admin/tenants surface (constant-time
+        # compare; "" keeps it fully disabled).
+        # `default_tenant` is the real id behind the bare legacy routes so
+        # lifecycle admission applies to them too.
+        self._default_routes = TenantRoutes(fetcher=fetcher, handler=handler)
+        # the lifecycle manager mutates this dict at runtime (onboard
+        # registers, offboard pops) — it must stay the SAME object the
+        # manager holds, so adopt a provided dict instead of copying it
+        self.tenants: dict[str, TenantRoutes] = tenants if tenants is not None else {}
+        self.lifecycle = lifecycle
+        self.admin_token = admin_token
+        self.default_tenant = default_tenant
         self.read_timeout = read_timeout  # slow-client defense
         self.registry = registry if registry is not None else get_registry()
         self._started_at = time.monotonic()
@@ -163,21 +203,70 @@ class RestServer:
             except Exception:  # lint: swallow-ok (best-effort socket teardown)
                 pass
 
+    def _resolve_tenant(self, path: str):
+        """Split a ``/t/<tenant>/<sub>`` target into (tenant id, sub path,
+        routes); bare paths resolve to the default tenant's routes with an
+        empty tenant label. Unknown tenants resolve to ``routes=None``."""
+        if path != "/t" and not path.startswith("/t/"):
+            return "", path, self._default_routes
+        parts = path.split("/", 3)  # ["", "t", tenant, rest]
+        tid = parts[2] if len(parts) > 2 else ""
+        routes = self.tenants.get(tid)
+        sub = "/" + (parts[3] if len(parts) > 3 else "")
+        return tid, sub, routes
+
     async def _route(self, method: str, target: str, body: bytes, headers=None):
         url = urlparse(target)
         headers = headers or {}
-        path = url.path
+        if url.path == "/admin/tenants" or url.path.startswith("/admin/tenants/"):
+            status, payload, ctype, extra = await self._admin_route(
+                method, url.path, body, headers
+            )
+            self._http_requests.labels(
+                method=method if method in _KNOWN_METHODS else "other",
+                path="/admin/tenants",  # subpath ids stay out of the labels
+                status=status,
+                tenant="",
+            ).inc()
+            return status, payload, ctype, extra
+        tenant, path, routes = self._resolve_tenant(url.path)
+        if routes is None:
+            # unknown tenant: closed-cardinality labels (the id is
+            # attacker-controlled), no dispatch
+            self._http_requests.labels(
+                method=method if method in _KNOWN_METHODS else "other",
+                path="other",
+                status=404,
+                tenant="other",
+            ).inc()
+            return 404, b"unknown tenant", "text/plain", None
+        # elastic-lifecycle admission (docs/DESIGN.md §23): a draining or
+        # quarantined tenant's MUTATING traffic sheds at the door with 429
+        # (GET polls stay served — a draining tenant's in-flight round
+        # still needs its participants to fetch params/sums/seeds)
+        if self.lifecycle is not None and method == "POST" and path == "/message":
+            admitted, retry_after = self.lifecycle.admit(tenant or self.default_tenant)
+            if not admitted:
+                extra = (
+                    {"Retry-After": str(max(1, math.ceil(retry_after)))}
+                    if retry_after
+                    else None
+                )
+                self._http_requests.labels(
+                    method=method, path=path, status=429, tenant=tenant
+                ).inc()
+                return 429, b"tenant not accepting traffic", "text/plain", extra
         # handlers return (status, payload, ctype) or + an extra-headers dict
         if path in _UNTRACED_PATHS:
-            result = await self._dispatch(method, path, url.query, body)
+            result = await self._dispatch(method, path, url.query, body, routes)
         else:
             # the request span adopts the caller's trace (X-Xaynet-Trace:
             # the SDK) and sets the ambient context
             remote = trace.parse_header(headers.get(trace.TRACE_HEADER.lower()))
             with trace.get_tracer().span(
-                SPAN_REQUEST, link=remote, method=method, path=path, tenant=""
+                SPAN_REQUEST, link=remote, method=method, path=path, tenant=tenant
             ) as span:
-                result = await self._dispatch(method, path, url.query, body)
+                result = await self._dispatch(method, path, url.query, body, routes)
                 span.set(status=result[0])
         status, payload, ctype = result[:3]
         extra = result[3] if len(result) > 3 else None
@@ -185,18 +274,22 @@ class RestServer:
             method=method if method in _KNOWN_METHODS else "other",
             path=path if path in _KNOWN_PATHS else "other",
             status=status,
-            tenant="",
+            # tenant ids come from the operator's [tenancy] config (a
+            # validated closed set), never from the wire: unknown ids
+            # bounced above with tenant="other"
+            tenant=tenant,
         ).inc()
         return status, payload, ctype, extra
 
-    async def _dispatch(self, method: str, path: str, query: str, body: bytes):
+    async def _dispatch(self, method: str, path: str, query: str, body: bytes,
+                        routes: TenantRoutes):
         try:
             if method == "POST" and path == "/message":
-                return await self._post_message(body)
+                return await self._post_message(body, routes)
             if method == "GET" and path == "/params":
-                return 200, json.dumps(self.fetcher.round_params().to_dict()).encode(), "application/json"
+                return 200, json.dumps(routes.fetcher.round_params().to_dict()).encode(), "application/json"
             if method == "GET" and path == "/sums":
-                sums = self.fetcher.sum_dict()
+                sums = routes.fetcher.sum_dict()
                 if sums is None:
                     return 204, b"", "text/plain"
                 return (
@@ -209,7 +302,7 @@ class RestServer:
                 pk_hex = (qs.get("pk") or [""])[0]
                 if not pk_hex:
                     return 400, b"missing pk", "text/plain"
-                seeds = self.fetcher.seeds_for(bytes.fromhex(pk_hex))
+                seeds = routes.fetcher.seeds_for(bytes.fromhex(pk_hex))
                 if seeds is None:
                     return 204, b"", "text/plain"
                 if (qs.get("fmt") or [""])[0] == "bin":
@@ -240,17 +333,20 @@ class RestServer:
                 )
             if method == "GET" and path == "/healthz":
                 # liveness + the coarse round position, cheap enough to poll
-                payload = self._health_payload()
+                payload = self._health_payload(routes)
                 payload["status"] = "ok"
                 payload["uptime_seconds"] = round(time.monotonic() - self._started_at, 3)
                 streaming = self._streaming_health()
                 if streaming is not None:
                     payload["pipeline"] = streaming
+                tenancy = self._tenancy_health()
+                if tenancy is not None:
+                    payload["tenancy"] = tenancy
                 return 200, json.dumps(payload).encode(), "application/json"
             if method == "GET" and path == "/health":
-                return 200, json.dumps(self._health_payload()).encode(), "application/json"
+                return 200, json.dumps(self._health_payload(routes)).encode(), "application/json"
             if method == "GET" and path == "/model":
-                model = self.fetcher.model()
+                model = routes.fetcher.model()
                 if model is None:
                     return 204, b"", "text/plain"
                 # model DOWNLOAD response, not a request body
@@ -260,6 +356,82 @@ class RestServer:
         except Exception as err:
             logger.exception("request failed: %s %s", method, path)
             return 500, str(err).encode(), "text/plain"
+
+    async def _admin_route(self, method: str, path: str, body: bytes, headers: dict):
+        """The authenticated tenant-lifecycle surface (docs/DESIGN.md §23).
+
+        - ``GET    /admin/tenants``        — lifecycle states of every tenant
+        - ``POST   /admin/tenants``        — onboard: ``{"tenant": "<id>"}``
+        - ``POST   /admin/tenants/<id>``   — reconfigure: ``{"weight", "tier"}``
+        - ``DELETE /admin/tenants/<id>``   — graceful drain (+ hard-kill
+          escalation after the drain budget)
+
+        Fully disabled (404, indistinguishable from an unknown route)
+        unless BOTH a lifecycle manager and a ``[tenancy] admin_token``
+        are configured; the token check is constant-time. Status mapping:
+        400 malformed id/body, 401 bad token, 409 incompatible lifecycle
+        state (already serving, not drainable).
+        """
+        import hmac
+
+        if self.lifecycle is None or not self.admin_token:
+            return 404, b"not found", "text/plain", None
+        supplied = headers.get("x-admin-token", "")
+        if not hmac.compare_digest(supplied.encode(), self.admin_token.encode()):
+            return 401, b"bad admin token", "text/plain", None
+        from ..tenancy import LifecycleError
+
+        sub = path[len("/admin/tenants"):].strip("/")
+        try:
+            if method == "GET" and not sub:
+                return (
+                    200,
+                    json.dumps({"tenants": self.lifecycle.states()}).encode(),
+                    "application/json",
+                    None,
+                )
+            if method == "POST" and not sub:
+                spec = json.loads(body or b"{}")
+                result = await self.lifecycle.onboard(str(spec.get("tenant", "")))
+                return 200, json.dumps(result).encode(), "application/json", None
+            if method in ("POST", "PATCH") and sub:
+                spec = json.loads(body or b"{}")
+                result = self.lifecycle.reconfigure(
+                    sub, weight=spec.get("weight"), tier=spec.get("tier")
+                )
+                return 200, json.dumps(result).encode(), "application/json", None
+            if method == "DELETE" and sub:
+                result = await self.lifecycle.offboard(sub)
+                return 200, json.dumps(result).encode(), "application/json", None
+            return 404, b"not found", "text/plain", None
+        except LifecycleError as err:
+            return 409, str(err).encode(), "text/plain", None
+        except (ValueError, KeyError) as err:  # bad tenant id / bad JSON body
+            return 400, str(err).encode(), "text/plain", None
+        except Exception as err:
+            logger.exception("admin request failed: %s %s", method, path)
+            return 500, str(err).encode(), "text/plain", None
+
+    def _tenancy_health(self) -> dict | None:
+        """The multi-tenant /healthz section: registered tenants, each
+        tenant's phase/round, and the shared pool's page accounting (its
+        page-locked bytes too). ``None`` (no section) for single-tenant
+        deployments."""
+        if not self.tenants:
+            return None
+        from ..tenancy.pool import get_pool
+
+        pool = get_pool()
+        return {
+            "tenants": {
+                tid: {
+                    "phase": r.fetcher.phase().value,
+                    "round_id": r.fetcher.events.params.get_latest().round_id,
+                }
+                for tid, r in list(self.tenants.items())
+            },
+            "pool": {**pool.stats(), "pinned_bytes": pool.pinned_bytes()},
+        }
 
     def _streaming_health(self) -> dict | None:
         """The streaming-fold ``pipeline`` section of /healthz, read from
@@ -296,16 +468,16 @@ class RestServer:
             }
         return section
 
-    def _health_payload(self) -> dict:
+    def _health_payload(self, routes: TenantRoutes) -> dict:
         """Shared by /health (legacy shape) and /healthz (superset)."""
         return {
-            "phase": self.fetcher.phase().value,
-            "round_id": self.fetcher.events.params.get_latest().round_id,
+            "phase": routes.fetcher.phase().value,
+            "round_id": routes.fetcher.events.params.get_latest().round_id,
         }
 
-    async def _post_message(self, body: bytes):
+    async def _post_message(self, body: bytes, routes: TenantRoutes):
         try:
-            await self.handler.handle_message(body)
+            await routes.handler.handle_message(body)
         except (ServiceError, RequestError) as err:
             # the reference answers 200 regardless and logs the drop —
             # clients learn outcomes from round progression, not the POST

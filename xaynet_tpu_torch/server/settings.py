@@ -9,9 +9,9 @@ settings/mod.rs:307-376).
 
 The port's copy keeps every key the JAX package reads, so one config file
 loads in both, and refuses with a ``SettingsError`` what the port does not
-have (``Settings.validate_port``): tenancy, the ingest pipeline, the edge
-tier, the ``redis`` coordinator store, the ``s3`` model store, and any fold
-kernel other than ``auto``.
+have (``Settings.validate_port``): the ingest pipeline, the edge tier
+(tenancy with either of them too), the ``redis`` coordinator store, the
+``s3`` model store, and any fold kernel other than ``auto``.
 """
 
 from __future__ import annotations
@@ -505,7 +505,7 @@ class TenancySettings:
     pipeline per id in ``tenants`` — each with its own mask config, model
     length and liveness policy (per-tenant override TOML in
     ``config_dir/<tenant>.toml``, loaded through the normal settings
-    loader) — sharing the mesh, the page pool and the REST listener. The
+    loader) — sharing the device, the page pool and the REST listener. The
     FIRST id doubles as the default tenant serving the bare legacy routes;
     every tenant is also reachable under ``/t/<tenant>/...``.
 
@@ -773,11 +773,19 @@ class Settings:
 
     def validate_port(self) -> None:
         """Refuse what the JAX package serves and the port does not have;
-        each message names the ROADMAP item that would add it."""
-        if self.tenancy.enabled:
+        each message names the ROADMAP item that would add it. A
+        multi-tenant coordinator loads each tenant's file through the same
+        loader, so a per-tenant file is refused for the same keys."""
+        if self.tenancy.enabled and self.ingest.enabled:
             raise SettingsError(
-                "tenancy.enabled is not supported by xaynet_tpu_torch "
-                "(ROADMAP Queue 1 item 16, tenancy)"
+                "tenancy.enabled together with ingest.enabled is not supported by "
+                "xaynet_tpu_torch: tenants are served without the ingest pipeline "
+                "(ROADMAP Queue 1 item 17, the ingest pipeline)"
+            )
+        if self.tenancy.enabled and self.edge.enabled:
+            raise SettingsError(
+                "tenancy.enabled together with edge.enabled is not supported by "
+                "xaynet_tpu_torch (ROADMAP Queue 1 item 18, the edge tier)"
             )
         if self.ingest.enabled:
             raise SettingsError(

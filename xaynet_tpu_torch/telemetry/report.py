@@ -117,6 +117,22 @@ def _timeline_snapshot(tenant: str, round_id: Optional[int]) -> Optional[dict]:
     return out
 
 
+def _fairness_snapshot() -> Optional[dict]:
+    """Per-tenant fold-batch grants since the previous round flush, read
+    from the tenant scheduler (lazy import: telemetry must not pull the
+    tenancy machinery into processes that never aggregate). ``None`` until
+    the scheduler has granted slots to MORE than one tenant — single-tenant
+    reports don't grow a trivial section."""
+    from ..tenancy.scheduler import get_scheduler
+
+    split = get_scheduler().split()
+    # cumulative (not a drained window): each tenant's reporter flushes on
+    # its own round cadence, and a shared drained delta would let one
+    # tenant's flush steal another's window; consumers diff consecutive
+    # reports for per-round rates
+    return split if len(split) >= 2 else None
+
+
 class RoundReporter:
     """Accumulates one round's telemetry and writes it as a JSON line."""
 
@@ -205,6 +221,13 @@ class RoundReporter:
         streaming = _streaming_snapshot()
         if streaming is not None:
             report["streaming"] = streaming
+        fairness = _fairness_snapshot()
+        if fairness is not None:
+            # the tenant scheduler's fold-batch split: how the rounds'
+            # device work interleaved across tenants (docs/DESIGN.md §19).
+            # Only present once the scheduler has granted slots to more
+            # than one tenant.
+            report["fairness"] = fairness
         current = _bytes_counters()
         deltas = {
             short: {

@@ -129,22 +129,37 @@ Builds the hand-written CUDA kernels from ``xaynet_tpu_torch/csrc`` with
 - **Phase L** is a forged round through the coordinator: ``serve()`` as in
   Phase R with prime/f32/b0/m6 (capacity 10^6 updates), model length 256,
   batch 64, wire ingest with packed uploads, count windows of 1 sum, 2,000
-  updates and 1 sum2; one sum participant on the port's SDK; then
-  ``loadgen.runner.run`` forges and replays the 2,000 updates over REST
-  from two spawned driver processes (blocks of 512, 64 POSTs in flight
-  each; K5 and K2 per row once a block in their engines); then the Sum2
-  (K5 once over its 2,000 seeds, K2 a seed). It checks every
+  updates and 1 sum2, and the ingest pipeline at the JAX loadgen soak's
+  settings (``[ingest] enabled``, 2 shards of 4,096, Retry-After 0.2 s;
+  coalescing at the shipped 32 members and 2 ms); one sum participant on
+  the port's SDK; then ``loadgen.runner.run`` forges and replays the 2,000
+  updates over REST from two spawned driver processes (blocks of 512, 64
+  POSTs in flight each; K5 and K2 per row once a block in their engines);
+  then the Sum2 (K5 once over its 2,000 seeds, K2 a seed). It checks every
   update accepted, the model byte-identical to ``SimRound`` over the
   drivers' ground truth (seeds, models and scalar, rebuilt from the run's
-  seeds) and within 2000 / exp_shift + 1e-6 of the mean, K4 on every
-  update, K1 on the device rows and K5 and K2 in the drivers and in Sum2; it
-  prints the accepted updates/s over the replay window, the per-POST p50,
-  p99 and max, the forge seconds and the coordinator's decrypt/parse
-  seconds, and traces the round like Phase R; the drivers' device work
-  runs in their own processes, outside that trace, so Phase L's idle share
-  is that of the coordinator's process, not the card's. Then ``python -m
-  xaynet_tpu_torch.server.runner -c <cfg>`` at length 1000 must answer
-  ``GET /params`` and exit 0 on SIGTERM with "coordinator stopped" logged.
+  seeds) and within 2000 / exp_shift + 1e-6 of the mean; that the
+  coalescer sent all 2,000 members, the intake stayed within its bound
+  and ``xaynet_ingest_admitted_total`` counted every POST that was not
+  shed; K4 launched fewer times than there were updates, once per
+  prevalidated chunk or member check the round's aggregator counted, K1
+  on the device rows and K5 and K2 in the drivers and in Sum2; that
+  ``/healthz`` carries the ``ingest`` and ``pipeline`` sections and ``GET
+  /statusz`` renders the ingress and streaming sections. It prints the
+  accepted updates/s over the replay window, the per-POST p50, p99 and
+  max, the coalesced envelopes' sizes, K4's launches, the forge seconds
+  and the ingest workers' decrypt/parse seconds, and traces the round like
+  Phase R; the drivers' device work runs in their own processes, outside
+  that trace, so Phase L's idle share is that of the coordinator's
+  process, not the card's. **Phase L-shed** is the same coordinator with
+  a small intake (1 shard of 16, watermarks 0.8 / 0.5, Retry-After 0.2 s)
+  and 256 updates from one driver with 64 POSTs in flight, each shed
+  upload retried after its Retry-After: the driver must see 429s, each
+  with a Retry-After and as many as ``xaynet_ingest_shed_total`` counts,
+  every update accepted in the end and the model byte-identical to
+  ``SimRound``'s. Then ``python -m xaynet_tpu_torch.server.runner -c
+  <cfg>`` at length 1000 must answer ``GET /params`` and exit 0 on
+  SIGTERM with "coordinator stopped" logged.
 - **Phase T** is local training on the port (``models``): (t1) ResNet-50
   at full width (1000 classes, stages (3, 4, 6, 3), bf16 activations,
   25,557,032 parameters) from a seeded ``torch.Generator``, on synthetic
@@ -169,7 +184,8 @@ Builds the hand-written CUDA kernels from ``xaynet_tpu_torch/csrc`` with
   (Phase T's 25,557,032 parameters, the shipped prime/f32/b0/m3, batch 64,
   packed staging, 1 sum, 3 updates, 1 sum2) and ``lenet``
   (``cifar_lenet``'s 136,886, integer/f32/b0/m3, wire ingest with v2
-  uploads, the ``file`` store, 1 sum, 8 updates, 1 sum2), each from its own
+  uploads, the ``file`` store, its messages through its own ingest
+  pipeline, 1 sum, 8 updates, 1 sum2), each from its own
   file in the ``config_dir``, and an admin token. The port's SDK drives
   both rounds at once over the socket at ``/t/resnet`` and ``/t/lenet``
   inside one profiler window; then ``mlp`` (``house_prices``' 3,009) is
@@ -178,9 +194,12 @@ Builds the hand-written CUDA kernels from ``xaynet_tpu_torch/csrc`` with
   byte-identical to the plain CPU fold and unmask of what the participants
   sent and within ``n / exp_shift + 1e-6`` of the mean, the bare
   ``/params`` (resnet's) and ``/t/nope/params`` (404), every fold on CUDA
-  and each path's launches, the scheduler's split over both round tenants,
-  the pool balanced for all three tenants in both arenas, and mlp's routes
-  404 after the drain; it prints each tenant's walls from its first update
+  and each path's launches (lenet's K4 and K1 packed as its coalesced
+  flushes need), the scheduler's split over both round tenants, the pool
+  balanced for all three tenants in both arenas, mlp's routes 404 after
+  the drain, lenet's pipeline charging the per-tenant admission budget
+  during its round and holding none after, and ``/t/lenet/healthz``'s
+  ``ingest`` section (resnet's direct path has none); it prints each tenant's walls from its first update
   POST, the pool's page-locked bytes and each flush's pin seconds, the
   device ledger's pages per tenant, the peak host RSS and the window's idle
   share.
@@ -335,10 +354,17 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
+def toml_value(value) -> str:
+    if isinstance(value, bool):
+        return str(value).lower()
+    return f'"{value}"' if isinstance(value, str) else repr(value)
+
+
 def write_coordinator_config(path: Path, port: int, length: int, model_dir: Path,
                              n_updates: int = 3, device_fold: bool = True,
                              wire: bool = False, journal: bool | None = None,
-                             model_type: str = "m3", probs: tuple = (0.01, 0.1)) -> Path:
+                             model_type: str = "m3", probs: tuple = (0.01, 0.1),
+                             ingest: dict | None = None) -> Path:
     """A coordinator config: the shipped mask config, probabilities and
     aggregation knobs (``configs/config.toml``; batch 64, packed staging),
     the device fold on, count windows with min = max (1 sum, ``n_updates``
@@ -347,11 +373,16 @@ def write_coordinator_config(path: Path, port: int, length: int, model_dir: Path
     packed upload format (wire v2, so participants send byte planes); with
     ``journal`` (default: ``wire``) the ``file`` coordinator store and the
     round journal in ``model_dir``. ``model_type`` sets the mask's capacity
-    (m3: 10^3 updates), ``probs`` the sum and update probabilities."""
+    (m3: 10^3 updates), ``probs`` the sum and update probabilities,
+    ``ingest`` further ``[ingest]`` keys (``enabled = true`` puts the
+    ingest pipeline in front of the round)."""
     if journal is None:
         journal = wire
     window = 'time = {{ min = 0.0, max = 900.0 }}\ncount = {{ min = {n}, max = {n} }}'
-    wire_keys = ('wire_ingest = true\n[ingest]\nwire_format = "packed"\n' if wire else "")
+    ingest = {**({"wire_format": "packed"} if wire else {}), **(ingest or {})}
+    wire_keys = "wire_ingest = true\n" if wire else ""
+    if ingest:
+        wire_keys += "[ingest]\n" + "".join(f"{k} = {toml_value(v)}\n" for k, v in ingest.items())
     wire_keys += "[resilience]\ncheckpoint_enabled = true\n" if journal else ""
     store = 'coordinator = "file"\n' if journal else ""
     path.write_text(
@@ -409,13 +440,15 @@ def wait_for(pred, timeout: float, what: str, poll: float = 0.01):
 
 
 def pipeline_counters() -> dict:
-    """The coordinator's message-pipeline seconds (decrypt and parse, and
-    all of the handling) and its journal writes, from its registry."""
+    """The coordinator's message-pipeline seconds (decrypt and parse, one
+    message at a time and in the ingest workers' batches, and all of the
+    direct path's handling) and its journal writes, from its registry."""
     from xaynet_tpu_torch.telemetry.registry import get_registry
 
     registry = get_registry()
     family = registry.get("xaynet_message_pipeline_seconds")
-    out = {stage: family.labels(stage=stage).sum for stage in ("decrypt_parse", "total")}
+    out = {stage: family.labels(stage=stage).sum
+           for stage in ("decrypt_parse", "decrypt_parse_batch", "total")}
     journal = registry.get("xaynet_resilience_checkpoints_total")
     out["journal_writes"] = sum(child.value for _, child in journal.children())
     return out
@@ -2276,51 +2309,59 @@ class Smoke:
 
     # -- phase L: a forged 2,000-update round through the coordinator ---------
 
-    def phase_l(self) -> dict:
+    # the JAX package's loadgen soak runs its coordinator with these ingest
+    # keys (tools/loadgen_soak.py); coalescing keeps the shipped defaults
+    # (32 members, 2 ms linger: configs/config.toml)
+    SOAK_INGEST = {"enabled": True, "shards": 2, "queue_bound": 4096, "retry_after_seconds": 0.2}
+    SHED_INGEST = {"enabled": True, "shards": 1, "queue_bound": 16, "high_watermark": 0.8,
+                   "low_watermark": 0.5, "retry_after_seconds": 0.2}
+
+    def forged_round(self, tag: str, n_up: int, drivers: int, ingest: dict,
+                     max_shed_retries: int = 3, traced: bool = True) -> dict:
         """A round of the port's coordinator (``serve()`` in a thread, no
-        device: CUDA) fed by the port's load generator: prime/f32/b0/m6 (2,000
-        updates exceed m3's capacity), model length 256, batch 64, wire
-        ingest with packed (v2) uploads, count windows of 1 sum, 2,000
+        device: CUDA) fed by the port's load generator: prime/f32/b0/m6,
+        model length 256, batch 64, wire ingest with packed (v2) uploads,
+        the ``[ingest]`` keys ``ingest``, count windows of 1 sum, ``n_up``
         updates and 1 sum2. One sum participant on the port's SDK; then
-        ``loadgen.runner.run`` forges and replays the 2,000 updates from 2
-        spawned drivers (blocks of 512, 64 POSTs in flight), each driver's
-        masks derived by K2 per row; then the sum participant's Sum2 (K2).
-        Checks every update accepted, the model byte-identical to
-        ``SimRound`` over the drivers' ground truth (their seeds, models and
-        scalar, rebuilt from the run's seeds) and within the protocol
-        tolerance of the mean, K4 on every update, K1 on the device rows and
-        K2 in the drivers and in Sum2."""
+        ``loadgen.runner.run`` forges and replays the updates from
+        ``drivers`` spawned drivers (blocks of 512, 64 POSTs in flight
+        each); then the sum participant's Sum2. Returns what the checks
+        read: the drivers' stats and launches, the model, this process's
+        launches, the ingest pipeline and its coalesced envelope sizes, the
+        update phase's aggregator, the ingest counters' deltas over the
+        replay, ``/healthz`` and ``/statusz`` after the round, and the
+        ground truth rebuilt from the run's seeds with ``SimRound``'s model
+        over it."""
         import asyncio
         import shutil
         import tempfile
 
+        import xaynet_tpu_torch.ingest as ingest_pkg
         from xaynet_tpu_torch.loadgen import runner as loadgen
         from xaynet_tpu_torch.ops import kernels
         from xaynet_tpu_torch.sdk.client import HttpClient
         from xaynet_tpu_torch.sdk.simulation import keys_for_task
         from xaynet_tpu_torch.sdk.state_machine import PetSettings, StateMachine
         from xaynet_tpu_torch.server import settings as settings_mod
+        from xaynet_tpu_torch.server.phases import update as update_phase
         from xaynet_tpu_torch.sim import SimRound, SimSpec
+        from xaynet_tpu_torch.telemetry.registry import get_registry
 
-        n_up, length, drivers = 2000, 256, 2
+        length = 256
         device = None if self.cuda else self.dev  # no device: CUDA
-        work = Path(tempfile.mkdtemp(prefix="xn_phase_l_"))
+        work = Path(tempfile.mkdtemp(prefix=f"xn_{tag}_"))
         port = free_port()
         base = f"http://127.0.0.1:{port}"
         cfg_path = write_coordinator_config(work / "config.toml", port, length, work / "models",
                                             n_up, wire=True, journal=False, model_type="m6",
-                                            probs=(0.5, 0.9))  # fmt: skip
+                                            probs=(0.5, 0.9), ingest=ingest)  # fmt: skip
         settings = settings_mod.Settings.load(str(cfg_path), env={})
         pair = settings.mask.to_config().pair()
-        self.check(settings.mask.model_type.name == "M6" and pair.vect.max_nb_models >= n_up
-                   and settings.aggregation.wire_ingest and settings.aggregation.batch_size == 64
-                   and settings.ingest.wire_format == "packed" and not settings.ingest.enabled,
-                   f"(l0) phase L's config: m6 (capacity {pair.vect.max_nb_models}), wire ingest, "
-                   "packed uploads, batch 64, no ingest pipeline")  # fmt: skip
         lg_cfg = dict(loadgen.default_cfg(), url=base, participants=n_up, drivers=drivers,
                       block_size=512, concurrency=64, model_length=length, wire="auto",
                       device="cuda" if self.cuda else str(self.dev), sum_wait_s=120.0,
-                      timeout=300.0, seed=self.args.seed + 5)  # fmt: skip
+                      timeout=300.0, seed=self.args.seed + 5,
+                      max_shed_retries=max_shed_retries)  # fmt: skip
 
         async def step_until(sm, phase: str, what: str, timeout: float = 300.0) -> None:
             deadline = time.perf_counter() + timeout
@@ -2331,7 +2372,38 @@ class Smoke:
                 await asyncio.sleep(0.02)
             raise Failure(f"timed out after {timeout:.0f} s waiting for {what}")
 
+        # the coordinator's ingest pipeline, each coalesced envelope's size,
+        # and the round's aggregator (its device wire-check counts)
+        pipes, envelopes, aggs = [], [], []
+        real_pipeline, real_build = ingest_pkg.IngestPipeline, update_phase.build_staged_aggregator
+
+        class SizedSender:
+            def __init__(self, inner):
+                self.inner = inner
+
+            async def request(self, batch):
+                envelopes.append(len(batch))
+                return await self.inner.request(batch)
+
+        class SpyPipeline(real_pipeline):
+            def __init__(self, *args, **kwargs):
+                super().__init__(*args, **kwargs)
+                if self.coalescer is not None:
+                    self.coalescer.request_tx = SizedSender(self.coalescer.request_tx)
+                pipes.append(self)
+
+        def spy_build(shared):
+            aggs.append(real_build(shared))
+            return aggs[-1]
+
+        registry = get_registry()
+
+        def ingest_counts() -> dict:
+            return {k: registry.sample_value(f"xaynet_ingest_{k}_total") or 0
+                    for k in ("admitted", "shed")}  # fmt: skip
+
         walls: dict = {}
+        ingest_pkg.IngestPipeline, update_phase.build_staged_aggregator = SpyPipeline, spy_build
         coordinator = InProcessCoordinator(settings, device)
         try:
             wait_for(lambda: coordinator_phase(base) == "sum", 120, "the coordinator's sum phase")
@@ -2344,10 +2416,14 @@ class Smoke:
             wait_for(lambda: coordinator_phase(base) == "update", 120, "the update phase")
             before = pipeline_counters()
             kernels.reset_launches()
+            counts: dict = {}
 
             def round_():
                 t0 = time.perf_counter()
+                c0 = ingest_counts()
                 stats = loadgen.run(lg_cfg)
+                c1 = ingest_counts()
+                counts.update({k: c1[k] - c0[k] for k in c0})
                 walls["loadgen_run"] = time.perf_counter() - t0
                 wait_for(lambda: coordinator_phase(base) != "update", 300,
                          "the update phase to close")  # fmt: skip
@@ -2363,65 +2439,183 @@ class Smoke:
                 walls["model_after_run"] = time.perf_counter() - t0 - walls["loadgen_run"]
                 return stats, model
 
-            stats, model = self.traced("phase L", round_)
+            stats, model = self.traced(f"phase {tag}", round_) if traced else round_()
             launches = dict(kernels.LAUNCHES)
             after = pipeline_counters()
+            health = json.loads(http_call(base, "GET", "/healthz", timeout=60)[1])
+            statusz = http_call(base, "GET", "/statusz", timeout=60)
             probe.close()
         finally:
+            ingest_pkg.IngestPipeline, update_phase.build_staged_aggregator = real_pipeline, real_build
             coordinator.stop()
             shutil.rmtree(work, ignore_errors=True)
-        pipeline = {k: after[k] - before[k] for k in after}
-        driver_launches = stats["launches"]
-
         seeds, weights, scalar = loadgen.ground_truth(lg_cfg)
         t = time.perf_counter()
         sim = SimRound(SimSpec(pair, length, block_size=512), device=device).run(seeds, weights,
                                                                                 scalar)  # fmt: skip
-        sim_s = time.perf_counter() - t
+        return {"settings": settings, "pair": pair, "lg_cfg": lg_cfg, "stats": stats,
+                "model": model, "launches": launches, "walls": walls,
+                "pipeline_seconds": {k: after[k] - before[k] for k in after},
+                "pipeline": pipes[0] if pipes else None, "envelopes": envelopes,
+                "aggregator": aggs[0] if aggs else None, "ingest_counts": counts,
+                "health": health, "statusz": statusz, "weights": weights,
+                "sim_model": sim.global_model, "sim_s": time.perf_counter() - t}  # fmt: skip
+
+    def check_forged_model(self, tag: str, out: dict, n_up: int) -> float:
+        """(2)-(4) of a forged round: every update accepted by the
+        coordinator, the model finite and byte-identical to ``SimRound``
+        over the drivers' ground truth, within the protocol tolerance of
+        the mean; returns the decode error."""
+        stats, model, pair = out["stats"], out["model"], out["pair"]
         self.check(stats["accepted"] == n_up and stats["errors"] == 0 and stats["abandoned"] == 0,
-                   f"(l1) accepted {stats['accepted']} == {n_up} (errors {stats['errors']}, "
+                   f"({tag}1) accepted {stats['accepted']} == {n_up} (errors {stats['errors']}, "
                    f"abandoned {stats['abandoned']}, shed {stats['shed']})")
-        self.check(model.shape == (length,) and bool(np.all(np.isfinite(model))),
-                   "(l2) global model finite, of the model length")
-        self.check(model.tobytes() == sim.global_model.tobytes(),
-                   f"(l3) global model byte-identical to SimRound over the {n_up} forged "
+        self.check(model.shape == (out["lg_cfg"]["model_length"],)
+                   and bool(np.all(np.isfinite(model))),
+                   f"({tag}2) global model finite, of the model length")  # fmt: skip
+        self.check(model.tobytes() == out["sim_model"].tobytes(),
+                   f"({tag}3) global model byte-identical to SimRound over the {n_up} forged "
                    "participants' seeds, models and scalar")  # fmt: skip
         tol = n_up / pair.vect.exp_shift + 1e-6
-        err = float(np.max(np.abs(model - weights.astype(np.float64).mean(axis=0))))
-        self.check(err <= tol, f"(l4) |model - mean| = {err:.3e} <= {tol:.3e}")
+        err = float(np.max(np.abs(model - out["weights"].astype(np.float64).mean(axis=0))))
+        self.check(err <= tol, f"({tag}4) |model - mean| = {err:.3e} <= {tol:.3e}")
+        return err
+
+    def phase_l(self) -> dict:
+        """2,000 forged updates from 2 drivers through the coordinator
+        (:meth:`forged_round`) at the JAX loadgen soak's ingest settings:
+        the ingest pipeline on, 2 shards of 4,096, Retry-After 0.2 s, packed
+        uploads, coalescing at the shipped defaults. Checks every update
+        accepted, the model byte-identical to ``SimRound`` over the drivers'
+        ground truth and within the protocol tolerance of the mean; the
+        coalescer sent all 2,000 members, the intake stayed within its
+        bound, ``xaynet_ingest_admitted_total`` counted every POST not shed;
+        K4 launched fewer times than there were updates, once per
+        prevalidated chunk or member check the aggregator counted, K1 on the
+        device rows, K5 and K2 in the drivers and in Sum2; ``/healthz``
+        carries the ``ingest`` and ``pipeline`` sections and ``/statusz``
+        renders ingress and streaming."""
+        n_up, drivers = 2000, 2
+        out = self.forged_round("L", n_up, drivers, self.SOAK_INGEST)
+        settings, stats, launches = out["settings"], out["stats"], out["launches"]
+        ing = settings.ingest
+        self.check(settings.mask.model_type.name == "M6" and out["pair"].vect.max_nb_models >= n_up
+                   and settings.aggregation.wire_ingest and settings.aggregation.batch_size == 64
+                   and ing.wire_format == "packed" and ing.enabled and ing.shards == 2
+                   and ing.queue_bound == 4096 and ing.retry_after_seconds == 0.2
+                   and ing.coalesce and ing.coalesce_max_batch == 32
+                   and ing.coalesce_linger_ms == 2.0,
+                   f"(l0) phase L's config: m6 (capacity {out['pair'].vect.max_nb_models}), wire "
+                   "ingest, packed uploads, batch 64, the ingest pipeline at the soak's settings "
+                   "(2 shards x 4096, Retry-After 0.2 s), coalescing 32 / 2 ms")  # fmt: skip
+        err = self.check_forged_model("l", out, n_up)
+        pipe, agg, sizes = out["pipeline"], out["aggregator"], out["envelopes"]
+        self.check(pipe is not None and pipe.coalescer.members_sent == n_up
+                   and sum(sizes) == n_up,
+                   f"(l5) the coalescer sent {pipe.coalescer.members_sent if pipe else None} members "
+                   f"== {n_up} in {len(sizes)} envelopes")  # fmt: skip
+        self.check(0 < pipe.intake.max_occupancy <= ing.queue_bound,
+                   f"(l6) the intake's max occupancy {pipe.intake.max_occupancy} <= its bound "
+                   f"{ing.queue_bound}")  # fmt: skip
+        counts = out["ingest_counts"]
+        self.check(counts["admitted"] == stats["accepted"] and counts["shed"] == stats["shed"],
+                   f"(l7) xaynet_ingest_admitted_total counted {counts['admitted']} == the "
+                   f"{stats['accepted']} POSTs not shed (shed {counts['shed']} == the drivers' "
+                   f"{stats['shed']})")  # fmt: skip
+        checks = agg.prevalidated_chunks + agg.member_checks
+        driver_launches = stats["launches"]
         if self.cuda:
-            self.check(launches["packed_check"] == n_up and launches["wire_unpack"] == 0,
-                       f"(l5) the coordinator's K4 checked every update ({launches['packed_check']}"
-                       f" == {n_up}; K3 {launches['wire_unpack']})")
+            self.check(launches["packed_check"] < n_up and launches["packed_check"] == checks
+                       and launches["wire_unpack"] == 0,
+                       f"(l8) the coordinator's K4 launched {launches['packed_check']} < {n_up} "
+                       f"times, == the aggregator's {agg.prevalidated_chunks} prevalidated chunks "
+                       f"+ {agg.member_checks} member checks (K3 {launches['wire_unpack']})")
             self.check(launches["fold_packed"] >= -(-n_up // 8),
-                       f"(l6) K1 folded the device rows ({launches['fold_packed']} launches, at "
+                       f"(l9) K1 folded the device rows ({launches['fold_packed']} launches, at "
                        f"most 8 rows each)")
-            blocks = drivers * -(-(n_up // drivers) // lg_cfg["block_size"])
+            blocks = drivers * -(-(n_up // drivers) // out["lg_cfg"]["block_size"])
             self.check(driver_launches.get("unit_draws", 0) == blocks
                        and driver_launches.get("mask_fold_rows", 0) >= blocks
                        and launches["mask_fold"] >= n_up and launches["unit_draws"] == 1,
-                       f"(l7) K5 and K2 per row in the drivers' engines "
+                       f"(l10) K5 and K2 per row in the drivers' engines "
                        f"{driver_launches.get('unit_draws')}, "
                        f"{driver_launches.get('mask_fold_rows')} (== {blocks} blocks, one trip "
                        f"each); the sum participant's Sum2: K5 {launches['unit_draws']} == 1 over "
                        f"its {n_up} seeds, K2 {launches['mask_fold']} >= {n_up}")
+        health, (status, page) = out["health"], out["statusz"]
+        self.check({"ingest", "ingress", "pipeline"} <= set(health)
+                   and health["ingress"]["accepted_total"] >= n_up + 2,
+                   f"(l11) /healthz carries the ingest and pipeline sections (ingest "
+                   f"{health.get('ingest')}, pipeline {health.get('pipeline')})")  # fmt: skip
+        self.check(status == 200 and b"<h2>ingress</h2>" in page
+                   and b"<h2>streaming pipeline</h2>" in page,
+                   f"(l12) GET /statusz answers {status} with the ingress and streaming sections")
         post = stats["post_s"]
         forge = {k: v.get("forge_s") for k, v in stats["drivers"].items()}
-        log(f"[phase L] {n_up} forged updates x {length} params through the coordinator from "
-            f"{drivers} drivers: checks (l0)-(l7) passed; decode max err {err:.3e} <= {tol:.3e}")
+        sorted_sizes = sorted(sizes)
+        batch_sizes = {"n": len(sizes), "min": sorted_sizes[0],
+                       "median": sorted_sizes[len(sizes) // 2], "max": sorted_sizes[-1]}
+        walls, pipeline = out["walls"], out["pipeline_seconds"]
+        log(f"[phase L] {n_up} forged updates x 256 params through the ingest pipeline and the "
+            f"coordinator from {drivers} drivers: checks (l0)-(l12) passed; decode max err "
+            f"{err:.3e}")
         log(f"[phase L] accepted {stats['accepted_per_s']} updates/s over the tier's replay "
-            f"window of {stats['wall_s']} s; POST seconds p50 {post['p50']:.4f}, p99 "
-            f"{post['p99']:.4f}, max {post['max']:.4f}; forge seconds by driver {forge}; "
+            f"window of {stats['wall_s']} s (the direct path without the ingest pipeline: 316.03 on an H100 80GB HBM3); POST seconds "
+            f"p50 {post['p50']:.4f}, p99 {post['p99']:.4f}, max {post['max']:.4f}; coalesced "
+            f"envelopes {batch_sizes}; K4 launches {launches['packed_check']} (one per update on the direct path: 2000); "
+            f"intake max occupancy {pipe.intake.max_occupancy}; forge seconds by driver {forge}; "
             f"loadgen.run {walls['loadgen_run']:.3f} s (spawn, forge, replay)")
-        log(f"[phase L] coordinator message pipeline: decrypt_parse "
-            f"{pipeline['decrypt_parse']:.3f} s of {pipeline['total']:.3f} s handling; the sum "
+        log(f"[phase L] coordinator message pipeline: the ingest workers' batched decrypt and "
+            f"parse {pipeline['decrypt_parse_batch']:.3f} s; the sum "
             f"participant's Sum2 step {walls['sum2_participant']:.3f} s; model "
             f"{walls['model_after_run']:.3f} s after the run returned; SimRound of the same "
-            f"population {sim_s:.3f} s")
+            f"population {out['sim_s']:.3f} s")
         log(f"[phase L] launches: this process {launches}; the drivers {driver_launches}")
         return {"stats": stats, "walls": walls, "pipeline_seconds": pipeline,
                 "launches": launches, "driver_launches": driver_launches,
-                "decode_max_err": err, "sim_s": sim_s}
+                "decode_max_err": err, "sim_s": out["sim_s"], "coalesced": batch_sizes,
+                "intake_max_occupancy": pipe.intake.max_occupancy,
+                "prevalidated_chunks": agg.prevalidated_chunks,
+                "member_checks": agg.member_checks, "ingest_counts": counts,
+                "healthz": health}  # fmt: skip
+
+    def phase_l_shed(self) -> dict:
+        """A small forged round (:meth:`forged_round`) into a saturating
+        intake: one shard of 16, watermarks 0.8 / 0.5, Retry-After 0.2 s;
+        256 updates from one driver with 64 POSTs in flight, each shed
+        upload retried after its Retry-After. Checks that the driver saw
+        429s, each with a Retry-After, as many as the coordinator's
+        ``xaynet_ingest_shed_total`` counted; every update accepted in the
+        end and the model byte-identical to ``SimRound``'s."""
+        n_up = 256
+        out = self.forged_round("L-shed", n_up, 1, self.SHED_INGEST, max_shed_retries=1000,
+                                traced=False)  # fmt: skip
+        stats, counts = out["stats"], out["ingest_counts"]
+        ing = out["settings"].ingest
+        self.check(ing.enabled and ing.shards == 1 and ing.queue_bound == 16
+                   and ing.high_watermark == 0.8 and ing.low_watermark == 0.5
+                   and ing.retry_after_seconds == 0.2,
+                   "(ls0) phase L-shed's ingest: 1 shard x 16, watermarks 0.8 / 0.5, "
+                   "Retry-After 0.2 s")  # fmt: skip
+        self.check(stats["shed"] > 0 and counts["shed"] == stats["shed"],
+                   f"(ls5) the driver saw {stats['shed']} 429s == the coordinator's "
+                   f"xaynet_ingest_shed_total {counts['shed']}")  # fmt: skip
+        self.check(stats["shed_without_retry_after"] == 0,
+                   f"(ls6) every 429 carried Retry-After ({stats['shed_without_retry_after']} "
+                   "without)")  # fmt: skip
+        err = self.check_forged_model("ls", out, n_up)
+        pipe = out["pipeline"]
+        self.check(pipe.intake.max_occupancy <= ing.queue_bound,
+                   f"(ls7) the intake's max occupancy {pipe.intake.max_occupancy} <= its bound 16")
+        post = stats["post_s"]
+        log(f"[phase L-shed] {n_up} forged updates into 1 shard x 16: {stats['shed']} 429s "
+            f"(all with Retry-After), every update accepted after retries; checks (ls0)-(ls7) "
+            f"passed; {stats['accepted_per_s']} accepted updates/s over {stats['wall_s']} s; "
+            f"POST seconds p50 {post['p50']:.4f}, max {post['max']:.4f}; decode max err "
+            f"{err:.3e}")
+        return {"stats": stats, "ingest_counts": counts, "launches": out["launches"],
+                "driver_launches": stats["launches"], "walls": out["walls"],
+                "decode_max_err": err, "intake_max_occupancy": pipe.intake.max_occupancy}
 
     # -- phase T: local training on the port ----------------------------------
 
@@ -2842,8 +3036,9 @@ class Smoke:
         tenant: ``resnet`` at ``resnet_length`` (Phase T's ResNet-50 count)
         with the shipped prime/f32/b0/m3, batch 64 and packed staging;
         ``lenet`` at ``cifar_lenet``'s LeNet length (136,886) with
-        integer/f32/b0/m3, wire ingest with v2 uploads and the ``file``
-        store; each 1 sum, ``n`` updates (3 and 8), 1 sum2. The port's SDK
+        integer/f32/b0/m3, wire ingest with v2 uploads, the ``file``
+        store and its own ingest pipeline (``[ingest] enabled``); each 1
+        sum, ``n`` updates (3 and 8), 1 sum2. The port's SDK
         drives both rounds at once over the socket (``sdk_round`` at
         ``/t/resnet`` and ``/t/lenet``, each in its own thread, inside one
         profiler window). Then a third tenant, ``mlp`` (``house_prices``'
@@ -2858,7 +3053,10 @@ class Smoke:
         and ``/t/nope/params`` 404; every tenant's aggregator folded on
         CUDA and the launches each path needs; the scheduler granted slots
         to both round tenants; the pool balanced for all three tenants in
-        both arenas; ``mlp``'s routes 404 after the drain. Prints each
+        both arenas; ``mlp``'s routes 404 after the drain; ``lenet``'s
+        pipeline charged the per-tenant admission budget during its round
+        and holds none after, and ``/t/lenet/healthz`` carries its
+        ``ingest`` section. Prints each
         tenant's walls from its first update POST, the pool's page-locked
         bytes and each flush's pin seconds, the ledger's device pages per
         tenant, the peak host RSS and the window's idle share."""
@@ -2878,7 +3076,7 @@ class Smoke:
         from xaynet_tpu_torch.server import settings as settings_mod
         from xaynet_tpu_torch.server.aggregation import StagedAggregator
         from xaynet_tpu_torch.server.phases import update as update_phase
-        from xaynet_tpu_torch.tenancy import get_pool, get_scheduler
+        from xaynet_tpu_torch.tenancy import get_manager, get_pool, get_scheduler
 
         gen = torch.Generator().manual_seed(1)
         lengths = {
@@ -2895,7 +3093,10 @@ class Smoke:
         window = 'time = {{ min = 0.0, max = {t} }}\ncount = {{ min = {n}, max = {n} }}'
         for tenant, length in lengths.items():
             wire = tenant == "lenet"
-            extra = '[ingest]\nwire_format = "packed"\n' if wire else ""
+            # lenet's messages go through its ingest pipeline, charging its
+            # share of the process-wide admission budget; resnet's take the
+            # direct path
+            extra = '[ingest]\nenabled = true\nwire_format = "packed"\n' if wire else ""
             store = 'coordinator = "file"\n' if wire else ""
             # mlp's sum window is short: the round after its first fails
             # soon, which is the round boundary its drain waits for
@@ -2923,12 +3124,20 @@ class Smoke:
         self.check(settings.tenancy.enabled and settings.tenancy.tenants == ["resnet", "lenet"],
                    "(m0) Phase M's config: tenancy on, tenants resnet and lenet")
         built: dict = {}  # tenant -> (aggregator, its rings, ledger pages at build)
+        flushed: dict = {}  # tenant -> rows of each flush that had any
         real_build = update_phase.build_staged_aggregator
 
         def spy(shared):
             agg = real_build(shared)
-            stream, close = agg._stream, agg._stream.close
+            stream, close, flush = agg._stream, agg._stream.close, agg.flush
             rings: dict = {}
+
+            def counted_flush():
+                if agg.pending:
+                    flushed.setdefault(shared.tenant, []).append(agg.pending)
+                flush()
+
+            agg.flush = counted_flush
 
             def keep_rings_then_close():  # close() releases the rings' leases
                 rings.update(stream._rings)
@@ -2968,6 +3177,17 @@ class Smoke:
             self.check(bare == tenant_params["resnet"] != tenant_params["lenet"] and nope == 404,
                        f"(m1) the bare GET /params answers resnet's round parameters "
                        f"(length {bare['model_length']}), /t/nope/params {nope}")
+            # what each tenant's ingest pipeline charges to the budget
+            budget = get_manager().budget
+            charged: dict = {}
+            real_charge = budget.charge
+
+            def charge(tenant: str) -> bool:
+                ok = real_charge(tenant)
+                charged[tenant] = charged.get(tenant, 0) + ok
+                return ok
+
+            budget.charge = charge
             errors: dict = {}
 
             def drive(tenant: str) -> None:
@@ -2992,6 +3212,9 @@ class Smoke:
             for tenant, exc in errors.items():
                 raise Failure(f"tenant {tenant}'s round failed: {exc!r}") from exc
             split = get_scheduler().split()
+            held = {t: budget.held(t) for t in ("resnet", "lenet")}
+            tenant_health = {t: json_mod.loads(http_call(f"{base}/t/{t}", "GET", "/healthz")[1])
+                             for t in ("resnet", "lenet")}  # fmt: skip
             # the third tenant's lifecycle: onboard, one round, drain
             status, onboarded = admin("POST", "/admin/tenants",
                                       json_mod.dumps({"tenant": "mlp"}).encode())  # fmt: skip
@@ -3073,12 +3296,27 @@ class Smoke:
                    and split["lenet"] >= 1,
                    f"(m11) the scheduler granted fold-batch slots to both round tenants "
                    f"({split})")  # fmt: skip
+        lenet_ingest = tenant_health["lenet"].get("ingest") or {}
+        self.check(charged.get("lenet", 0) >= n_updates["lenet"] and "resnet" not in charged
+                   and held == {"resnet": 0, "lenet": 0},
+                   f"(m14) lenet's ingest pipeline charged the admission budget "
+                   f"{charged.get('lenet', 0)} times during its round, resnet's direct path "
+                   f"{charged.get('resnet', 0)}; held after the rounds {held}")  # fmt: skip
+        self.check(lenet_ingest.get("tenant") == "lenet" and lenet_ingest.get("budget_held") == 0
+                   and "ingest" not in tenant_health["resnet"],
+                   f"(m15) /t/lenet/healthz carries lenet's ingest section ({lenet_ingest}); "
+                   "/t/resnet/healthz none")  # fmt: skip
+        lenet_agg = built["lenet"][0][0]
+        lenet_checks = lenet_agg.prevalidated_chunks + lenet_agg.member_checks
+        lenet_flushes = flushed.get("lenet", [])
         if self.cuda:
-            # the two rounds: K1 packed for resnet's flush and lenet's device
-            # rows (one chunk of 8), K4 for each lenet upload, and each
-            # participant's masking (K5 + K2 + K1 planar) and Sum2 (K5 + K2 a seed)
-            want = {"fold_packed": 2, "fold_planar": 11, "mask_fold": 22, "unit_draws": 13,
-                    "packed_check": 8, "wire_unpack": 0}
+            # the two rounds: K1 packed for resnet's flush and for lenet's
+            # device rows (chunks of 8 of each coalesced flush), K4 once per
+            # lenet micro-batch chunk or member check, and each participant's
+            # masking (K5 + K2 + K1 planar) and Sum2 (K5 + K2 a seed)
+            want = {"fold_packed": 1 + sum(-(-k // 8) for k in lenet_flushes),
+                    "fold_planar": 11, "mask_fold": 22, "unit_draws": 13,
+                    "packed_check": lenet_checks, "wire_unpack": 0}
             got = {k: launches[k] for k in want}
             self.check(got == want, f"(m12) the two rounds' launches {got} == {want}")
             want_mlp = {"fold_packed": 1, "fold_planar": 3, "mask_fold": 6, "unit_draws": 4,
@@ -3099,7 +3337,15 @@ class Smoke:
             f"{onboarded.get('onboard_s')} s, drained in {drain_s:.3f} s; peak host RSS of this "
             f"process so far {peak_rss_gib:.2f} GiB")
         log(f"[phase M] launches {launches}; mlp's round {launches_mlp}")
+        log(f"[phase M] lenet's ingest: {charged.get('lenet', 0)} budget charges, held after "
+            f"{held['lenet']}; coalesced flushes of {lenet_flushes} rows; K4 "
+            f"{lenet_agg.prevalidated_chunks} prevalidated chunks + {lenet_agg.member_checks} "
+            f"member checks")
         return {"tenants": checks, "launches": launches, "launches_mlp": launches_mlp,
+                "lenet_ingest": {"charged": charged.get("lenet", 0), "held_after": held,
+                                 "flushes": lenet_flushes, "healthz_ingest": lenet_ingest,
+                                 "prevalidated_chunks": lenet_agg.prevalidated_chunks,
+                                 "member_checks": lenet_agg.member_checks},
                 "split": split, "pool_pinned_bytes": pinned_bytes, "pool_pin_s": pin_s,
                 "pool_stats_end": stats_end, "onboard": onboarded, "drain": drained,
                 "drain_s": drain_s, "peak_rss_gib": peak_rss_gib, "coordinator_start_s": start_s}
@@ -3361,6 +3607,7 @@ def main() -> int:
         coordinator = smoke.phase_r()
         coordinator_wire = smoke.phase_r(wire=True)
         loadgen = smoke.phase_l()
+        loadgen_shed = smoke.phase_l_shed()
         training = smoke.phase_t()
         multi = smoke.phase_m(training["rounds"]["length"])
         if smoke.cuda:  # the runner CLI resolves CUDA; without a card it exits
@@ -3379,6 +3626,7 @@ def main() -> int:
     smoke.records.update(timings=timings, pipeline=pipeline, round=result, wire_round=wire,
                          sim=sim, coordinator_round=coordinator,
                          coordinator_round_wire=coordinator_wire, loadgen_round=loadgen,
+                         loadgen_shed_round=loadgen_shed,
                          training=training, multi_tenant=multi,
                          seconds=time.perf_counter() - t0)
     if not smoke.cuda:
@@ -3397,6 +3645,8 @@ def main() -> int:
         "launches_coordinator_round_wire": coordinator_wire["launches"],
         "launches_sim": sim["launches"],
         "launches_loadgen": loadgen_launches,
+        "launches_loadgen_shed": {k: v + loadgen_shed["driver_launches"].get(k, 0)
+                                  for k, v in loadgen_shed["launches"].items()},
         "launches_training_rounds": training["rounds"]["launches"],
         "launches_multi_tenant": {k: v + multi["launches_mlp"].get(k, 0)
                                   for k, v in multi["launches"].items()},

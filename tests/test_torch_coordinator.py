@@ -385,10 +385,8 @@ def test_rest_server_stops_with_keep_alive_open():
 
 
 UNSUPPORTED = {
-    "tenancy-ingest": ("ingest", "enabled", True, "item 17"),
     "tenancy-edge": ("edge", "enabled", True, "item 18"),
     "tenant-file-kernel-xla": ("aggregation", "kernel", "xla", "Queue 2"),
-    "ingest": ("ingest", "enabled", True, "item 17"),
     "edge": ("edge", "enabled", True, "item 18"),
     "redis": ("storage", "coordinator", "redis", "item 19"),
     "s3": ("storage", "backend", "s3", "item 19"),
@@ -406,8 +404,8 @@ UNSUPPORTED = {
 def test_port_settings_refuse_what_the_port_lacks(case, tmp_path):
     """Each key the port lacks is refused by name, where the JAX package
     accepts the same settings. The port serves tenants (``[tenancy]
-    enabled``) but not together with the ingest pipeline, and a tenant's
-    own settings file is held to the same refusals."""
+    enabled``), and a tenant's own settings file is held to the same
+    refusals."""
     section, key, value, item = UNSUPPORTED[case]
     settings = _settings(port_settings, device=True)
     theirs = _settings(jax_settings, device=True)
@@ -432,6 +430,30 @@ def test_port_settings_refuse_what_the_port_lacks(case, tmp_path):
         theirs.validate()  # the JAX package accepts the same settings
     with pytest.raises(port_settings.SettingsError, match=item):
         settings.validate()
+
+
+@pytest.mark.parametrize("tenancy", [False, True], ids=["alone", "tenancy"])
+def test_port_settings_accept_ingest(tenancy, tmp_path):
+    """``[ingest] enabled = true`` loads and validates in the port as in the
+    JAX package, alone and with ``[tenancy] enabled`` (the base settings
+    and a tenant's own file), with the JAX soak's ingest keys."""
+    text = (
+        "[ingest]\nenabled = true\nshards = 2\nqueue_bound = 4096\n"
+        "retry_after_seconds = 0.2\nwire_format = \"packed\"\n"
+    )
+    if tenancy:
+        (tmp_path / "t0.toml").write_text(text)
+        text += f'[tenancy]\nenabled = true\ntenants = "t0"\nconfig_dir = "{tmp_path}"\n'
+    cfg = tmp_path / "config.toml"
+    cfg.write_text(text)
+    ours = port_settings.Settings.load(str(cfg), env={})
+    theirs = jax_settings.Settings.load(str(cfg), env={})
+    assert ours.ingest.__dict__ == theirs.ingest.__dict__
+    assert ours.ingest.enabled and ours.ingest.queue_bound == 4096
+    assert ours.tenancy.enabled is tenancy
+    if tenancy:
+        tset = runner._tenant_settings(ours, "t0")
+        assert tset.ingest.enabled and not tset.tenancy.enabled
 
 
 def test_shipped_config_loads_in_port():

@@ -336,6 +336,57 @@ def test_staged_wire_ingest_on_card_matches_cpu(cuda):
     assert launches["fold_planar"] == 2 and launches["fold_packed"] == 2
 
 
+def test_coalesced_prevalidation_on_card_matches_per_member_path(cuda):
+    """A coalesced micro-batch of v2 uploads, one with an invalid element:
+    ``prevalidate_wire_batch`` (one K4 launch for the batch) caches the
+    verdicts and device rows the per-member path (one K4 launch each)
+    computes, and the aggregates they fold to are the same."""
+    from xaynet_tpu_torch.core.mask.masking import AggregationError, Masker
+    from xaynet_tpu_torch.core.mask.model import Scalar
+    from xaynet_tpu_torch.core.mask.serialization import parse_mask_object, serialize_mask_object
+    from xaynet_tpu_torch.server.aggregation import StagedAggregator
+
+    cfg = PIPE_CFG
+    n, total = 2049, 10
+    rng = np.random.default_rng(12)
+    wires = []
+    for _ in range(total):
+        _, masked = Masker(cfg.pair()).mask(Scalar(1, total), rng.uniform(-1, 1, n).astype(np.float32))
+        wires.append(serialize_mask_object(masked, planar_vect=True))
+    corrupt = parse_mask_object(wires[4], lazy_vect=True)[0].vect.planar_block.copy()
+    corrupt[:, 700] = 0xFF  # an all-0xFF element, above the order
+    results = {}
+    for batched in (True, False):
+        agg = StagedAggregator(cfg.pair(), n, batch_size=64, device=cuda)
+        objs = [parse_mask_object(w, lazy_vect=True)[0] for w in wires]
+        objs[4].vect.wire_block = corrupt.reshape(-1).copy()
+        kernels.reset_launches()
+        if batched:
+            agg.prevalidate_wire_batch(objs)
+        verdicts, rows = [], []
+        for obj in objs:
+            try:
+                agg.validate_aggregation(obj)
+            except AggregationError as e:
+                verdicts.append(e.kind)
+                rows.append(None)
+                continue
+            verdicts.append("ok")
+            rows.append(obj.vect._staged_planar.clone())
+            agg.aggregate(obj)
+        launches = kernels.LAUNCHES["packed_check"]
+        results[batched] = (verdicts, rows, agg.snapshot_state(), launches,
+                            agg.prevalidated_chunks, agg.member_checks)  # fmt: skip
+    (bv, brows, bstate, blaunch, bchunks, bmembers) = results[True]
+    (pv, prows, pstate, plaunch, pchunks, pmembers) = results[False]
+    assert bv == pv and bv.count("ok") == total - 1 and bv[4] == "InvalidObject"
+    assert all((a is None and b is None) or torch.equal(a, b) for a, b in zip(brows, prows))
+    assert all(np.array_equal(a, b) for a, b in zip(bstate[:2], pstate[:2]))
+    assert bstate[2] == pstate[2] == total - 1
+    assert (blaunch, bchunks, bmembers) == (1, 1, 0)
+    assert (plaunch, pchunks, pmembers) == (total, 0, total)
+
+
 PIPE_CFG = MaskConfig(GroupType.PRIME, DataType.F32, BoundType.B0, ModelType.M3)
 
 

@@ -22,7 +22,11 @@
   the multi-tenant one (``[tenancy] enabled``) too;
 - the tenancy package (``tenancy``: the page pool, the scheduler, the
   registry, the lifecycle) imports alone without JAX, and a CPU pipeline
-  leases its staging pages from the pool without page-locking any.
+  leases its staging pages from the pool without page-locking any;
+- the ingest pipeline (``ingest``) and the operator console
+  (``server.console``) import alone without JAX, and a coordinator with
+  ``[ingest] enabled`` and no device given refuses to run without CUDA,
+  alone and with tenancy.
 """
 
 from __future__ import annotations
@@ -220,7 +224,7 @@ _ALONE = sorted(
         for m in _port_modules()
         if m.split(".")[1:2] in (["server"], ["core"], ["storage"], ["telemetry"],
                                  ["resilience"], ["utils"], ["sdk"], ["sim"], ["loadgen"],
-                                 ["models"], ["examples"], ["tenancy"])
+                                 ["models"], ["examples"], ["tenancy"], ["ingest"])
     }
 )  # fmt: skip
 
@@ -265,7 +269,8 @@ def test_wire_ingest_modules_import_alone_without_jax(module, imported_alone):
     """Each module on the wire-ingest path and the coordinator's, every
     module of the port's ``server``, ``core``, ``storage``, ``telemetry``,
     ``resilience``, ``utils``, ``sdk``, ``sim``, ``loadgen``, ``models``,
-    ``examples`` and ``tenancy`` among them, imported alone, pulls in neither ``jax``,
+    ``examples``, ``tenancy`` and ``ingest`` among them (``server.console``
+    too), imported alone, pulls in neither ``jax``,
     ``flax``, ``optax`` nor the JAX package."""
     assert module in _port_modules()
     assert imported_alone[module] == []
@@ -338,6 +343,21 @@ def test_multi_tenant_coordinator_without_cuda_raises(no_cuda):
         asyncio.run(runner.serve(settings))
     with pytest.raises(DeviceUnavailable, match="no CUDA device"):
         asyncio.run(runner.serve_tenants(settings))
+
+
+@pytest.mark.parametrize("tenancy", [False, True], ids=["alone", "tenancy"])
+def test_ingest_coordinator_without_cuda_raises(no_cuda, tenancy):
+    """The ingest pipeline runs no device code and adds no path around the
+    device check: ``serve`` with ``[ingest] enabled`` and no device given
+    refuses before any pipeline starts."""
+    settings = _device_round_settings()
+    settings.ingest.enabled = True
+    if tenancy:
+        settings.tenancy.enabled = True
+        settings.tenancy.tenants = ["t0"]
+    settings.validate()
+    with pytest.raises(DeviceUnavailable, match="no CUDA device"):
+        asyncio.run(runner.serve(settings))
 
 
 def _free_port() -> int:

@@ -462,3 +462,67 @@ def test_short_flush_stages_through_a_buffer_sized_to_its_rows(packed):
     assert np.array_equal(agg.snapshot(), host.object.vect.data)
     stream.close()
     jax_stream.close()
+
+
+_STAGES = ("staged", "folded", "folded-degraded", "failed")
+
+
+def _stream_metrics(registry) -> dict:
+    out = {f"batches.{s}": registry.sample_value("xaynet_streaming_batches_total", {"stage": s})
+           or 0 for s in _STAGES}  # fmt: skip
+    for layout in ("packed", "unpacked"):
+        out[f"bytes.{layout}"] = (
+            registry.sample_value("xaynet_bytes_staged_total", {"layout": layout}) or 0
+        )
+    out["degradations"] = registry.sample_value("xaynet_streaming_degradations_total") or 0
+    return out
+
+
+def _gauges(registry) -> dict:
+    return {g: registry.sample_value(f"xaynet_streaming_{g}")
+            for g in ("staging_depth", "inflight_folds", "degraded", "overlap_ratio")}  # fmt: skip
+
+
+@PACKED
+def test_registry_metrics_match_jax(packed, no_fault_plans):
+    """The pipeline's registry families, under the JAX package's names: the
+    batches by stage (a ``streaming.fold`` fault on the second batch folds
+    it degraded), the degradation gauge and counter, the staged bytes by
+    layout, and the staging depth and in-flight folds back at 0 after the
+    drain, move as the JAX pipeline's do over the same batches; the
+    overlap ratio of the drain window lies in [0, 1]."""
+    from xaynet_tpu.telemetry.registry import get_registry as jax_registry
+    from xaynet_tpu_torch.telemetry.registry import get_registry as port_registry
+
+    n, total, bs = 48, 10, 2
+    masked, _ = _updates(n, total, seed=13)
+    stacks = [m.vect.data for m in masked]
+    spec = "streaming.fold:error,nth=2"
+    faults.install_plan(faults.FaultPlan.parse(spec))
+    jax_faults.install_plan(jax_faults.FaultPlan.parse(spec))
+    moved, gauges = {}, {}
+    for name, registry, make in (("jax", jax_registry(), _jax_pipeline),
+                                 ("port", port_registry(), _port_pipeline)):
+        before = _stream_metrics(registry)
+        _, stream = make(n, max_batch=bs, packed=packed)
+        assert registry.sample_value("xaynet_streaming_degraded") == 0
+        for i in range(0, total, bs):
+            stream.submit_batch(np.stack(stacks[i : i + bs]))
+        stream.drain()
+        gauges[name] = _gauges(registry)
+        after = _stream_metrics(registry)
+        moved[name] = {k: after[k] - before[k] for k in after}
+        stream.close()
+        assert registry.sample_value("xaynet_streaming_degraded") == 0
+    batches = total // bs
+    assert moved["port"]["batches.staged"] == batches
+    assert moved["port"]["batches.folded"] + moved["port"]["batches.folded-degraded"] == batches
+    assert moved["port"]["degradations"] == 1
+    layout = "packed" if packed else "unpacked"
+    assert moved["port"][f"bytes.{layout}"] > 0
+    assert moved["port"] == moved["jax"]
+    port, jax_g = gauges["port"], gauges["jax"]
+    assert port["staging_depth"] == jax_g["staging_depth"] == 0
+    assert port["inflight_folds"] == jax_g["inflight_folds"] == 0
+    assert port["degraded"] == jax_g["degraded"] == 1
+    assert 0.0 <= port["overlap_ratio"] <= 1.0

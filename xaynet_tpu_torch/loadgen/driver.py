@@ -30,6 +30,7 @@ class DriverStats:
     sent: int = 0
     accepted: int = 0  # 200 — taken at the REST boundary
     shed: int = 0  # 429 verdicts observed (retries may still land)
+    shed_without_retry_after: int = 0  # of those, 429s that carried no Retry-After
     abandoned: int = 0  # gave up after max_shed_retries
     errors: int = 0  # transport/protocol failures
     wall_s: float = 0.0
@@ -40,6 +41,7 @@ class DriverStats:
         self.sent += other.sent
         self.accepted += other.accepted
         self.shed += other.shed
+        self.shed_without_retry_after += other.shed_without_retry_after
         self.abandoned += other.abandoned
         self.errors += other.errors
         self.wall_s = max(self.wall_s, other.wall_s)
@@ -53,6 +55,7 @@ class DriverStats:
             "sent": self.sent,
             "accepted": self.accepted,
             "shed": self.shed,
+            "shed_without_retry_after": self.shed_without_retry_after,
             "abandoned": self.abandoned,
             "errors": self.errors,
             "wall_s": round(self.wall_s, 3),
@@ -124,6 +127,8 @@ class ReplayDriver:
                         return
                     except ClientShedError as err:
                         stats.shed += 1
+                        if err.retry_after is None:
+                            stats.shed_without_retry_after += 1
                         if attempt >= self.max_shed_retries:
                             stats.abandoned += 1
                             return

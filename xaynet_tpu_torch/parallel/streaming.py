@@ -56,12 +56,23 @@ Rows that device wire ingest already validated on the card
 are not queued: ``fold_planar_rows_now`` / ``fold_packed_rows_now`` fold
 them on the caller's thread, on the accumulator's stream.
 
+**Telemetry.** The pipeline sets the JAX package's registry families under
+the same names: ``xaynet_streaming_staging_depth`` (ring buffers owned by
+in-flight batches), ``xaynet_streaming_inflight_folds`` (batches queued to
+the fold worker), ``xaynet_streaming_overlap_ratio`` (the last drain
+window's), ``xaynet_streaming_batches_total{stage}`` (staged, folded,
+folded-degraded, failed), ``xaynet_streaming_degraded`` and
+``xaynet_streaming_degradations_total``, and
+``xaynet_bytes_staged_total{layout}`` (packed or unpacked ring bytes); the
+REST ``/healthz`` ``pipeline`` section, the console and the round report
+read them. It records the spans ``stream.stage``, ``stream.fold`` and
+``stream.drain``. The drain window's legs are also plain attributes
+(``last_window``).
+
 One device has no shards, so the JAX package's shard plan, per-shard
-workers and eager per-shard unmask have no counterpart here. Raw wire
-batches with deferred acceptance (``submit_wire_batch``) are not ported
-yet; the JAX package's registry gauges, spans and flight dumps are not
-part of the port: stage and fold seconds and the overlap ratio of the last
-drain window are plain attributes (``last_window``).
+workers, per-shard gauges and eager per-shard unmask have no counterpart
+here (ROADMAP item 10). Raw wire batches with deferred acceptance
+(``submit_wire_batch``) are not ported yet, nor are the flight dumps.
 """
 
 from __future__ import annotations
@@ -78,11 +89,56 @@ import torch
 from ..ops import limbs as host_limbs
 from ..ops.fold import MAX_LAZY_BATCH
 from ..resilience.faults import maybe_fail
+from ..telemetry import tracing as trace
+from ..telemetry.registry import get_registry
 from ..tenancy.pool import LOCAL_TENANT, PagePool, get_pool
 from ..tenancy.scheduler import TenantScheduler, get_scheduler
 from .aggregator import DeviceAggregator
 
 logger = logging.getLogger(__name__)
+
+SPAN_STAGE = trace.declare_span("stream.stage")
+SPAN_FOLD = trace.declare_span("stream.fold")
+SPAN_DRAIN = trace.declare_span("stream.drain")
+
+_registry = get_registry()
+STAGING_DEPTH = _registry.gauge(
+    "xaynet_streaming_staging_depth",
+    "Staging ring buffers currently owned by in-flight batches.",
+)
+INFLIGHT_FOLDS = _registry.gauge(
+    "xaynet_streaming_inflight_folds",
+    "Fold batches submitted to the streaming pipeline and not yet folded.",
+)
+OVERLAP_RATIO = _registry.gauge(
+    "xaynet_streaming_overlap_ratio",
+    "Fraction of the shorter pipeline leg (staging vs folding) that ran "
+    "concurrently with the other leg during the last drain window "
+    "(1 = perfect overlap, 0 = fully serialized).",
+)
+BATCHES_TOTAL = _registry.counter(
+    "xaynet_streaming_batches_total",
+    "Streaming pipeline batches, by stage (staged = submitted, "
+    "folded = fold completed).",
+    ("stage",),
+)
+DEGRADED = _registry.gauge(
+    "xaynet_streaming_degraded",
+    "1 while the streaming pipeline has degraded to the synchronous fold "
+    "path after a fold failure (resets with the next pipeline).",
+)
+DEGRADATIONS = _registry.counter(
+    "xaynet_streaming_degradations_total",
+    "Times a streaming pipeline degraded to the synchronous fold path.",
+)
+BYTES_STAGED = _registry.counter(
+    "xaynet_bytes_staged_total",
+    "Bytes copied into host staging rings (and later across host->device), "
+    "by layout: packed = byte-planar wire-width planes, unpacked = full "
+    "uint32 limb planes, wire = raw serialized element blocks, "
+    "wire-planar = v2 byte-planar element blocks staged packed.",
+    ("layout",),
+)
 
 _SHUTDOWN = object()
 
@@ -224,6 +280,7 @@ class _StagingRing:
         buf = lease.array
         with self._lock:
             self._inflight[id(buf)] = lease
+        STAGING_DEPTH.inc()
         return buf
 
     def release(self, buf: np.ndarray) -> None:
@@ -231,6 +288,7 @@ class _StagingRing:
             lease = self._inflight.pop(id(buf), None)
         if lease is None:
             return
+        STAGING_DEPTH.dec()
         self._pool.set_migrator(lease, _ring_migrator)
         self._free_of(len(buf)).put(lease)
 
@@ -344,6 +402,9 @@ class StreamingAggregator:
         self._fold_log: list[tuple] = []  # guarded-by: _lock
         self._window_start: float | None = None
         self.last_window: dict | None = None
+        # a fresh pipeline is never degraded: a degraded one abandoned on a
+        # phase failure must not leave the gauge at 1 for later rounds
+        DEGRADED.set(0)
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -399,6 +460,8 @@ class StreamingAggregator:
         for ring in rings:
             ring.close()
         self._sched.release_owner(self._sched_owner)
+        if self.degraded:
+            DEGRADED.set(0)
 
     # -- producer side -----------------------------------------------------
 
@@ -495,8 +558,10 @@ class StreamingAggregator:
         with self._lock:
             self._in_flight_models += k
             degraded = self._degraded
+        BATCHES_TOTAL.labels(stage="staged").inc()
         if not degraded:
             self._ensure_worker()
+            INFLIGHT_FOLDS.inc()
             self._queue.put(item)
             return
         t0 = time.monotonic()
@@ -511,17 +576,20 @@ class StreamingAggregator:
         except StreamingError:
             with self._lock:  # already poisoned: this batch just leaves flight
                 self._in_flight_models -= k
+            BATCHES_TOTAL.labels(stage="failed").inc()
             raise
         except Exception as e:
             unsafe = isinstance(e, _UnsafeFoldError)
             cause = (e.__cause__ or e) if unsafe else e
             self._poison(cause, seq, k, settled=unsafe and e.settled)
+            BATCHES_TOTAL.labels(stage="failed").inc()
             raise self._poison_error() from cause
         finally:
             self._slot_release()
             self._ring(kind).release(buf)
             with self._lock:
                 self._fold_log.append((seq, t0, time.monotonic()))
+        BATCHES_TOTAL.labels(stage="folded").inc()
 
     def submit_batch(self, rows) -> None:
         """Stage and stream-fold ``K`` wire-layout updates (pre-validated:
@@ -548,8 +616,12 @@ class StreamingAggregator:
                     host_limbs.pack_wire(row, self.agg.packed_width, out=view[i])
                 else:
                     view[i] = np.asarray(row, dtype=np.uint32).T
+            BYTES_STAGED.labels(layout="packed" if self._packed else "unpacked").inc(view.nbytes)
             self._batch_seq += 1
-            self._stage_log.append((self._batch_seq, t0, time.monotonic()))
+            t1 = time.monotonic()
+            self._stage_log.append((self._batch_seq, t0, t1))
+            trace.get_tracer().record_span(SPAN_STAGE, start=t0, duration=t1 - t0,
+                                           batch=self._batch_seq, kind=kind, k=k)  # fmt: skip
             self._dispatch((buf, view, kind, k, self._batch_seq))
 
     def fold_planar_rows_now(self, rows: list) -> None:
@@ -671,10 +743,10 @@ class StreamingAggregator:
                         raise _UnsafeFoldError(settled=settled) from e
 
     def _degrade_and_retry(self, payload, kind: str, k: int, seq: int,
-                           first: Exception) -> None:
+                           first: Exception) -> str:
         """First fold failure before the launch: switch the pipeline to the
         synchronous path and retry the batch once; a second failure poisons
-        permanently."""
+        permanently. Returns the batch's outcome label."""
         logger.warning(
             "streaming fold failed at batch %d (%s: %s); retrying on the "
             "synchronous path and degrading the pipeline",
@@ -682,8 +754,11 @@ class StreamingAggregator:
         )  # fmt: skip
         with self._lock:
             self._degraded = True
+        DEGRADED.set(1)
+        DEGRADATIONS.inc()
         try:
             self._fold_payload(payload, kind, k)
+            return "folded-degraded"
         except Exception as second:
             # the batch is lost: the accumulator matches no consistent
             # update set any more
@@ -692,27 +767,35 @@ class StreamingAggregator:
             cause.__context__ = first
             self._poison(cause, seq, k, settled=unsafe and second.settled)
             logger.exception("streaming fold batch %d lost; pipeline poisoned", seq)
+            return "failed"
 
     def _process(self, item: tuple) -> None:
         """Worker-side fold with the degradation ladder: streaming fold ->
         one synchronous retry (pre-launch failures only) -> sticky poison."""
         buf, payload, kind, k, seq = item
         t0 = time.monotonic()
-        try:
-            maybe_fail("streaming.fold")
-            self._fold_payload(payload, kind, k)
-        except _UnsafeFoldError as e:
-            # acc may already hold the batch: retrying would fold it twice
-            self._poison(e.__cause__ or e, seq, k, settled=e.settled)
-            logger.exception("streaming fold batch %d failed at or after launch; "
-                             "pipeline poisoned", seq)
-        except Exception as first:
-            self._degrade_and_retry(payload, kind, k, seq, first)
-        finally:
-            self._slot_release()
-            self._ring(kind).release(buf)
-            with self._lock:
-                self._fold_log.append((seq, t0, time.monotonic()))
+        outcome = "folded"
+        with trace.get_tracer().span(SPAN_FOLD, batch=seq, kind=kind, k=k) as fold_span:
+            try:
+                maybe_fail("streaming.fold")
+                self._fold_payload(payload, kind, k)
+            except _UnsafeFoldError as e:
+                # acc may already hold the batch: retrying would fold it twice
+                self._poison(e.__cause__ or e, seq, k, settled=e.settled)
+                outcome = "failed"
+                logger.exception("streaming fold batch %d failed at or after launch; "
+                                 "pipeline poisoned", seq)
+            except Exception as first:
+                outcome = self._degrade_and_retry(payload, kind, k, seq, first)
+            finally:
+                self._slot_release()
+                self._ring(kind).release(buf)
+                with self._lock:
+                    self._fold_log.append((seq, t0, time.monotonic()))
+                INFLIGHT_FOLDS.dec()
+                # a failed fold is not folded: staged against folded shows the loss
+                BATCHES_TOTAL.labels(stage=outcome).inc()
+                fold_span.set(outcome=outcome)
 
     # -- drain -------------------------------------------------------------
 
@@ -722,6 +805,10 @@ class StreamingAggregator:
         copies, so the last folds may still run on the device, and their
         errors surface here). A poisoned pipeline raises here every time,
         so no aggregate with lost updates escapes as a round result."""
+        with trace.get_tracer().span(SPAN_DRAIN):
+            self._drain()
+
+    def _drain(self) -> None:
         self._queue.join()
         err = self._poisoned()
         if err is not None:
@@ -754,6 +841,8 @@ class StreamingAggregator:
         fold_s = sum(e - s for _, s, e in fold)
         shorter = min(stage_s, fold_s)
         ratio = max(0.0, min(1.0, (stage_s + fold_s - wall) / shorter)) if shorter > 0 else None
+        if ratio is not None:
+            OVERLAP_RATIO.set(ratio)
         self.last_window = {
             "start": self._window_start, "wall_seconds": wall,
             "stage_seconds": stage_s, "fold_seconds": fold_s, "overlap_ratio": ratio,

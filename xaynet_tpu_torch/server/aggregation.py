@@ -257,6 +257,10 @@ class StagedAggregator:
         )
         # the tiny unit part stays on the host
         self._unit_acc = np.zeros(limb_ops.n_limbs_for_order(config.unit.order), dtype=np.uint32)
+        # device wire checks (one K3 or K4 launch each): per batch chunk in
+        # prevalidate_wire_batch, and per member in validate_aggregation
+        self.prevalidated_chunks = 0
+        self.member_checks = 0
 
     @property
     def kernel_used(self) -> str:
@@ -297,6 +301,7 @@ class StagedAggregator:
             # A prevalidate_wire_batch may already have cached the verdict.
             row = vect._staged_planar
             if row is None and not vect._wire_invalid:
+                self.member_checks += 1
                 if vect.planar:
                     row = self._device.validate_planar_updates([vect.planar_block])[0]
                 else:
@@ -337,6 +342,7 @@ class StagedAggregator:
             group = [v for v in lazies if v.planar is planar_wire]
             for start in range(0, len(group), self.batch_size):
                 chunk = group[start : start + self.batch_size]
+                self.prevalidated_chunks += 1
                 if planar_wire:
                     rows = self._device.validate_planar_updates([v.planar_block for v in chunk])
                 else:

@@ -10,7 +10,14 @@ rust/xaynet-server/src/rest.rs:40-315):
 - ``GET /model``    — latest global model bytes (204 while absent)
 - ``GET /metrics``  — telemetry registry, Prometheus text exposition
 - ``GET /healthz``  — liveness JSON (status, phase, round id, uptime)
+- ``GET /statusz``  — live operator console, self-contained HTML (§20)
 - ``GET /alerts``   — SLO engine state: active alerts + transition ring
+
+With an ingest pipeline (``[ingest] enabled``, ``ingest.IngestPipeline``)
+``POST /message`` goes through admission control: a saturated intake (or
+a tenant over its share of the process-wide budget) answers 429 with a
+``Retry-After`` of at least one second, and ``/healthz`` gains the
+``ingest`` and ``ingress`` sections.
 
 A multi-tenant coordinator (``runner.serve_tenants``) serves every route
 of each tenant under ``/t/<tenant>/...``; the bare routes serve the first
@@ -25,10 +32,8 @@ readable stand-in for the reference's bincode bodies; both ends of the wire
 are this framework. Implemented directly on asyncio streams (no third-party
 HTTP dependency); optional TLS via ``ssl.SSLContext``.
 
-The JAX package's edge-tier routes and operator console (``/statusz``)
-are not part of the port, and the ingest pipeline's admission path is not
-either (settings refuse the edge tier and the ingest pipeline).
-``stop()`` closes the connections it holds open before it waits for the
+The JAX package's edge-tier routes are not part of the port (settings
+refuse the edge tier). ``stop()`` closes the connections it holds open before it waits for the
 listener to close: from Python 3.12 ``asyncio.Server.wait_closed`` waits
 for every connection, and a participant's idle keep-alive connection
 would otherwise hold it for the whole ``read_timeout``.
@@ -67,6 +72,7 @@ class TenantRoutes:
 
     fetcher: Fetcher
     handler: PetMessageHandler
+    pipeline: object = None  # ingest.IngestPipeline
 
 
 MAX_BODY = 1 << 32  # u32 length field ceiling, as in the reference
@@ -82,14 +88,14 @@ SPAN_REQUEST = trace.declare_span("rest.request")
 # POST /message.
 _UNTRACED_PATHS = {
     "/metrics", "/health", "/healthz", "/params", "/sums", "/seeds", "/model",
-    "/alerts",
+    "/statusz", "/alerts",
 }
 
 # known routes/methods keep the http counter's labels closed-cardinality —
 # both tokens are attacker-controlled, and every distinct label value is a
 # permanent registry child
 _KNOWN_PATHS = {"/message", "/params", "/sums", "/seeds", "/model",
-                "/health", "/healthz", "/metrics", "/alerts", "/admin/tenants"}
+                "/health", "/healthz", "/metrics", "/statusz", "/alerts", "/admin/tenants"}
 _KNOWN_METHODS = {"GET", "POST", "HEAD", "PUT", "DELETE", "OPTIONS", "PATCH"}
 
 
@@ -100,6 +106,7 @@ class RestServer:
         handler: PetMessageHandler,
         read_timeout: float = 120.0,
         registry: Optional[MetricsRegistry] = None,
+        pipeline=None,
         tenants: Optional[dict[str, TenantRoutes]] = None,
         lifecycle=None,
         admin_token: str = "",
@@ -110,6 +117,10 @@ class RestServer:
         # record into the PROCESS registry at import time, so a custom
         # registry exposes only the families created against it (unit
         # tests); production keeps the default.
+        # `pipeline` (ingest.IngestPipeline) switches the default routes'
+        # POST /message to the admission-controlled path: 429 + Retry-After
+        # under saturation, and /healthz gains the intake sections. None
+        # keeps the direct path.
         # `tenants` maps tenant id -> TenantRoutes for /t/<tenant>/...
         # routing; the positional args above stay the DEFAULT tenant (and
         # the bare legacy routes). None = single-tenant, as before.
@@ -120,7 +131,7 @@ class RestServer:
         # compare; "" keeps it fully disabled).
         # `default_tenant` is the real id behind the bare legacy routes so
         # lifecycle admission applies to them too.
-        self._default_routes = TenantRoutes(fetcher=fetcher, handler=handler)
+        self._default_routes = TenantRoutes(fetcher=fetcher, handler=handler, pipeline=pipeline)
         # the lifecycle manager mutates this dict at runtime (onboard
         # registers, offboard pops) — it must stay the SAME object the
         # manager holds, so adopt a provided dict instead of copying it
@@ -323,6 +334,12 @@ class RestServer:
                     self.registry.render().encode(),
                     "text/plain; version=0.0.4; charset=utf-8",
                 )
+            if method == "GET" and path == "/statusz":
+                # live operator console (§20): rendered from registry /
+                # timeline / SLO state and the ingest pipelines
+                from .console import render_statusz
+
+                return 200, render_statusz(self).encode(), "text/html; charset=utf-8"
             if method == "GET" and path == "/alerts":
                 from ..telemetry.slo import get_engine
 
@@ -336,6 +353,14 @@ class RestServer:
                 payload = self._health_payload(routes)
                 payload["status"] = "ok"
                 payload["uptime_seconds"] = round(time.monotonic() - self._started_at, 3)
+                if routes.pipeline is not None:
+                    ingest = routes.pipeline.health()
+                    # the ingress boundary gets its own top-level section
+                    # (§21): acceptance rates, shard occupancy, wire mix
+                    payload["ingress"] = ingest.pop("ingress", None)
+                    payload["ingest"] = ingest
+                    if ingest["saturated"]:
+                        payload["status"] = "saturated"
                 streaming = self._streaming_health()
                 if streaming is not None:
                     payload["pipeline"] = streaming
@@ -476,6 +501,14 @@ class RestServer:
         }
 
     async def _post_message(self, body: bytes, routes: TenantRoutes):
+        if routes.pipeline is not None:
+            verdict = await routes.pipeline.submit(body)
+            if verdict.shed:
+                retry = str(max(1, math.ceil(verdict.retry_after)))
+                return 429, b"intake saturated; retry later", "text/plain", {"Retry-After": retry}
+            # admitted (processed asynchronously) or pre-filter drop: both
+            # answer 200, as the direct path does
+            return 200, b"", "text/plain"
         try:
             await routes.handler.handle_message(body)
         except (ServiceError, RequestError) as err:

@@ -18,7 +18,11 @@ fold beside the device one: on a CPU device the same pipeline takes the
 plain versions); every tenant gets the same device. The device is
 resolved before the REST API starts, and without a CUDA device the
 process exits with an error instead of serving (it never folds on the CPU
-in the card's place). The settings refuse what the port does not have
+in the card's place). With ``[ingest] enabled`` each round's ``POST
+/message`` goes through an ingest pipeline (``ingest.IngestPipeline``:
+admission, sharded intake, batched decrypt workers, the update
+coalescer); a tenant's pipeline also charges the process-wide per-tenant
+admission budget. The settings refuse what the port does not have
 (``Settings.validate_port``).
 """
 
@@ -204,6 +208,9 @@ async def _shut_down(contexts: list, rest: RestServer, what: str) -> None:
         ctx.request_tx.close()
     await rest.stop()
     for ctx in contexts:
+        # the closed channels fail the pipelines' last coalescer flush fast
+        if ctx.pipeline is not None:
+            await ctx.pipeline.stop()
         ctx.metrics.close()
     flight_recorder.flight_dump("shutdown", f"{what} stopping (signal or machine exit)")
     trace.get_tracer().end_round()
@@ -256,11 +263,17 @@ async def serve(settings: Settings, store: Optional[Store] = None, device=None) 
         events, request_tx, wire_ingest=settings.aggregation.wire_ingest
     )
     fetcher = Fetcher(events)
-    rest = RestServer(fetcher, handler, registry=metrics.registry)
+    pipeline = None
+    if settings.ingest.enabled:
+        from ..ingest import IngestPipeline
+
+        pipeline = IngestPipeline(handler, request_tx, events, settings.ingest)
+        await pipeline.start()
+    rest = RestServer(fetcher, handler, registry=metrics.registry, pipeline=pipeline)
     await _start_listener(rest, settings, boot_t0)
     stop = _stop_signal()
     ctx = TenantContext(tenant=DEFAULT_TENANT, settings=settings, machine=machine,
-                        request_tx=request_tx, metrics=metrics)  # fmt: skip
+                        request_tx=request_tx, pipeline=pipeline, metrics=metrics)  # fmt: skip
     ctx.task = asyncio.create_task(machine.run())
     try:
         await asyncio.wait([ctx.task, stop], return_when=asyncio.FIRST_COMPLETED)
@@ -292,10 +305,12 @@ def _tenant_settings(base: Settings, tenant: str) -> Settings:
     return cfg
 
 
-async def _build_tenant_context(settings: Settings, tenant: str, registry, device):
+async def _build_tenant_context(settings: Settings, tenant: str, budget, registry, device):
     """Build ONE tenant's full round pipeline and register it: scoped
     store, resilient wrapper, metrics bridge, phase machine (on
-    ``device``), handler and fetcher. Shared by the serve_tenants boot
+    ``device``), handler, fetcher and, with ``[ingest] enabled`` in the
+    tenant's settings, its ingest pipeline charging ``budget`` (the
+    process-wide ``TenantAdmissionBudget``). Shared by the serve_tenants boot
     loop and the lifecycle manager's runtime onboard — the runtime path
     builds tenants with exactly the wiring boot-time ones get. Returns
     ``(TenantContext, TenantRoutes)`` (the machine task is NOT started
@@ -316,6 +331,14 @@ async def _build_tenant_context(settings: Settings, tenant: str, registry, devic
     machine, request_tx, events = await initializer.init()
     handler = PetMessageHandler(events, request_tx, wire_ingest=tset.aggregation.wire_ingest)
     fetcher = Fetcher(events)
+    pipeline = None
+    if tset.ingest.enabled:
+        from ..ingest import IngestPipeline
+
+        pipeline = IngestPipeline(
+            handler, request_tx, events, tset.ingest, tenant=tenant, budget=budget
+        )
+        await pipeline.start()
     ctx = registry.add(
         TenantContext(
             tenant=tenant,
@@ -326,6 +349,7 @@ async def _build_tenant_context(settings: Settings, tenant: str, registry, devic
             events=events,
             handler=handler,
             fetcher=fetcher,
+            pipeline=pipeline,
             metrics=metrics,
         )
     )
@@ -336,7 +360,7 @@ async def _build_tenant_context(settings: Settings, tenant: str, registry, devic
         tset.mask.group_type.name,
         device,
     )
-    return ctx, TenantRoutes(fetcher=fetcher, handler=handler)
+    return ctx, TenantRoutes(fetcher=fetcher, handler=handler, pipeline=pipeline)
 
 
 async def serve_tenants(settings: Settings, device=None, boot_t0: Optional[float] = None) -> None:
@@ -367,8 +391,8 @@ async def serve_tenants(settings: Settings, device=None, boot_t0: Optional[float
     ten = settings.tenancy
     configure_pool(ten.page_kib, ten.slab_pages, ten.host_pages, ten.device_pages)
     configure_scheduler(ten.max_inflight_folds)
-    # the port has no ingest pipeline (ROADMAP item 17): nothing charges
-    # the budget yet; the lifecycle discharges a drained tenant's share
+    # per-tenant admission budget over the process-wide intake: the
+    # tenants' ingest pipelines charge it (§19)
     budget = TenantAdmissionBudget(ten.ingest_capacity, ten.max_share)
     # process-wide, from the base settings (the SLO engine keeps per-tenant
     # state inside, tenant targets included)
@@ -377,7 +401,7 @@ async def serve_tenants(settings: Settings, device=None, boot_t0: Optional[float
     registry = TenantRegistry()
     routes: dict[str, TenantRoutes] = {}
     for tenant in ten.tenants:
-        _, troutes = await _build_tenant_context(settings, tenant, registry, device)
+        _, troutes = await _build_tenant_context(settings, tenant, budget, registry, device)
         routes[tenant] = troutes
 
     # elastic lifecycle (docs/DESIGN.md §23): the manager owns runtime
@@ -389,7 +413,7 @@ async def serve_tenants(settings: Settings, device=None, boot_t0: Optional[float
         registry,
         routes,
         budget=budget,
-        builder=lambda t: _build_tenant_context(settings, t, registry, device),
+        builder=lambda t: _build_tenant_context(settings, t, budget, registry, device),
     )
     install_manager(lifecycle)
     lifecycle.install_slo_hook(slo_engine.get_engine())
@@ -401,6 +425,7 @@ async def serve_tenants(settings: Settings, device=None, boot_t0: Optional[float
         default.fetcher,
         default.handler,
         registry=default.metrics.registry,
+        pipeline=default.pipeline,
         tenants=routes,
         lifecycle=lifecycle,
         admin_token=ten.admin_token,

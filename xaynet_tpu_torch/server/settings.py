@@ -9,9 +9,10 @@ settings/mod.rs:307-376).
 
 The port's copy keeps every key the JAX package reads, so one config file
 loads in both, and refuses with a ``SettingsError`` what the port does not
-have (``Settings.validate_port``): the ingest pipeline, the edge tier
-(tenancy with either of them too), the ``redis`` coordinator store, the
-``s3`` model store, and any fold kernel other than ``auto``.
+have (``Settings.validate_port``): the edge tier (tenancy with it too),
+the ``redis`` coordinator store, the ``s3`` model store, any fold kernel
+other than ``auto``, and the knobs of the shard-parallel pipeline and the
+speculative sum2.
 """
 
 from __future__ import annotations
@@ -252,7 +253,7 @@ class AggregationSettings:
 
 @dataclass
 class IngestSettings:
-    """Admission-controlled batched ingest (``xaynet_tpu.ingest``).
+    """Admission-controlled batched ingest (``xaynet_tpu_torch.ingest``).
 
     Defaults keep single-node behavior identical to the direct path: the
     pipeline is off unless enabled, and when enabled the bounds are generous
@@ -776,21 +777,10 @@ class Settings:
         each message names the ROADMAP item that would add it. A
         multi-tenant coordinator loads each tenant's file through the same
         loader, so a per-tenant file is refused for the same keys."""
-        if self.tenancy.enabled and self.ingest.enabled:
-            raise SettingsError(
-                "tenancy.enabled together with ingest.enabled is not supported by "
-                "xaynet_tpu_torch: tenants are served without the ingest pipeline "
-                "(ROADMAP Queue 1 item 17, the ingest pipeline)"
-            )
         if self.tenancy.enabled and self.edge.enabled:
             raise SettingsError(
                 "tenancy.enabled together with edge.enabled is not supported by "
                 "xaynet_tpu_torch (ROADMAP Queue 1 item 18, the edge tier)"
-            )
-        if self.ingest.enabled:
-            raise SettingsError(
-                "ingest.enabled is not supported by xaynet_tpu_torch "
-                "(ROADMAP Queue 1 item 17, the ingest pipeline)"
             )
         if self.edge.enabled:
             raise SettingsError(

@@ -13,7 +13,7 @@ one page pool and one fold-batch scheduler.
   slots across tenants, weighted deficit-round-robin fairness with
   priority tiers and SLO-fed demotion, the round report's fairness split.
 - :mod:`registry` — tenant specs/contexts, id validation, and the
-  per-tenant admission budget (for the ingest pipeline, ROADMAP item 17).
+  per-tenant admission budget that each tenant's ingest pipeline charges.
 - :mod:`lifecycle` — the elastic tenant lifecycle: runtime
   onboard/drain, fault quarantine over per-tenant breakers, SLO-weighted
   preemption feedback.

@@ -12,10 +12,10 @@ the id -> context mapping the REST layer routes ``/t/<tenant>/...`` by.
 
 The **admission budget** bounds any single tenant's share of a
 PROCESS-wide in-queue message total, so a flooding tenant sheds (429 +
-Retry-After) before it can crowd the other tenants' decrypt capacity. In
-the JAX package it sits in front of each tenant's ingest pipeline; the
-port has no ingest pipeline yet (ROADMAP item 17), so the runner builds
-the budget and the lifecycle discharges it, and nothing charges it.
+Retry-After) before it can crowd the other tenants' decrypt capacity. It
+sits in front of each tenant's ingest pipeline (``ingest.IngestPipeline``
+charges it at admission and discharges it as its decrypt workers drain
+the intake); the lifecycle returns a drained tenant's whole share.
 """
 
 from __future__ import annotations
@@ -69,7 +69,7 @@ class TenantContext:
     events: Any = None
     handler: Any = None
     fetcher: Any = None
-    pipeline: Any = None  # the ingest pipeline (none in the port yet)
+    pipeline: Any = None  # ingest.IngestPipeline or None
     edge_api: Any = None
     metrics: Any = None
     task: Any = None  # the state machine's asyncio task

@@ -385,9 +385,7 @@ def test_rest_server_stops_with_keep_alive_open():
 
 
 UNSUPPORTED = {
-    "tenancy-edge": ("edge", "enabled", True, "item 18"),
     "tenant-file-kernel-xla": ("aggregation", "kernel", "xla", "Queue 2"),
-    "edge": ("edge", "enabled", True, "item 18"),
     "redis": ("storage", "coordinator", "redis", "item 19"),
     "s3": ("storage", "backend", "s3", "item 19"),
     "kernel-xla": ("aggregation", "kernel", "xla", "Queue 2"),
@@ -395,24 +393,39 @@ UNSUPPORTED = {
     "kernel-native": ("aggregation", "kernel", "native-u64", "Queue 2"),
     "shard-parallel": ("aggregation", "shard_parallel", False, "item 10"),
     "shard-threads": ("aggregation", "shard_threads", 4, "item 10"),
-    "speculative-derive": ("overlap", "speculative_derive", False, "item 9"),
-    "spec-group": ("overlap", "spec_group", 4, "item 9"),
+}
+# refused until the port had them: the edge tier (item 18) and the
+# speculative sum2's knobs (item 9b); now accepted as the JAX package does
+ACCEPTED = {
+    "tenancy-edge": ("edge", "enabled", True),
+    "edge": ("edge", "enabled", True),
+    "speculative-derive": ("overlap", "speculative_derive", False),
+    "spec-group": ("overlap", "spec_group", 4),
 }
 
 
-@pytest.mark.parametrize("case", list(UNSUPPORTED))
+@pytest.mark.parametrize("case", list(UNSUPPORTED) + list(ACCEPTED))
 def test_port_settings_refuse_what_the_port_lacks(case, tmp_path):
     """Each key the port lacks is refused by name, where the JAX package
     accepts the same settings. The port serves tenants (``[tenancy]
     enabled``), and a tenant's own settings file is held to the same
-    refusals."""
-    section, key, value, item = UNSUPPORTED[case]
+    refusals. The edge tier (alone and with tenancy) and non-default
+    ``[overlap] speculative_derive`` / ``spec_group`` are accepted, as in
+    the JAX package."""
     settings = _settings(port_settings, device=True)
     theirs = _settings(jax_settings, device=True)
     if case.startswith("tenan"):
         for s in (settings, theirs):
             s.tenancy.enabled = True
             s.tenancy.tenants = ["t0"]
+    if case in ACCEPTED:
+        section, key, value = ACCEPTED[case]
+        for s in (settings, theirs):
+            setattr(getattr(s, section), key, value)
+            s.validate()  # both packages accept it
+        assert getattr(getattr(settings, section), key) == value
+        return
+    section, key, value, item = UNSUPPORTED[case]
     if case == "tenant-file-kernel-xla":
         from xaynet_tpu.server import runner as jax_runner
 
@@ -425,9 +438,8 @@ def test_port_settings_refuse_what_the_port_lacks(case, tmp_path):
             runner._tenant_settings(settings, "t0")
         return
     setattr(getattr(settings, section), key, value)
-    if case not in ("edge", "tenancy-edge"):  # the JAX package's edge section validates alone
-        setattr(getattr(theirs, section), key, value)
-        theirs.validate()  # the JAX package accepts the same settings
+    setattr(getattr(theirs, section), key, value)
+    theirs.validate()  # the JAX package accepts the same settings
     with pytest.raises(port_settings.SettingsError, match=item):
         settings.validate()
 

@@ -200,7 +200,7 @@ def test_launch_counters_count_kernel_launches(cuda):
     kernels.mask_fold(acc, kws, [0, 5], 64, order)
     assert kernels.LAUNCHES == {
         "fold_planar": 1, "fold_packed": 0, "mask_fold": 2, "mask_fold_rows": 0, "wire_unpack": 0,
-        "packed_check": 0, "unit_draws": 0,
+        "packed_check": 0, "unit_draws": 0, "wire_fold": 0,
     }
 
 
@@ -288,6 +288,60 @@ def test_wire_launch_counters(cuda):
     kernels.packed_check(raw.view(3, 12, 50)[:, :12].contiguous(), ORDERS["L3-2^96"])
     assert kernels.LAUNCHES["wire_unpack"] == 1
     assert kernels.LAUNCHES["packed_check"] == 1  # none at the 2^(32L) boundary
+
+
+@pytest.mark.parametrize("k", [1, 3, 8, 64])
+@pytest.mark.parametrize("name", list(WIRE_ORDERS))
+def test_wire_fold_matches_plain(cuda, name, k):
+    """K6 (the fused wire ingest) against ``wire_fold_plain`` on the card,
+    byte-exact: rejected members (an all-0xFF element first in update 0, the
+    order in the middle of update k // 2) left out, ``order - 1`` kept, a
+    ragged length, a non-zero accumulator updated in place."""
+    order = WIRE_ORDERS[name]
+    n = 4099 if k < 64 else 1031
+    bpn = limbs.wire_width_for(order)
+    rows = _wire_case(order, k, n, seed=k + 100)
+    raw = np.stack([np.ascontiguousarray(r.view(np.uint8).reshape(n, -1)[:, :bpn]).reshape(-1)
+                    for r in rows])
+    raw_dev = torch.from_numpy(raw).to(cuda)
+    acc = to_device_u32(_elements(order, (n,), k), cuda)
+    want, want_ok = kernels.wire_fold_plain(acc.clone(), raw_dev, order)
+    got = acc.clone()
+    out, ok = kernels.wire_fold(got, raw_dev, order)
+    assert out is got and ok.device.type == "cuda"
+    assert _same(got, want) and ok.tolist() == want_ok.tolist()
+    if order != 1 << (32 * limbs.n_limbs_for_order(order)):
+        assert not ok[0] and not ok[k // 2]
+    # all rejected: the accumulator comes back unchanged
+    bad_rows = np.stack([raw[0]] * min(k, 3))
+    same = acc.clone()
+    _, ok = kernels.wire_fold(same, torch.from_numpy(bad_rows).to(cuda), order)
+    if order != 1 << (32 * limbs.n_limbs_for_order(order)):
+        assert not any(ok.tolist()) and _same(same, acc)
+
+
+def test_wire_fold_launches_and_aggregator_paths(cuda):
+    """One K6 launch per batch; ``add_wire_batch`` and the pipeline's
+    ``submit_wire_batch`` + ``drain`` on the card equal the CPU's."""
+    order = ORDERS["L2"]
+    cfg = MaskConfig(GroupType.PRIME, DataType.F32, BoundType.B0, ModelType.M3)
+    n, k = 3001, 5
+    rows = _wire_case(order, k, n, seed=3)
+    raw = np.stack([np.ascontiguousarray(r.view(np.uint8).reshape(n, -1)[:, :6]).reshape(-1)
+                    for r in rows])
+    kernels.reset_launches()
+    card = DeviceAggregator(cfg, n, device=cuda)
+    host = DeviceAggregator(cfg, n, device="cpu")
+    assert card.add_wire_batch(raw).tolist() == host.add_wire_batch(raw).tolist()
+    assert kernels.LAUNCHES["wire_fold"] == 1 and kernels.LAUNCHES["wire_unpack"] == 0
+    stream = StreamingAggregator(card, max_batch=4)
+    tickets = [stream.submit_wire_batch(raw[:3]), stream.submit_wire_batch(raw[3:])]
+    assert stream.drain() == sum(int(t.accepted.sum()) for t in tickets)
+    host.add_wire_batch(raw)
+    assert np.array_equal(card.snapshot(), host.snapshot())
+    assert card.nb_models == host.nb_models
+    assert kernels.LAUNCHES["wire_fold"] == 3
+    stream.close()
 
 
 def test_staged_wire_ingest_on_card_matches_cpu(cuda):
@@ -737,6 +791,35 @@ def test_aggregate_masks_on_card_matches_cpu(cuda):
     assert kernels.LAUNCHES["mask_fold"] == 9
     unit, vect = masking.sum_masks(raw, length, pair, device="cpu")
     assert got.vect.data.tobytes() == vect.tobytes() and got.unit.data.tobytes() == unit.tobytes()
+
+
+def test_speculative_sum2_on_card_matches_cpu(cuda):
+    """The speculative Sum2 on the card (K5, K2, K1 planar in the worker
+    thread; the discard subtracted on the card) at 200,000 parameters: 7
+    hits, 1 miss, 1 discard, equal to ``sum_masks`` on the CPU, no worker
+    error, idle slots from a scheduler."""
+    import time as _time
+
+    from xaynet_tpu_torch.ops import masking
+    from xaynet_tpu_torch.ops.speculation import SpeculativeMaskSession
+
+    pair = MaskConfig(GroupType.PRIME, DataType.F32, BoundType.B0, ModelType.M3).pair()
+    length = 200_000
+    rng = np.random.default_rng(22)
+    seeds = [rng.bytes(32) for _ in range(8)]
+    stray = rng.bytes(32)
+    spec = SpeculativeMaskSession(length, pair, group=4, scheduler=TenantScheduler(max_inflight=2))
+    assert spec.device.type == "cuda"
+    kernels.reset_launches()
+    spec.offer(seeds[:7] + [stray])
+    deadline = _time.monotonic() + 120
+    while spec.speculated() < 8 and _time.monotonic() < deadline:
+        _time.sleep(0.01)
+    assert spec.speculated() == 8 and spec.worker_error is None
+    assert kernels.LAUNCHES["fold_planar"] == 2  # one per derive group
+    unit, vect = spec.settle(seeds)
+    want_unit, want_vect = masking.sum_masks(seeds, length, pair, device="cpu")
+    assert vect.tobytes() == want_vect.tobytes() and unit.tobytes() == want_unit.tobytes()
 
 
 def _trips_needed(starts, ends, trip: int, bpn: int) -> int:

@@ -215,5 +215,5 @@ def test_kernel_launch_counter_untouched_on_cpu():
     _port_fold(acc0, stack, CFG_L2.order)
     assert kernels.LAUNCHES == {
         "fold_planar": 0, "fold_packed": 0, "mask_fold": 0, "mask_fold_rows": 0, "wire_unpack": 0,
-        "packed_check": 0, "unit_draws": 0,
+        "packed_check": 0, "unit_draws": 0, "wire_fold": 0,
     }

@@ -218,13 +218,14 @@ _ALONE = sorted(
         "xaynet_tpu_torch.core.mask.object",
         "xaynet_tpu_torch.parallel.aggregator",
         "xaynet_tpu_torch.server.aggregation",
+        "xaynet_tpu_torch.ops.speculation",
     }
     | {
         m
         for m in _port_modules()
         if m.split(".")[1:2] in (["server"], ["core"], ["storage"], ["telemetry"],
                                  ["resilience"], ["utils"], ["sdk"], ["sim"], ["loadgen"],
-                                 ["models"], ["examples"], ["tenancy"], ["ingest"])
+                                 ["models"], ["examples"], ["tenancy"], ["ingest"], ["edge"])
     }
 )  # fmt: skip
 
@@ -269,8 +270,8 @@ def test_wire_ingest_modules_import_alone_without_jax(module, imported_alone):
     """Each module on the wire-ingest path and the coordinator's, every
     module of the port's ``server``, ``core``, ``storage``, ``telemetry``,
     ``resilience``, ``utils``, ``sdk``, ``sim``, ``loadgen``, ``models``,
-    ``examples``, ``tenancy`` and ``ingest`` among them (``server.console``
-    too), imported alone, pulls in neither ``jax``,
+    ``examples``, ``tenancy``, ``ingest`` and ``edge`` among them
+    (``server.console`` and ``ops.speculation`` too), imported alone, pulls in neither ``jax``,
     ``flax``, ``optax`` nor the JAX package."""
     assert module in _port_modules()
     assert imported_alone[module] == []

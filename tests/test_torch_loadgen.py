@@ -215,6 +215,17 @@ def test_ground_truth_is_the_drivers_populations():
     with pytest.raises(ValueError, match="dropout_rate = 0.1"):
         runner.ground_truth(dict(cfg, dropout_rate=0.1))
     assert runner.ground_truth(dict(cfg, stragglers=2))[0] == seeds
+    # one round behind two edges (shared_round): each shard forges target
+    # by target, participant g to target g % 2, from seed + shard * 2 + t
+    shared = dict(cfg, targets=["http://e0", "http://e1"], shared_round=True)
+    seeds2, weights2, scalar2 = runner.ground_truth(shared)
+    assert len(seeds2) == 7 and weights2.shape == (7, 5) and scalar2 == Fraction(1, 7)
+    w, s = population_inputs(2, 5, 4)  # shard 0 (participants 0-2), target 0: 0 and 2
+    assert seeds2[:2] == s and np.array_equal(weights2[:2], w)
+    w, s = population_inputs(1, 5, 4 + 2 * 1 + 0)  # shard 1 (3, 4), target 0: 4
+    assert seeds2[3:4] == s
+    with pytest.raises(ValueError, match="one target"):
+        runner.ground_truth(dict(shared, shared_round=False))
 
 
 def test_run_without_a_card_raises_before_spawning(monkeypatch):

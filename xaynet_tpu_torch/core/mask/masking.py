@@ -187,6 +187,22 @@ class Aggregation:
             )[0]
         self.nb_models += k
 
+    def aggregate_partial(self, obj: MaskObject, nb_models: int) -> None:
+        """Fold a pre-aggregated PARTIAL (the modular sum of ``nb_models``
+        already-masked updates, an edge envelope's) as one addition: masked
+        aggregation is modular addition, so this is byte-identical to
+        folding the members one by one; only the model count advances by
+        the member count instead of one."""
+        if nb_models < 1:
+            raise AggregationError("EmptyPartial")
+        remaining = min(
+            self.object.vect.config.max_nb_models, self.object.unit.config.max_nb_models
+        ) - self.nb_models
+        if nb_models > remaining:
+            raise AggregationError("TooManyModels")
+        self.aggregate(obj)
+        self.nb_models += nb_models - 1
+
     # --- unmasking (reference: masking.rs:190-231) ------------------------
 
     def _unmasked_limbs(self, mask_obj: MaskObject) -> tuple[np.ndarray, int]:

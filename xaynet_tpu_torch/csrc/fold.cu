@@ -13,6 +13,27 @@
 //     planes 4j .. min(4j+4, bpn) in registers, so only bpn bytes per
 //     element are read (the JAX package unpacks in a separate program).
 //
+// K6, the fused wire ingest (`wire_fold_kernel`, `wire_unfold_kernel`), is
+// the same fold over raw v1 wire element blocks uint8[K, n*bpn] (bpn
+// little-endian bytes per element) with K3's per-update validity verdict
+// in the same pass. It replaces the XLA program `_make_ingest_fn` of the
+// JAX package (xaynet_tpu/parallel/aggregator.py: `_build_wire_unpack`
+// composed with the fold): an update with any element >= the order is
+// left out of the fold and reported in bad[k]. The planar uint32[K, L, n]
+// batch never exists in device memory. The first pass folds every member,
+// taking each element that is itself >= the order as 0 (so the lazy-carry
+// bound K * order holds), and ORs each member's verdict into bad[k] (a
+// warp ballot, then one atomicOr per warp). The second, short pass
+// subtracts back, modulo the order, each member whose verdict came out bad
+// (its in-range elements, the ones the first pass added): subtraction is
+// the group inverse, so the accumulator ends as the fold of the accepted
+// members alone. The verdicts stay on the card; with no bad member each
+// thread of the second pass reads the K flags and exits. Bytes: K*n*bpn
+// read once and the accumulator read and written once, plus, per rejected
+// member, its bytes and the accumulator once more. A warp's i-th byte load
+// of the first pass spans 32*bpn contiguous bytes (as K3's), so every
+// sector fetched is used in full through L1.
+//
 // What bounds it on the H100: device-memory bytes. Each batch byte is read
 // once and the accumulator read and written once; the arithmetic is a few
 // integer ops per byte, far below the card's integer rate. The design:
@@ -174,6 +195,113 @@ fold_packed_kernel(const uint8_t* __restrict__ packed, uint32_t* __restrict__ ac
   reduce_and_add<LT>(value, s_order, L, kbits, pow2, acc, n, col);
 }
 
+// limb j of the element whose bpn little-endian bytes start at p
+__device__ __forceinline__ uint32_t wire_limb(const uint8_t* __restrict__ p, int j, int bpn) {
+  uint32_t w = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (4 * j + i < bpn) w |= (uint32_t)__ldg(p + 4 * j + i) << (8 * i);
+  return w;
+}
+
+// the element at p as limbs w[0..L), zeroed when it is >= the order (check
+// = 0: the boundary order 2^(32L), every pattern valid); returns 1 iff it
+// was >= the order
+template <int LT>
+__device__ __forceinline__ int load_in_range(const uint8_t* p, int bpn, int L, int check,
+                                             const uint32_t* s_order, uint32_t* w) {
+  uint32_t borrow = 0;  // of element - order: set iff element < order
+#pragma unroll
+  for (int j = 0; j < (LT ? LT : L); ++j) {
+    w[j] = wire_limb(p, j, bpn);
+    borrow = (uint32_t)(((uint64_t)w[j] - s_order[j] - borrow) >> 63);
+  }
+  const int ge = check && !borrow;
+  if (ge) {
+#pragma unroll
+    for (int j = 0; j < (LT ? LT : L); ++j) w[j] = 0;
+  }
+  return ge;
+}
+
+template <int LT>
+__global__ void __launch_bounds__(kThreads)
+wire_fold_kernel(const uint8_t* __restrict__ raw, uint32_t* __restrict__ acc,
+                 uint32_t* __restrict__ bad, const uint32_t* __restrict__ order, int k, int bpn,
+                 int n_limb, long long n, int kbits, int pow2, int check) {
+  const int L = LT ? LT : n_limb;
+  __shared__ uint32_t s_order[kMaxLimbs + 1];
+  for (int i = threadIdx.x; i <= L; i += blockDim.x) s_order[i] = order[i];
+  __syncthreads();
+  const long long col = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = col < n;  // every lane stays for the ballots
+  uint32_t lo[(LT ? LT : kMaxLimbs)], hi[(LT ? LT : kMaxLimbs)];
+#pragma unroll
+  for (int j = 0; j < (LT ? LT : L); ++j) lo[j] = hi[j] = 0;
+  for (int i = 0; i < k; ++i) {
+    uint32_t w[(LT ? LT : kMaxLimbs)];
+    int ge = 0;
+    if (live) {
+      ge = load_in_range<LT>(raw + ((long long)i * n + col) * bpn, bpn, L, check, s_order, w);
+#pragma unroll
+      for (int j = 0; j < (LT ? LT : L); ++j) {
+        lo[j] += w[j] & 0xFFFFu;
+        hi[j] += w[j] >> 16;
+      }
+    }
+    if (__ballot_sync(0xffffffffu, ge) && (threadIdx.x & 31) == 0) atomicOr(bad + i, 1u);
+  }
+  if (!live) return;
+  uint32_t value[(LT ? LT : kMaxLimbs) + 1];
+  uint32_t carry = 0;
+#pragma unroll
+  for (int j = 0; j < (LT ? LT : L); ++j) value[j] = propagate(lo[j], hi[j], carry);
+  value[L] = carry;
+  reduce_and_add<LT>(value, s_order, L, kbits, pow2, acc, n, col);
+}
+
+// acc[:, col] = (acc[:, col] - x[:, col]) mod order for every member x whose
+// verdict bad[i] is set (its in-range elements: what wire_fold_kernel added)
+template <int LT>
+__global__ void __launch_bounds__(kThreads)
+wire_unfold_kernel(const uint8_t* __restrict__ raw, uint32_t* __restrict__ acc,
+                   const uint32_t* __restrict__ bad, const uint32_t* __restrict__ order, int k,
+                   int bpn, int n_limb, long long n, int check) {
+  const int L = LT ? LT : n_limb;
+  bool any = false;
+  for (int i = 0; i < k && !any; ++i) any = bad[i] != 0;
+  if (!any) return;  // the common case: nothing was rejected
+  __shared__ uint32_t s_order[kMaxLimbs + 1];
+  for (int i = threadIdx.x; i <= L; i += blockDim.x) s_order[i] = order[i];
+  __syncthreads();
+  for (long long col = (long long)blockIdx.x * blockDim.x + threadIdx.x; col < n;
+       col += (long long)gridDim.x * blockDim.x) {
+    for (int i = 0; i < k; ++i) {
+      if (!bad[i]) continue;
+      uint32_t w[(LT ? LT : kMaxLimbs)];
+      load_in_range<LT>(raw + ((long long)i * n + col) * bpn, bpn, L, check, s_order, w);
+      uint32_t borrow = 0;
+#pragma unroll
+      for (int j = 0; j < (LT ? LT : L); ++j) {
+        const uint64_t d = (uint64_t)acc[j * n + col] - w[j] - borrow;
+        w[j] = (uint32_t)d;
+        borrow = (uint32_t)(d >> 63);
+      }
+      if (borrow) {  // below zero: add the order back
+        uint32_t c = 0;
+#pragma unroll
+        for (int j = 0; j < (LT ? LT : L); ++j) {
+          const uint64_t s = (uint64_t)w[j] + s_order[j] + c;
+          w[j] = (uint32_t)s;
+          c = (uint32_t)(s >> 32);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < (LT ? LT : L); ++j) acc[j * n + col] = w[j];
+    }
+  }
+}
+
 inline unsigned grid_for(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
 
 }  // namespace
@@ -219,6 +347,36 @@ int xn_fold_packed(const void* packed, void* acc, const void* order, int k, int 
     case 4: fold_packed_kernel<4><<<g, kThreads, 0, s>>>(x, a, o, k, bpn, n_limb, n, kbits, pow2); break;
     case 5: fold_packed_kernel<5><<<g, kThreads, 0, s>>>(x, a, o, k, bpn, n_limb, n, kbits, pow2); break;
     default: fold_packed_kernel<0><<<g, kThreads, 0, s>>>(x, a, o, k, bpn, n_limb, n, kbits, pow2);
+  }
+  return (int)cudaGetLastError();
+}
+
+// K6: acc uint32[L, n] (in place) += the members of raw uint8[K, n*bpn]
+// whose elements are all < order; bad uint32[K] (zeroed by the caller) ORed
+// with 1 for every other member (order uint32[L+1]; check = 0 at 2^(32L))
+int xn_wire_fold(const void* raw, void* acc, void* bad, const void* order, int k, int bpn,
+                 int n_limb, long long n, int kbits, int pow2, int check, void* stream) {
+  if (n <= 0 || k <= 0) return 0;
+  if (k > 65535 || n_limb < 1 || n_limb > kMaxLimbs || bpn < 1 || bpn > 4 * n_limb ||
+      bpn <= 4 * (n_limb - 1))
+    return (int)cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  auto x = static_cast<const uint8_t*>(raw);
+  auto a = static_cast<uint32_t*>(acc);
+  auto b = static_cast<uint32_t*>(bad);
+  auto o = static_cast<const uint32_t*>(order);
+  const unsigned g = grid_for(n);
+  const unsigned g2 = g < 4096u ? g : 4096u;  // the subtract-back pass strides
+  switch (n_limb) {
+#define XN_WIRE_FOLD(LT)                                                                 \
+  wire_fold_kernel<LT><<<g, kThreads, 0, s>>>(x, a, b, o, k, bpn, n_limb, n, kbits, pow2, check); \
+  wire_unfold_kernel<LT><<<g2, kThreads, 0, s>>>(x, a, b, o, k, bpn, n_limb, n, check);
+    case 2: XN_WIRE_FOLD(2) break;
+    case 3: XN_WIRE_FOLD(3) break;
+    case 4: XN_WIRE_FOLD(4) break;
+    case 5: XN_WIRE_FOLD(5) break;
+    default: XN_WIRE_FOLD(0)
+#undef XN_WIRE_FOLD
   }
   return (int)cudaGetLastError();
 }

@@ -62,12 +62,15 @@ def shard_sizes(participants: int, drivers: int) -> list[int]:
 
 def ground_truth(cfg: dict) -> tuple[list[bytes], np.ndarray, Fraction]:
     """The mask seeds, local models ``float32[P, n]`` and scalar a run of
-    ``cfg`` against ONE target forges, in shard order: what a control round
-    (``sim.SimRound``) replays to hold the coordinator's model against.
-    Every forged participant must upload, so a run with dropouts is refused
-    (stragglers upload late and are covered)."""
-    if len(list(cfg.get("targets") or ()) or targets_for(cfg["url"], cfg["tenants"])) != 1:
-        raise ValueError("ground_truth covers a run against one target")
+    ``cfg`` forges, in shard order (within a shard, target by target): what
+    a control round (``sim.SimRound``) replays to hold the coordinator's
+    model against. The run must feed ONE round: one target, or several with
+    ``shared_round`` (edges fronting one coordinator round). Every forged
+    participant must upload, so a run with dropouts is refused (stragglers
+    upload late and are covered)."""
+    n_t = len(list(cfg.get("targets") or ()) or targets_for(cfg["url"], cfg["tenants"]))
+    if n_t != 1 and not cfg.get("shared_round"):
+        raise ValueError("ground_truth covers a run against one target or one shared round")
     if cfg["dropout_rate"] > 0:
         raise ValueError(
             "ground_truth covers a run in which every participant uploads; "
@@ -76,11 +79,19 @@ def ground_truth(cfg: dict) -> tuple[list[bytes], np.ndarray, Fraction]:
     if cfg["model_length"] is None:
         raise ValueError("ground_truth needs the model length in cfg")
     seeds, weights = [], []
-    for shard, n in enumerate(shard_sizes(cfg["participants"], cfg["drivers"])):
-        if n:
-            w, s = population_inputs(n, cfg["model_length"], cfg["seed"] + shard)
-            seeds += s
-            weights.append(w)
+    sizes = shard_sizes(cfg["participants"], cfg["drivers"])
+    for shard, n in enumerate(sizes):
+        offset = sum(sizes[:shard])
+        for t_idx in range(n_t):
+            # the participants of this shard that target t_idx forges
+            # (run_shard's one_target)
+            first = offset + ((t_idx - offset) % n_t)
+            count = len(range(first, offset + n, n_t))
+            if count:
+                w, s = population_inputs(count, cfg["model_length"],
+                                         cfg["seed"] + shard * n_t + t_idx)  # fmt: skip
+                seeds += s
+                weights.append(w)
     return seeds, np.concatenate(weights), Fraction(1, cfg["participants"])
 
 

@@ -29,6 +29,15 @@ Two more replace the XLA program of the JAX package's device wire ingest
 - **K4** ``csrc/wire.cu`` — the verdict alone over v2 byte-planar blocks
   ``uint8[K, bpn, n]``, :func:`packed_check`.
 
+One replaces the fused ingest program of the JAX package's aggregator
+(``xaynet_tpu/parallel/aggregator.py`` ``_make_ingest_fn``: the wire unpack
+and verdict composed with the fold):
+
+- **K6** ``csrc/fold.cu`` — the fold of v1 wire element blocks
+  ``uint8[K, n*bpn]`` into the accumulator, members with an element >= the
+  order left out, the verdicts kept on the device, :func:`wire_fold`; no
+  planar batch is ever written.
+
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface and loaded with ctypes, at first use (never at
 import: this module imports on machines without ``nvcc``). Libraries go to
@@ -45,7 +54,8 @@ thread): K1 one per batch fold; K2 one per seed and trip for
 ``mask_fold_rows`` (a trip is one pass over a provisioned run of
 keystream candidates; a seed takes one trip except with probability
 < 2^-60, or when a caller shrinks ``chunk_candidates``); K3 and K4 one per
-group of wire updates; K5 one per call.
+group of wire updates; K5 one per call; K6 one per batch (its fold pass
+and its subtract-back pass, launched together).
 """
 
 from __future__ import annotations
@@ -94,6 +104,7 @@ LAUNCHES = {
     "wire_unpack": 0,
     "packed_check": 0,
     "unit_draws": 0,
+    "wire_fold": 0,
 }
 _LAUNCHES_LOCK = threading.Lock()
 
@@ -189,6 +200,8 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.xn_fold_planar.restype = i
         lib.xn_fold_packed.argtypes = [p, p, p, i, i, i, ll, i, i, p]
         lib.xn_fold_packed.restype = i
+        lib.xn_wire_fold.argtypes = [p, p, p, p, i, i, i, ll, i, i, i, p]
+        lib.xn_wire_fold.restype = i
     elif name == "mask_fold":
         lib.xn_mask_fold_trip.argtypes = [p, ll, ll, i, i, i, i, p, p, p, ll, ll, p, p, p, p]
         lib.xn_mask_fold_trip.restype = i
@@ -804,3 +817,58 @@ def packed_check(packed: torch.Tensor, order: int) -> torch.Tensor:
     _check(rc, "K4 packed check", lib)
     _launched("packed_check")
     return bad
+
+
+# --- K6: the fused wire ingest -----------------------------------------------
+
+
+def _check_wire_fold_args(acc: torch.Tensor, raw: torch.Tensor, order: int) -> tuple[int, int]:
+    n_limb, bpn = _wire_widths(order)
+    if acc.dtype != torch.uint32 or acc.ndim != 2 or acc.shape[0] != n_limb:
+        raise ValueError(f"acc must be uint32[{n_limb}, n], got {acc.dtype}{list(acc.shape)}")
+    n = acc.shape[1]
+    _check_batch(raw, raw.ndim == 2 and raw.shape[1] == n * bpn, f"uint8[K, {n} * {bpn}]")
+    if raw.device != acc.device:
+        raise ValueError("wire blocks and accumulator live on different devices")
+    return n_limb, bpn
+
+
+def wire_fold_plain(acc: torch.Tensor, raw: torch.Tensor, order: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch K6, any device: K3's plain unpack and verdict, the
+    rejected members' rows zeroed (the additive identity), then K1's plain
+    fold, in place. Returns ``(acc, ok bool[K])``."""
+    _check_wire_fold_args(acc, raw, order)
+    planar, bad = wire_unpack_plain(raw, order)
+    ok = bad.view(torch.int32) == 0
+    planar = torch.where(ok[:, None, None], planar.view(torch.int32), 0).view(torch.uint32)
+    fold_planar_plain(acc, planar, order)
+    return acc, ok
+
+
+def wire_fold(acc: torch.Tensor, raw: torch.Tensor, order: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K6: fold K v1 wire element blocks ``uint8[K, n*bpn]`` into the planar
+    ``uint32[L, n]`` accumulator, in place, leaving out every member with an
+    element >= ``order``. Returns ``(acc, ok)``, ``ok`` a ``bool[K]`` on the
+    accumulator's device that nothing here fetches (the caller syncs it
+    when it needs the count). The function of the JAX package's
+    ``_make_ingest_fn``; the planar batch never exists."""
+    n_limb, bpn = _check_wire_fold_args(acc, raw, order)
+    if acc.device.type == "cpu":
+        return wire_fold_plain(acc, raw, order)
+    _require_cuda(acc, raw)
+    dev = acc.device
+    k, n = raw.shape[0], acc.shape[1]
+    bad = torch.zeros(k, dtype=torch.int32, device=dev)
+    if k == 0 or n == 0:
+        return acc, bad == 0
+    order_wide, _, _ = _order_buffers(order, n_limb, dev)
+    pow2 = int(order == 1 << (32 * n_limb))
+    lib = load("fold")
+    with torch.cuda.device(dev):
+        rc = lib.xn_wire_fold(
+            raw.data_ptr(), acc.data_ptr(), bad.data_ptr(), order_wide.data_ptr(),
+            k, bpn, n_limb, n, _kbits(k), pow2, 1 - pow2, _stream(dev),
+        )  # fmt: skip
+    _check(rc, "K6 wire fold", lib)
+    _launched("wire_fold")
+    return acc, bad == 0

@@ -18,7 +18,11 @@ Device wire ingest: ``validate_wire_updates`` / ``validate_planar_updates``
 take raw wire element blocks (v1 interleaved, v2 byte-planar), upload a
 group in one copy and unpack + validity-check it on the card (kernels K3
 and K4), so a coordinator never parses elements on the host; accepted rows
-stay on the device until a flush folds them.
+stay on the device until a flush folds them. The fused wire ingest
+(``add_wire_batch``, ``dispatch_staged_bytes``) folds raw v1 element
+blocks straight into the accumulator with kernel K6, leaving out the
+members with an element >= the order: no planar batch exists on the
+device, and the acceptance vector stays there until the caller fetches it.
 
 With a ``tenant``, the accumulator's bytes go on the page pool's device
 ledger (``tenancy.pool``) under that tenant when the accumulator is
@@ -71,6 +75,8 @@ class DeviceAggregator:
     ``_fold_fn`` / ``_packed_fold_fn`` are the fold seams (planar and
     packed batches): every fold goes through them, and a test may replace
     one on an instance, as with the JAX package's. Both fold in place.
+    ``_wire_fold_fn`` is the fused wire ingest's seam (K6): it folds in
+    place and returns the device acceptance vector.
     """
 
     def __init__(self, config: MaskConfig, model_length: int, device=None,
@@ -110,6 +116,9 @@ class DeviceAggregator:
 
     def _packed_fold_fn(self, acc: torch.Tensor, staged: torch.Tensor) -> None:
         fold_packed_batch(acc, staged, self.n_limbs, self.order)
+
+    def _wire_fold_fn(self, acc: torch.Tensor, staged: torch.Tensor) -> torch.Tensor:
+        return kernels.wire_fold(acc, staged, self.order)[1]
 
     @contextmanager
     def on_stream(self, *inputs: torch.Tensor):
@@ -163,6 +172,44 @@ class DeviceAggregator:
             self._packed_fold_fn(self.acc, packed)
         self.nb_models += packed.shape[0]
 
+    def _check_raw(self, raw) -> np.ndarray:
+        """Raw v1 wire element blocks ``uint8[K, model_len * bpn]`` (the
+        checks of the JAX ``_stage_raw_bytes``; one device has no padding)."""
+        raw = np.asarray(raw)
+        if raw.dtype != np.uint8 or raw.ndim != 2 or raw.shape[1] != (
+            self.model_length * self.packed_width
+        ):
+            raise ValueError("expected uint8[K, model_len * bytes_per_number]")
+        if raw.shape[0] > MAX_LAZY_BATCH:
+            raise ValueError("batch too large for lazy-carry fold")
+        return raw
+
+    def add_wire_batch(self, raw) -> np.ndarray:
+        """Fold RAW wire element blocks ``uint8[K, model_len * bpn]``: the
+        serialized little-endian element blocks go up as they are and are
+        checked and folded on the device in one K6 launch, so the
+        coordinator never parses an element on the host.
+
+        Validity is per update: an update with any element >= the group
+        order is left out of the fold and not counted in ``nb_models``
+        (the reference rejects such a message before its seed-dict
+        insert). Returns the ``bool[K]`` acceptance vector."""
+        staged = torch.from_numpy(self._check_raw(raw)).to(self.device)
+        ok = self.dispatch_staged_bytes(staged)
+        with self.on_stream():
+            ok_host = ok.cpu().numpy()  # the acceptance fetch, its one sync
+        self.nb_models += int(ok_host.sum())
+        return ok_host
+
+    def dispatch_staged_bytes(self, staged: torch.Tensor) -> torch.Tensor:
+        """Check and fold a device-resident raw-byte batch WITHOUT fetching
+        the acceptance vector: returns the device ``bool[K]`` ``ok``. The
+        caller owns the deferred accounting: it must fetch the vector and
+        credit ``nb_models`` (what ``add_wire_batch`` does at once,
+        and the streaming pipeline once per drain)."""
+        with self.on_stream(staged):
+            return self._wire_fold_fn(self.acc, staged)
+
     @staticmethod
     def _verdicts(bad: torch.Tensor) -> list[bool]:
         """The group's acceptance, fetched to the host (its one sync)."""
@@ -179,13 +226,7 @@ class DeviceAggregator:
         the group is not padded to a power of two."""
         if not raws:
             return []
-        block = np.stack([np.asarray(r) for r in raws])
-        if block.dtype != np.uint8 or block.ndim != 2 or block.shape[1] != (
-            self.model_length * self.packed_width
-        ):
-            raise ValueError("expected uint8[K, model_len * bytes_per_number]")
-        if block.shape[0] > MAX_LAZY_BATCH:
-            raise ValueError("batch too large for lazy-carry fold")
+        block = self._check_raw(np.stack([np.asarray(r) for r in raws]))
         planar, bad = kernels.wire_unpack(torch.from_numpy(block).to(self.device), self.order)
         return [planar[i] if ok else None for i, ok in enumerate(self._verdicts(bad))]
 

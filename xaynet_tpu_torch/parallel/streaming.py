@@ -51,6 +51,15 @@ the batch, so the pipeline is poisoned without a retry. A failed retry
 poisons too. Poison is permanent: every later ``submit``/``drain`` raises
 :class:`StreamingError` naming the batch and the cause.
 
+**Raw wire batches** (``submit_wire_batch``): v1 element blocks
+``uint8[K, n*bpn]`` stage through a ``"wire"`` ring and fold by kernel K6
+(``DeviceAggregator.dispatch_staged_bytes``), which leaves out every
+member with an element >= the order. Acceptance is deferred: the batch's
+device ``ok`` vector waits on its :class:`StreamTicket`, and the next
+``drain()`` fetches every pending vector at once, resolves the tickets and
+credits ``nb_models``. In the degraded (synchronous) mode a ticket
+resolves at submit time.
+
 Rows that device wire ingest already validated on the card
 (``DeviceAggregator.validate_wire_updates`` / ``validate_planar_updates``)
 are not queued: ``fold_planar_rows_now`` / ``fold_packed_rows_now`` fold
@@ -71,8 +80,7 @@ read them. It records the spans ``stream.stage``, ``stream.fold`` and
 
 One device has no shards, so the JAX package's shard plan, per-shard
 workers, per-shard gauges and eager per-shard unmask have no counterpart
-here (ROADMAP item 10). Raw wire batches with deferred acceptance
-(``submit_wire_batch``) are not ported yet, nor are the flight dumps.
+here (ROADMAP item 10), nor have the flight dumps.
 """
 
 from __future__ import annotations
@@ -145,6 +153,20 @@ _SHUTDOWN = object()
 
 class StreamingError(RuntimeError):
     """The fold pipeline failed; the aggregate is unusable."""
+
+
+class StreamTicket:
+    """Handle for one submitted wire batch.
+
+    ``accepted`` resolves at the next ``drain()``: the ``bool[K]``
+    per-member acceptance vector (in the degraded mode, at submit time)."""
+
+    __slots__ = ("k", "accepted", "_ok")
+
+    def __init__(self, k: int):
+        self.k = k
+        self.accepted: np.ndarray | None = None
+        self._ok: torch.Tensor | None = None  # the device vector, until drain
 
 
 class _UnsafeFoldError(Exception):
@@ -382,7 +404,8 @@ class StreamingAggregator:
         # abandoned pipelines give their slots back at collection time
         weakref.finalize(self, self._sched.release_owner, self._sched_owner)
         self._queue: queue_mod.Queue = queue_mod.Queue(maxsize=dispatch_ahead)
-        self._rings: dict[str, _StagingRing] = {}  # lazy: planar / packed  # guarded-by: _lock
+        self._rings: dict[str, _StagingRing] = {}  # lazy: planar / packed / wire  # guarded-by: _lock
+        self._pending: list[StreamTicket] = []  # wire tickets awaiting drain  # guarded-by: _lock
         self._in_flight_models = 0  # submitted, not yet folded  # guarded-by: _lock
         self._error: BaseException | None = None  # guarded-by: _lock
         self._poison_seq: int | None = None  # poisoning batch index  # guarded-by: _lock
@@ -492,6 +515,8 @@ class StreamingAggregator:
                 agg = self.agg
                 if kind == "planar":
                     shape, dtype = (self.max_batch, agg.n_limbs, agg.padded_length), np.uint32
+                elif kind == "wire":  # raw v1 element blocks
+                    shape, dtype = (self.max_batch, agg.padded_length * agg.packed_width), np.uint8
                 else:  # byte-planar packed planes: bpn/(4L) of the planar ring
                     shape, dtype = (self.max_batch, agg.packed_width, agg.padded_length), np.uint8
                 # one ring per kind, made at its first submit; its buffers
@@ -553,7 +578,7 @@ class StreamingAggregator:
     def _dispatch(self, item: tuple) -> None:
         """Queue to the fold worker, or, once degraded, fold synchronously
         on the caller's thread (same math, no overlap)."""
-        buf, payload, kind, k, seq = item
+        buf, payload, kind, k, seq, ticket = item
         self._slot_acquire()  # released when the fold settles (_process)
         with self._lock:
             self._in_flight_models += k
@@ -572,7 +597,7 @@ class StreamingAggregator:
             err = self._poisoned()
             if err is not None:
                 raise self._poison_error() from err
-            self._fold_payload(payload, kind, k)
+            self._fold_payload(payload, kind, k, ticket, defer=False)
         except StreamingError:
             with self._lock:  # already poisoned: this batch just leaves flight
                 self._in_flight_models -= k
@@ -617,12 +642,38 @@ class StreamingAggregator:
                 else:
                     view[i] = np.asarray(row, dtype=np.uint32).T
             BYTES_STAGED.labels(layout="packed" if self._packed else "unpacked").inc(view.nbytes)
-            self._batch_seq += 1
-            t1 = time.monotonic()
-            self._stage_log.append((self._batch_seq, t0, t1))
-            trace.get_tracer().record_span(SPAN_STAGE, start=t0, duration=t1 - t0,
-                                           batch=self._batch_seq, kind=kind, k=k)  # fmt: skip
-            self._dispatch((buf, view, kind, k, self._batch_seq))
+            self._staged_dispatch(buf, view, kind, k, t0, None)
+
+    def _staged_dispatch(self, buf, view, kind: str, k: int, t0: float, ticket) -> None:
+        """Log the batch's staging leg (producer side) and dispatch it."""
+        self._batch_seq += 1
+        t1 = time.monotonic()
+        self._stage_log.append((self._batch_seq, t0, t1))
+        trace.get_tracer().record_span(SPAN_STAGE, start=t0, duration=t1 - t0,
+                                       batch=self._batch_seq, kind=kind, k=k)  # fmt: skip
+        self._dispatch((buf, view, kind, k, self._batch_seq, ticket))
+
+    def submit_wire_batch(self, raw) -> StreamTicket:
+        """Stage and stream-fold RAW v1 wire element blocks ``uint8[K,
+        model_len * bpn]`` through K6. Acceptance is deferred: the
+        per-member ``bool[K]`` lands on the returned ticket at the next
+        ``drain()`` (the fold leaves the invalid members out either way).
+        The rows are copied into a ring buffer, so the caller may reuse
+        ``raw`` once this returns."""
+        raw = self.agg._check_raw(raw)
+        k = raw.shape[0]
+        if k == 0:
+            raise ValueError("empty batch")
+        with self._produce_lock:
+            self._check(k)
+            t0 = time.monotonic()
+            buf = self._ring("wire").acquire(k)
+            view = buf[:k]
+            view[:] = raw
+            BYTES_STAGED.labels(layout="wire").inc(view.nbytes)
+            ticket = StreamTicket(k)
+            self._staged_dispatch(buf, view, "wire", k, t0, ticket)
+        return ticket
 
     def fold_planar_rows_now(self, rows: list) -> None:
         """Fold device-resident, validity-checked planar ``uint32[L, n]``
@@ -711,12 +762,41 @@ class StreamingAggregator:
             agg.nb_models += k
             self._in_flight_models -= k
 
-    def _fold_payload(self, payload: np.ndarray, kind: str, k: int) -> None:
+    def _fold_wire(self, staged: torch.Tensor, k: int, ticket: StreamTicket,
+                   defer: bool) -> None:
+        """K6 over a staged raw batch. ``defer`` (the worker) leaves the
+        acceptance vector on the device for the drain's one fetch, and the
+        ticket's count with it; otherwise (the degraded path) the vector is
+        fetched now, the ticket resolved and the accepted members
+        credited."""
+        agg = self.agg
+        try:
+            ok = agg._wire_fold_fn(agg.acc, staged)
+        except Exception as e:
+            raise _UnsafeFoldError() from e
+        # -- acc now holds this batch: no retry beyond this line --
+        if defer:
+            ticket._ok = ok
+            with self._lock:
+                self._pending.append(ticket)  # the drain owns its count now
+            return
+        try:
+            ok_host = ok.cpu().numpy()  # the acceptance fetch, a fold barrier
+        except Exception as e:
+            raise _UnsafeFoldError() from e
+        ticket.accepted = ok_host
+        with self._lock:
+            agg.nb_models += int(ok_host.sum())
+            self._in_flight_models -= k
+
+    def _fold_payload(self, payload: np.ndarray, kind: str, k: int,
+                      ticket: StreamTicket | None = None, defer: bool = True) -> None:
         """Fold one staged batch out of its ring view, on the fold stream.
         Returns once the fold has completed on the device (or, if it did
         not launch, once the copy out of the ring buffer has), so the
         buffer may be reused and the batch's scheduler slot returned: a
-        slot released at the launch would bound nothing on the card."""
+        slot released at the launch would bound nothing on the card. A
+        wire batch defers its acceptance to the drain when ``defer``."""
         agg = self.agg
         with agg.on_stream():
             # retry-safe up to here: the allocation and the copy's enqueue
@@ -727,7 +807,10 @@ class StreamingAggregator:
                 copied.record()
             settled = False
             try:
-                self._credit(staged, k, packed=kind == "packed")
+                if kind == "wire":
+                    self._fold_wire(staged, k, ticket, defer)
+                else:
+                    self._credit(staged, k, packed=kind == "packed")
                 settled = True
             finally:
                 # freed into the fold stream's pool: reused only in its order
@@ -742,7 +825,7 @@ class StreamingAggregator:
                     except Exception as e:
                         raise _UnsafeFoldError(settled=settled) from e
 
-    def _degrade_and_retry(self, payload, kind: str, k: int, seq: int,
+    def _degrade_and_retry(self, payload, kind: str, k: int, seq: int, ticket,
                            first: Exception) -> str:
         """First fold failure before the launch: switch the pipeline to the
         synchronous path and retry the batch once; a second failure poisons
@@ -757,7 +840,7 @@ class StreamingAggregator:
         DEGRADED.set(1)
         DEGRADATIONS.inc()
         try:
-            self._fold_payload(payload, kind, k)
+            self._fold_payload(payload, kind, k, ticket, defer=False)
             return "folded-degraded"
         except Exception as second:
             # the batch is lost: the accumulator matches no consistent
@@ -772,13 +855,13 @@ class StreamingAggregator:
     def _process(self, item: tuple) -> None:
         """Worker-side fold with the degradation ladder: streaming fold ->
         one synchronous retry (pre-launch failures only) -> sticky poison."""
-        buf, payload, kind, k, seq = item
+        buf, payload, kind, k, seq, ticket = item
         t0 = time.monotonic()
         outcome = "folded"
         with trace.get_tracer().span(SPAN_FOLD, batch=seq, kind=kind, k=k) as fold_span:
             try:
                 maybe_fail("streaming.fold")
-                self._fold_payload(payload, kind, k)
+                self._fold_payload(payload, kind, k, ticket)
             except _UnsafeFoldError as e:
                 # acc may already hold the batch: retrying would fold it twice
                 self._poison(e.__cause__ or e, seq, k, settled=e.settled)
@@ -786,7 +869,7 @@ class StreamingAggregator:
                 logger.exception("streaming fold batch %d failed at or after launch; "
                                  "pipeline poisoned", seq)
             except Exception as first:
-                outcome = self._degrade_and_retry(payload, kind, k, seq, first)
+                outcome = self._degrade_and_retry(payload, kind, k, seq, ticket, first)
             finally:
                 self._slot_release()
                 self._ring(kind).release(buf)
@@ -799,30 +882,62 @@ class StreamingAggregator:
 
     # -- drain -------------------------------------------------------------
 
-    def drain(self) -> None:
+    def drain(self) -> int:
         """Wait for every in-flight fold: the worker's queue, then the fold
         stream (a true completion barrier: the worker waits only for its
         copies, so the last folds may still run on the device, and their
-        errors surface here). A poisoned pipeline raises here every time,
-        so no aggregate with lost updates escapes as a round result."""
+        errors surface here); then the ONE deferred acceptance fetch:
+        every pending wire ticket resolves and its accepted members are
+        credited to ``nb_models``. Returns the members accepted from
+        deferred wire batches in this window. A poisoned pipeline raises
+        here every time, so no aggregate with lost updates escapes as a
+        round result."""
         with trace.get_tracer().span(SPAN_DRAIN):
-            self._drain()
+            return self._drain()
 
-    def _drain(self) -> None:
+    def _drop_pending(self) -> list:
+        """Discard the deferred tickets (once): their counts leave flight
+        and they never resolve."""
+        with self._lock:
+            stale, self._pending = self._pending, []
+            self._in_flight_models -= sum(t.k for t in stale)
+        for ticket in stale:
+            ticket._ok = None
+        return stale
+
+    def _drain(self) -> int:
         self._queue.join()
         err = self._poisoned()
         if err is not None:
+            self._drop_pending()
             raise self._poison_error() from err
-        if self.agg.stream is not None:
-            try:
+        with self._lock:
+            pending = list(self._pending)
+        accepted = 0
+        try:
+            if self.agg.stream is not None:
                 self.agg.stream.synchronize()
-            except Exception as e:
-                # a fold failed on the device: acc may hold part of it
-                with self._lock:
-                    if self._error is None:
-                        self._error = e
-                raise self._poison_error() from e
+            oks = [t._ok.cpu().numpy() for t in pending]
+        except Exception as e:
+            # a fold failed on the device: acc may hold part of it
+            with self._lock:
+                if self._error is None:
+                    self._error = e
+            self._drop_pending()
+            raise self._poison_error() from e
+        for ticket, ok_host in zip(pending, oks):
+            ticket._ok = None
+            ticket.accepted = ok_host
+            accepted += int(ok_host.sum())
+        if pending:
+            # the one deferred credit: the accepted count lands and the
+            # in-flight count drops in one locked step
+            with self._lock:
+                self._pending = self._pending[len(pending):]
+                self.agg.nb_models += accepted
+                self._in_flight_models -= sum(t.k for t in pending)
         self._publish_overlap()
+        return accepted
 
     def _publish_overlap(self) -> None:
         """Close the drain window: ``last_window`` holds its wall seconds,

@@ -106,7 +106,7 @@ class CoalescedUpdates:
 class PartialAggregate:
     """An edge aggregator's pre-folded window: the modular sum of
     ``len(members)`` verified masked updates plus every member's seed dict,
-    travelling upstream as ONE envelope (``xaynet_tpu.edge``).
+    travelling upstream as ONE envelope (``xaynet_tpu_torch.edge``).
 
     The envelope is ATOMIC: the update phase folds it as a single
     ``masked_add`` dispatch and advances ``nb_models`` by the member count

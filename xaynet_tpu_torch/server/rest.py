@@ -32,8 +32,14 @@ readable stand-in for the reference's bincode bodies; both ends of the wire
 are this framework. Implemented directly on asyncio streams (no third-party
 HTTP dependency); optional TLS via ``ssl.SSLContext``.
 
-The JAX package's edge-tier routes are not part of the port (settings
-refuse the edge tier). ``stop()`` closes the connections it holds open before it waits for the
+With ``[edge] enabled`` the edge tier's routes are served (``edge_api``,
+an ``edge.api.EdgeCoordinatorApi``): ``GET /edge/round`` hands a trusted
+edge the round and its keys, ``POST /edge/envelope`` takes one
+partial-aggregate envelope, both behind the ``X-Edge-Token`` check. The
+edge runner's own REST server (``edge.rest``) reuses this class and adds
+its ``edge`` section to ``/healthz`` through ``health_extra``.
+
+``stop()`` closes the connections it holds open before it waits for the
 listener to close: from Python 3.12 ``asyncio.Server.wait_closed`` waits
 for every connection, and a participant's idle keep-alive connection
 would otherwise hold it for the whole ``read_timeout``.
@@ -73,6 +79,8 @@ class TenantRoutes:
     fetcher: Fetcher
     handler: PetMessageHandler
     pipeline: object = None  # ingest.IngestPipeline
+    edge_api: object = None  # edge.api.EdgeCoordinatorApi
+    health_extra: object = None  # zero-arg callable merged into /healthz
 
 
 MAX_BODY = 1 << 32  # u32 length field ceiling, as in the reference
@@ -85,7 +93,7 @@ SPAN_REQUEST = trace.declare_span("rest.request")
 # would crowd the bounded round buffer and — because the buffer drops the
 # NEWEST spans at its cap — could evict the end-of-round phase spans the
 # CI validator requires. The causal story lives in the traced writes:
-# POST /message.
+# POST /message and the /edge/* hops.
 _UNTRACED_PATHS = {
     "/metrics", "/health", "/healthz", "/params", "/sums", "/seeds", "/model",
     "/statusz", "/alerts",
@@ -95,7 +103,8 @@ _UNTRACED_PATHS = {
 # both tokens are attacker-controlled, and every distinct label value is a
 # permanent registry child
 _KNOWN_PATHS = {"/message", "/params", "/sums", "/seeds", "/model",
-                "/health", "/healthz", "/metrics", "/statusz", "/alerts", "/admin/tenants"}
+                "/health", "/healthz", "/metrics", "/statusz", "/alerts",
+                "/edge/round", "/edge/envelope", "/admin/tenants"}
 _KNOWN_METHODS = {"GET", "POST", "HEAD", "PUT", "DELETE", "OPTIONS", "PATCH"}
 
 
@@ -107,6 +116,8 @@ class RestServer:
         read_timeout: float = 120.0,
         registry: Optional[MetricsRegistry] = None,
         pipeline=None,
+        edge_api=None,
+        health_extra=None,
         tenants: Optional[dict[str, TenantRoutes]] = None,
         lifecycle=None,
         admin_token: str = "",
@@ -121,6 +132,12 @@ class RestServer:
         # POST /message to the admission-controlled path: 429 + Retry-After
         # under saturation, and /healthz gains the intake sections. None
         # keeps the direct path.
+        # `edge_api` (edge.api.EdgeCoordinatorApi) serves the edge tier:
+        # GET /edge/round (round params + round keys for trusted edges) and
+        # POST /edge/envelope (partial-aggregate intake).
+        # `health_extra` is a zero-arg callable whose dict is merged into
+        # the /healthz payload (the edge runner reports its upstream link
+        # and envelope backlog through this hook).
         # `tenants` maps tenant id -> TenantRoutes for /t/<tenant>/...
         # routing; the positional args above stay the DEFAULT tenant (and
         # the bare legacy routes). None = single-tenant, as before.
@@ -131,7 +148,10 @@ class RestServer:
         # compare; "" keeps it fully disabled).
         # `default_tenant` is the real id behind the bare legacy routes so
         # lifecycle admission applies to them too.
-        self._default_routes = TenantRoutes(fetcher=fetcher, handler=handler, pipeline=pipeline)
+        self._default_routes = TenantRoutes(
+            fetcher=fetcher, handler=handler, pipeline=pipeline, edge_api=edge_api,
+            health_extra=health_extra,
+        )  # fmt: skip
         # the lifecycle manager mutates this dict at runtime (onboard
         # registers, offboard pops) — it must stay the SAME object the
         # manager holds, so adopt a provided dict instead of copying it
@@ -255,7 +275,9 @@ class RestServer:
         # quarantined tenant's MUTATING traffic sheds at the door with 429
         # (GET polls stay served — a draining tenant's in-flight round
         # still needs its participants to fetch params/sums/seeds)
-        if self.lifecycle is not None and method == "POST" and path == "/message":
+        if self.lifecycle is not None and method == "POST" and path in (
+            "/message", "/edge/envelope"
+        ):
             admitted, retry_after = self.lifecycle.admit(tenant or self.default_tenant)
             if not admitted:
                 extra = (
@@ -269,15 +291,15 @@ class RestServer:
                 return 429, b"tenant not accepting traffic", "text/plain", extra
         # handlers return (status, payload, ctype) or + an extra-headers dict
         if path in _UNTRACED_PATHS:
-            result = await self._dispatch(method, path, url.query, body, routes)
+            result = await self._dispatch(method, path, url.query, body, headers, routes)
         else:
             # the request span adopts the caller's trace (X-Xaynet-Trace:
-            # the SDK) and sets the ambient context
+            # the SDK or an edge hop) and sets the ambient context
             remote = trace.parse_header(headers.get(trace.TRACE_HEADER.lower()))
             with trace.get_tracer().span(
                 SPAN_REQUEST, link=remote, method=method, path=path, tenant=tenant
             ) as span:
-                result = await self._dispatch(method, path, url.query, body, routes)
+                result = await self._dispatch(method, path, url.query, body, headers, routes)
                 span.set(status=result[0])
         status, payload, ctype = result[:3]
         extra = result[3] if len(result) > 3 else None
@@ -293,8 +315,10 @@ class RestServer:
         return status, payload, ctype, extra
 
     async def _dispatch(self, method: str, path: str, query: str, body: bytes,
-                        routes: TenantRoutes):
+                        headers, routes: TenantRoutes):
         try:
+            if routes.edge_api is not None and path.startswith("/edge/"):
+                return await self._edge_route(method, path, body, headers or {}, routes)
             if method == "POST" and path == "/message":
                 return await self._post_message(body, routes)
             if method == "GET" and path == "/params":
@@ -367,6 +391,11 @@ class RestServer:
                 tenancy = self._tenancy_health()
                 if tenancy is not None:
                     payload["tenancy"] = tenancy
+                if routes.health_extra is not None:
+                    # role-specific sections (the edge runner's upstream
+                    # link and envelope backlog); an extra "status" key
+                    # overrides ok (e.g. an edge not synced yet)
+                    payload.update(routes.health_extra())
                 return 200, json.dumps(payload).encode(), "application/json"
             if method == "GET" and path == "/health":
                 return 200, json.dumps(self._health_payload(routes)).encode(), "application/json"
@@ -499,6 +528,40 @@ class RestServer:
             "phase": routes.fetcher.phase().value,
             "round_id": routes.fetcher.events.params.get_latest().round_id,
         }
+
+    async def _edge_route(self, method: str, path: str, body: bytes, headers: dict,
+                          routes: TenantRoutes):
+        """Edge-tier endpoints (served only with ``[edge] enabled = true``).
+
+        Status mapping for POST /edge/envelope keeps the edge's retry
+        decision unambiguous: 200 folded, 400 unparseable, 401 bad token,
+        409 protocol rejection (PERMANENT: drop the envelope, its members
+        fall back to uploading upstream directly), 503 the state machine
+        could not take the request right now (transient: retry).
+        """
+        from ..edge.envelope import EnvelopeError
+
+        edge_api = routes.edge_api
+        if not edge_api.authorized(headers):
+            return 401, b"bad edge token", "text/plain"
+        if method == "GET" and path == "/edge/round":
+            # the round handoff IS the protocol: a trusted edge needs the
+            # round's secret key to act as the decrypt/verify tier, behind
+            # the constant-time token check above
+            return 200, json.dumps(edge_api.round_info()).encode(), "application/json"
+        if method == "POST" and path == "/edge/envelope":
+            try:
+                accepted, detail = await edge_api.submit_envelope(body)
+            except EnvelopeError as err:
+                return 400, f"bad envelope: {err}".encode(), "text/plain"
+            except RequestError as err:
+                # INTERNAL: channel closed / machine mid-transition; the
+                # envelope was NOT folded, the edge retries it
+                return 503, str(err).encode(), "text/plain", {"Retry-After": "1"}
+            if not accepted:
+                return 409, (detail or "envelope rejected").encode(), "text/plain"
+            return 200, b"", "text/plain"
+        return 404, b"not found", "text/plain"
 
     async def _post_message(self, body: bytes, routes: TenantRoutes):
         if routes.pipeline is not None:

@@ -22,8 +22,10 @@ in the card's place). With ``[ingest] enabled`` each round's ``POST
 /message`` goes through an ingest pipeline (``ingest.IngestPipeline``:
 admission, sharded intake, batched decrypt workers, the update
 coalescer); a tenant's pipeline also charges the process-wide per-tenant
-admission budget. The settings refuse what the port does not have
-(``Settings.validate_port``).
+admission budget. With ``[edge] enabled`` the REST server also serves the
+edge tier (``GET /edge/round``, ``POST /edge/envelope``: ``edge.api``);
+edges themselves run as ``python -m xaynet_tpu_torch.edge.runner``. The
+settings refuse what the port does not have (``Settings.validate_port``).
 """
 
 from __future__ import annotations
@@ -269,7 +271,14 @@ async def serve(settings: Settings, store: Optional[Store] = None, device=None) 
 
         pipeline = IngestPipeline(handler, request_tx, events, settings.ingest)
         await pipeline.start()
-    rest = RestServer(fetcher, handler, registry=metrics.registry, pipeline=pipeline)
+    edge_api = None
+    if settings.edge.enabled:
+        from ..edge.api import EdgeCoordinatorApi
+
+        edge_api = EdgeCoordinatorApi(events, request_tx, token=settings.edge.token)
+        logger.info("edge tier enabled: serving /edge/round + /edge/envelope")
+    rest = RestServer(fetcher, handler, registry=metrics.registry, pipeline=pipeline,
+                      edge_api=edge_api)  # fmt: skip
     await _start_listener(rest, settings, boot_t0)
     stop = _stop_signal()
     ctx = TenantContext(tenant=DEFAULT_TENANT, settings=settings, machine=machine,
@@ -308,9 +317,10 @@ def _tenant_settings(base: Settings, tenant: str) -> Settings:
 async def _build_tenant_context(settings: Settings, tenant: str, budget, registry, device):
     """Build ONE tenant's full round pipeline and register it: scoped
     store, resilient wrapper, metrics bridge, phase machine (on
-    ``device``), handler, fetcher and, with ``[ingest] enabled`` in the
-    tenant's settings, its ingest pipeline charging ``budget`` (the
-    process-wide ``TenantAdmissionBudget``). Shared by the serve_tenants boot
+    ``device``), handler, fetcher, with ``[ingest] enabled`` in the
+    tenant's settings its ingest pipeline charging ``budget`` (the
+    process-wide ``TenantAdmissionBudget``), and with ``[edge] enabled``
+    its edge API. Shared by the serve_tenants boot
     loop and the lifecycle manager's runtime onboard — the runtime path
     builds tenants with exactly the wiring boot-time ones get. Returns
     ``(TenantContext, TenantRoutes)`` (the machine task is NOT started
@@ -339,6 +349,11 @@ async def _build_tenant_context(settings: Settings, tenant: str, budget, registr
             handler, request_tx, events, tset.ingest, tenant=tenant, budget=budget
         )
         await pipeline.start()
+    edge_api = None
+    if tset.edge.enabled:
+        from ..edge.api import EdgeCoordinatorApi
+
+        edge_api = EdgeCoordinatorApi(events, request_tx, token=tset.edge.token)
     ctx = registry.add(
         TenantContext(
             tenant=tenant,
@@ -350,6 +365,7 @@ async def _build_tenant_context(settings: Settings, tenant: str, budget, registr
             handler=handler,
             fetcher=fetcher,
             pipeline=pipeline,
+            edge_api=edge_api,
             metrics=metrics,
         )
     )
@@ -360,7 +376,8 @@ async def _build_tenant_context(settings: Settings, tenant: str, budget, registr
         tset.mask.group_type.name,
         device,
     )
-    return ctx, TenantRoutes(fetcher=fetcher, handler=handler, pipeline=pipeline)
+    return ctx, TenantRoutes(fetcher=fetcher, handler=handler, pipeline=pipeline,
+                             edge_api=edge_api)  # fmt: skip
 
 
 async def serve_tenants(settings: Settings, device=None, boot_t0: Optional[float] = None) -> None:
@@ -426,6 +443,7 @@ async def serve_tenants(settings: Settings, device=None, boot_t0: Optional[float
         default.handler,
         registry=default.metrics.registry,
         pipeline=default.pipeline,
+        edge_api=default.edge_api,
         tenants=routes,
         lifecycle=lifecycle,
         admin_token=ten.admin_token,

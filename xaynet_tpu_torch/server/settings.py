@@ -9,10 +9,9 @@ settings/mod.rs:307-376).
 
 The port's copy keeps every key the JAX package reads, so one config file
 loads in both, and refuses with a ``SettingsError`` what the port does not
-have (``Settings.validate_port``): the edge tier (tenancy with it too),
-the ``redis`` coordinator store, the ``s3`` model store, any fold kernel
-other than ``auto``, and the knobs of the shard-parallel pipeline and the
-speculative sum2.
+have (``Settings.validate_port``): the ``redis`` coordinator store, the
+``s3`` model store, any fold kernel other than ``auto``, and the knobs of
+the shard-parallel pipeline.
 """
 
 from __future__ import annotations
@@ -456,13 +455,13 @@ class LivenessSettings:
 
 @dataclass
 class EdgeSettings:
-    """Hierarchical edge pre-aggregation tier (``xaynet_tpu.edge``,
+    """Hierarchical edge pre-aggregation tier (``xaynet_tpu_torch.edge``,
     docs/DESIGN.md §11). One section, two roles:
 
     - on the COORDINATOR, ``enabled = true`` serves the edge endpoints
       (``GET /edge/round`` — round params + round keys for the trusted
       edge tier, ``POST /edge/envelope`` — partial-aggregate intake);
-    - on an EDGE process (``python -m xaynet_tpu.edge.runner``),
+    - on an EDGE process (``python -m xaynet_tpu_torch.edge.runner``),
       ``upstream_url`` names the coordinator and the window knobs bound
       how much an edge batches before shipping one envelope upstream.
 
@@ -691,9 +690,13 @@ class OverlapSettings:
     """
 
     enabled: bool = True
-    # the JAX package's speculative sum2 derive (bench/sim rounds where the
-    # sum participant is in-process); the port has none, and validate_port
-    # refuses false
+    # the speculative sum2 derive (``ops.speculation``; bench/sim rounds
+    # where the sum participant is in-process). This key and ``spec_group``
+    # are parsed and validated for parity with the JAX package's config
+    # files, but no coordinator path reads them: unlike the keys in
+    # ``validate_port``'s ``unread`` list, a non-default value is accepted
+    # and changes nothing until a path opens a ``SpeculativeMaskSession``
+    # from them
     speculative_derive: bool = True
     # subtract each shard's mask slice as soon as ITS last fold commits
     # at the drain barrier (instead of global drain + a separate pass)
@@ -701,8 +704,7 @@ class OverlapSettings:
     # let the update-phase fold drain ride into the sum2 request window
     # instead of blocking the phase transition on it
     sum2_drain: bool = True
-    # seeds per speculative derive group in the JAX package; validate_port
-    # refuses anything but 8
+    # seeds per speculative derive group (``SpeculativeMaskSession(group=)``)
     spec_group: int = 8
 
     def feature(self, name: str) -> bool:
@@ -777,16 +779,6 @@ class Settings:
         each message names the ROADMAP item that would add it. A
         multi-tenant coordinator loads each tenant's file through the same
         loader, so a per-tenant file is refused for the same keys."""
-        if self.tenancy.enabled and self.edge.enabled:
-            raise SettingsError(
-                "tenancy.enabled together with edge.enabled is not supported by "
-                "xaynet_tpu_torch (ROADMAP Queue 1 item 18, the edge tier)"
-            )
-        if self.edge.enabled:
-            raise SettingsError(
-                "edge.enabled is not supported by xaynet_tpu_torch "
-                "(ROADMAP Queue 1 item 18, the edge tier)"
-            )
         if self.storage.coordinator == "redis":
             raise SettingsError(
                 "storage.coordinator = \"redis\" is not supported by "
@@ -809,8 +801,6 @@ class Settings:
         unread = (
             ("aggregation", "shard_parallel", "item 10, several GPUs"),
             ("aggregation", "shard_threads", "item 10, several GPUs"),
-            ("overlap", "speculative_derive", "item 9, the speculative sum2"),
-            ("overlap", "spec_group", "item 9, the speculative sum2"),
         )
         for section, key, item in unread:
             value = getattr(self, section)

@@ -96,17 +96,19 @@ Builds the hand-written CUDA kernels from ``xaynet_tpu_torch/csrc`` with
   corrupted one as raw element blocks in two batches, through
   ``DeviceAggregator.add_wire_batch`` and through
   ``StreamingAggregator.submit_wire_batch`` + ``drain`` (K6, one launch a
-  batch): both accumulators byte-identical to the 8 updates parsed on the
-  host and folded through Phase B's path, the corrupted one alone
+  batch): both accumulators byte-identical to the fold of the same 8
+  updates as Phase B masked them, the corrupted one alone
   rejected, ``nb_models`` 8; K6 against ``wire_fold_plain`` at both
-  shapes and timed there and at ``uint8[8, n * bpn]``.
-- **Phase S** is the whole-round simulation (``sim.SimRound``): (s1) Phase
-  B's first flush of participants (its first 8 seeds and models, scalar
-  1/16 as B encoded them) at the main length in one block, the units drawn
+  shapes and timed there and at ``uint8[8, n * bpn]``. The reference for
+  those 8 is folded during Phase B from B's own masked updates (K1
+  planar, after B's launches are read).
+- **Phase S** is the whole-round simulation (``sim.SimRound``): (s1)
+  Phase B's first 4 participants (half its first flush: their seeds and
+  models, scalar 1/16 as B encoded them) at the main length in one block, the units drawn
   by K5, the masks derived into zero rows by K2 per row (one launch) and
   folded by K1 planar; its
   aggregates, unmasked limbs and float64 model must be, byte for byte,
-  those of the same 8 through the round's own path: K1's fold of the
+  those of the same 4 through the round's own path: K1's fold of the
   masked wires Phase B serialized for them, ``sum_masks`` over their
   seeds, the unmask and decode (the oracle's identity at full width). (s2) The JAX package's bench sim shape: 2,048 participants
   x 1,000 parameters, integer/f32/b0/m6, blocks of 256, a warm-up and three
@@ -133,9 +135,10 @@ Builds the hand-written CUDA kernels from ``xaynet_tpu_torch/csrc`` with
   CPU seconds meanwhile, the flush's staging buffer (rows, bytes, pinning
   seconds), the coordinator's decrypt/parse seconds, whether the
   ``cryptography`` wheel is present and the process's peak host RSS.
-- **Phase R-wire** is the same round with device wire ingest, the packed
-  upload format (the SDK sends wire v2), the ``file`` coordinator store
-  and the round journal: it also checks that the coordinator's K4 checked
+- **Phase R-wire** is the same round (R's local models) with device wire
+  ingest, the packed upload format (the SDK sends wire v2), the ``file``
+  coordinator store and the round journal: its model must be R's, byte
+  for byte; it also checks that the coordinator's K4 checked
   each update (K3 not launched) and that journal entries and the store's
   state file were written. Each of the two rounds runs inside a
   ``torch.profiler`` window (CUDA activity, every thread of this process):
@@ -178,9 +181,32 @@ Builds the hand-written CUDA kernels from ``xaynet_tpu_torch/csrc`` with
   window, 512 forged updates from one driver sent to the edges' URLs with
   ``shared_round``: the model byte-identical to ``SimRound``, every update
   folded through envelopes, as many as the edges sealed, one K1 launch
-  each. Then ``python -m xaynet_tpu_torch.server.runner -c
-  <cfg>`` at length 1000 must answer ``GET /params`` and exit 0 on
-  SIGTERM with "coordinator stopped" logged.
+  each.
+- **Phase D** is the durable round at full width: Phase R's config and
+  local models with ``coordinator = "redis"``, ``backend = "s3"``, the round journal and
+  ``[restore] enable``, against an in-process RESP server (its ``EVAL``
+  runs the scripts' text through the port's ``lua_mini``) and an S3
+  endpoint that checks every SigV4 signature, both on a thread of this
+  process. The coordinator is ``python -m xaynet_tpu_torch.server.runner
+  -c <cfg>`` in a subprocess, driven by the port's SDK from this process:
+  process 1 takes the sum message and the 3 updates (K1 packed folds the
+  flush); once it is in Sum2 with the journal entry tagged ``sum2``, it is
+  SIGKILLed; process 2, the same command on the same port, resumes Sum2
+  from the journal (the accumulator uploaded onto the card and read back
+  byte-identical to the journaled one), the sum participant's Sum2 runs
+  K5 and K2, Unmask publishes the model to S3. It checks the resumed
+  round's id and seed, the model read through
+  ``examples.download_global_model`` against the S3 object, ``GET
+  /model`` and R's model (alone: the plain CPU fold and unmask), a refused second
+  conditional put, the launches (process 1's from its ``GET /metrics``),
+  no "not resumable" line, and process 2's exit 0 with "coordinator
+  stopped" on SIGTERM; it prints process 1's walls, the kill-to-``GET
+  /params`` gap, the journal's bytes and its SETs' and GETs' seconds, the
+  restore's upload seconds and the model's wall. Then ``python -m
+  xaynet_tpu_torch.tools.sim_check --combos 2`` (production rounds and
+  sims byte-identical) and ``python -m
+  xaynet_tpu_torch.examples.sim_quickstart -p 1024 -l 1000`` (models
+  within the fixed-point tolerance of the mean) on the card.
 - **Phase T** is local training on the port (``models``): (t1) ResNet-50
   at full width (1000 classes, stages (3, 4, 6, 3), bf16 activations,
   25,557,032 parameters) from a seeded ``torch.Generator``, on synthetic
@@ -205,10 +231,9 @@ Builds the hand-written CUDA kernels from ``xaynet_tpu_torch/csrc`` with
   edge runners (``max_members = 2``, ``linger_s = 30``) and the port's SDK
   participants pointed at them (1 sum, 4 updates, 2 per edge, 1 sum2):
   the coordinator folded 2 envelopes of 2 members with one K1 launch
-  each, ``nb_models`` 4, each envelope's partial byte-identical to a host
-  ``Aggregation`` fold of its members, the model within
-  ``n_updates / exp_shift + 1e-6`` of the mean; it prints the walls from
-  the first update POST, as R does.
+  each, ``nb_models`` 4, the model within ``n_updates / exp_shift +
+  1e-6`` of the mean; it prints the walls from the first update POST, as
+  R does.
 - **Phase M** is the multi-tenant coordinator: one ``serve()`` (in a
   thread, no device: CUDA) with ``[tenancy] enabled``, tenants ``resnet``
   (Phase T's 25,557,032 parameters, the shipped prime/f32/b0/m3, batch 64,
@@ -264,6 +289,8 @@ OUT_DIR = Path("chiprun_out")
 PHASE_R_PART_BYTES = 64 << 20
 # Phase E's edges seal a window at 2 members or after this many seconds
 PHASE_E_LINGER_S = 30.0
+# Phase D's S3 endpoint (StoreServers) checks every request's signature
+S3_ACCESS, S3_SECRET, S3_REGION, S3_BUCKET = "smoke-access", "smoke-secret", "us-east-1", "models"
 RESNET50_PARAMS = 25_557_032  # flax ResNet-50, 1000 classes (xaynet_tpu/models/resnet.py)
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 # Hopper SM: 64 lanes a clock on each integer pipe, the ALU pipe (logic,
@@ -394,10 +421,11 @@ def toml_value(value) -> str:
 
 
 def write_coordinator_config(path: Path, port: int, length: int, model_dir: Path,
-                             n_updates: int = 3, device_fold: bool = True,
+                             n_updates: int = 3,
                              wire: bool = False, journal: bool | None = None,
                              model_type: str = "m3", probs: tuple = (0.01, 0.1),
-                             ingest: dict | None = None, edge: bool = False) -> Path:
+                             ingest: dict | None = None, edge: bool = False,
+                             durable: tuple[int, int] | None = None) -> Path:
     """A coordinator config: the shipped mask config, probabilities and
     aggregation knobs (``configs/config.toml``; batch 64, packed staging),
     the device fold on, count windows with min = max (1 sum, ``n_updates``
@@ -409,7 +437,12 @@ def write_coordinator_config(path: Path, port: int, length: int, model_dir: Path
     (m3: 10^3 updates), ``probs`` the sum and update probabilities,
     ``ingest`` further ``[ingest]`` keys (``enabled = true`` puts the
     ingest pipeline in front of the round); ``edge`` serves the edge tier
-    (``[edge] enabled``: ``/edge/round``, ``/edge/envelope``)."""
+    (``[edge] enabled``: ``/edge/round``, ``/edge/envelope``). ``durable``
+    (the Redis and S3 ports of :class:`StoreServers`) keeps the round's
+    state in Redis (``coordinator = "redis"``) and its models in S3
+    (``backend = "s3"``), with the round journal (``[resilience]
+    checkpoint_enabled``) and ``[restore] enable``: a restarted
+    coordinator resumes the round."""
     if journal is None:
         journal = wire
     window = 'time = {{ min = 0.0, max = 900.0 }}\ncount = {{ min = {n}, max = {n} }}'
@@ -420,6 +453,14 @@ def write_coordinator_config(path: Path, port: int, length: int, model_dir: Path
     wire_keys += "[resilience]\ncheckpoint_enabled = true\n" if journal else ""
     store = 'coordinator = "file"\n' if journal else ""
     wire_keys += "[edge]\nenabled = true\n" if edge else ""
+    backend = "filesystem"
+    if durable is not None:
+        backend = "s3"
+        store = (f'coordinator = "redis"\nredis_port = {durable[0]}\n'
+                 f's3_endpoint = "http://127.0.0.1:{durable[1]}"\ns3_bucket = "{S3_BUCKET}"\n'
+                 f's3_access_key = "{S3_ACCESS}"\ns3_secret_key = "{S3_SECRET}"\n'
+                 f's3_region = "{S3_REGION}"\n')  # fmt: skip
+        wire_keys += "[resilience]\ncheckpoint_enabled = true\n[restore]\nenable = true\n"
     path.write_text(
         f'[api]\nbind_address = "127.0.0.1:{port}"\n'
         f'[pet.sum]\nprob = {probs[0]}\n{window.format(n=1)}\n'
@@ -428,10 +469,10 @@ def write_coordinator_config(path: Path, port: int, length: int, model_dir: Path
         '[mask]\ngroup_type = "prime"\ndata_type = "f32"\nbound_type = "b0"\n'
         f'model_type = "{model_type}"\n'
         f"[model]\nlength = {length}\n"
-        f"[aggregation]\ndevice = {str(device_fold).lower()}\nbatch_size = 64\n"
+        "[aggregation]\ndevice = true\nbatch_size = 64\n"
         "packed_staging = true\n"
         f"{wire_keys}"
-        f'[storage]\nbackend = "filesystem"\n{store}model_dir = "{model_dir}"\n'
+        f'[storage]\nbackend = "{backend}"\n{store}model_dir = "{model_dir}"\n'
         f'[metrics]\nflight_dir = "{model_dir / "flight"}"\n'
     )
     return path
@@ -590,7 +631,7 @@ class GatedClient:
 
 def sdk_round(base: str, weights: list, device, max_message_size: int | None,
               timeout: float = 900.0, update_bases: list | None = None,
-              sum_base: str | None = None, before_posts=None) -> dict:
+              sum_base: str | None = None, before_posts=None, before_sum2=None) -> dict:
     """One PET round against the coordinator at ``base`` through the port's
     participant SDK: one sum participant and one update participant per
     entry of ``weights``, each a ``StateMachine`` with an ``HttpClient`` on
@@ -608,15 +649,18 @@ def sdk_round(base: str, weights: list, device, max_message_size: int | None,
     update participants' URLs, round-robin) and ``sum_base`` point the
     participants elsewhere than ``base`` (edges in front of the
     coordinator); ``before_posts`` (a blocking callable) runs once every
-    update participant has masked, before the first POST."""
+    update participant has masked, before the first POST; ``before_sum2``
+    (another) once the update phase has closed, before the sum participant
+    takes its Sum2 step."""
     import asyncio
 
     return asyncio.run(_sdk_round(base, weights, device, max_message_size, timeout,
-                                  update_bases or [base], sum_base or base, before_posts))
+                                  update_bases or [base], sum_base or base, before_posts,
+                                  before_sum2))  # fmt: skip
 
 
 async def _sdk_round(base, weights, device, max_message_size, timeout, update_bases, sum_base,
-                     before_posts) -> dict:
+                     before_posts, before_sum2) -> dict:
     import asyncio
 
     from xaynet_tpu_torch.sdk.client import HttpClient
@@ -696,6 +740,7 @@ async def _sdk_round(base, weights, device, max_message_size, timeout, update_ba
             await asyncio.to_thread(before_posts)
 
         cpu0 = time.process_time()
+        walls["t0_epoch"] = time.time()  # the same instant on the logs' clock
         t0 = walls["t0"] = time.perf_counter()
         for (sm, client), step in zip(updaters, steps):
             client.gate.set()
@@ -707,6 +752,8 @@ async def _sdk_round(base, weights, device, max_message_size, timeout, update_ba
         walls["update_posts_process_cpu"] = time.process_time() - cpu0
         walls["update_part_posts"] = [c.post_s for _, c in updaters]
         await until(lambda: in_phase("update", negate=True), "the update phase to close")
+        if before_sum2 is not None:
+            await asyncio.to_thread(before_sum2)
 
         # the sum participant: its seeds, sum_masks on the card (K2), its
         # upload; the step that found the seeds is timed
@@ -823,6 +870,286 @@ class EdgeProcesses:
         return codes
 
 
+def plain_round_model(out: dict, length: int) -> np.ndarray:
+    """The model of an ``sdk_round`` recomputed by the plain versions on the
+    CPU: the fold of the masked updates the participants sent and the
+    unmask with the Sum2 mask they sent."""
+    from xaynet_tpu_torch.server.aggregation import StagedAggregator
+
+    ref = StagedAggregator(out["mask"].config, length, batch_size=len(out["updates"]),
+                           device="cpu")  # fmt: skip
+    for obj in out["updates"]:
+        ref.validate_aggregation(obj)
+        ref.aggregate(obj)
+    return ref.finalize_inplace().unmask_array(out["mask"])
+
+
+class StoreServers:
+    """Phase D's stores, in this process on a thread and event loop of their
+    own, so they outlive the coordinator processes (harness code, not the
+    package's): a RESP2 server over dict state whose ``EVAL`` runs the
+    scripts' text through the port's ``lua_mini`` (as the JAX tests'
+    ``FakeRedis``), and a path-style S3 endpoint that recomputes every
+    request's SigV4 signature with the port's ``sign_v4`` and honours the
+    conditional put (as their ``FakeS3``). Records, server side, the bytes
+    and seconds of each SET and GET of the round journal's key and of each
+    S3 PUT and GET of an object: from the command's first byte to the
+    reply's last handed to the socket."""
+
+    JOURNAL_KEY = b"round_checkpoint"
+
+    def __init__(self):
+        import asyncio
+        import threading
+
+        self.strings: dict = {}
+        self.hashes: dict = {}
+        self.sets: dict = {}
+        self.zsets: dict = {}
+        self.buckets: dict = {}
+        self.ops: list = []  # (store, op, key, bytes, seconds)
+        self.lock = threading.Lock()
+        self.loop = asyncio.new_event_loop()
+        ready = threading.Event()
+        failed: list = []
+
+        def run() -> None:
+            asyncio.set_event_loop(self.loop)
+            try:
+                self._servers = [
+                    self.loop.run_until_complete(asyncio.start_server(handler, "127.0.0.1", 0))
+                    for handler in (self._redis_conn, self._s3_conn)
+                ]
+            except BaseException as exc:  # surfaced by the constructor
+                failed.append(exc)
+                ready.set()
+                return
+            self.redis_port, self.s3_port = (
+                srv.sockets[0].getsockname()[1] for srv in self._servers
+            )
+            ready.set()
+            self.loop.run_forever()
+            for srv in self._servers:
+                srv.close()
+            self.loop.close()
+
+        self._thread = threading.Thread(target=run, name="xn-stores", daemon=True)
+        self._thread.start()
+        ready.wait()
+        if failed:
+            raise failed[0]
+
+    def stop(self) -> None:
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self._thread.join(30)
+
+    def journal(self) -> bytes | None:
+        with self.lock:
+            return self.strings.get(self.JOURNAL_KEY)
+
+    # -- Redis ---------------------------------------------------------------
+
+    async def _redis_conn(self, reader, writer) -> None:
+        import asyncio
+
+        try:
+            while True:
+                line = await reader.readline()
+                if not line:
+                    break
+                t0 = time.perf_counter()
+                parts = []
+                for _ in range(int(line[1:-2])):
+                    size = int((await reader.readline())[1:-2])
+                    parts.append((await reader.readexactly(size + 2))[:-2])
+                with self.lock:
+                    reply = self._redis_dispatch(parts)
+                writer.write(reply)
+                await writer.drain()
+                cmd = parts[0].upper()
+                if cmd in (b"SET", b"GET") and parts[1] == self.JOURNAL_KEY:
+                    size = len(parts[2]) if cmd == b"SET" else len(reply)
+                    self.ops.append(("redis", cmd.decode(), "journal", size,
+                                     time.perf_counter() - t0))  # fmt: skip
+        except (asyncio.IncompleteReadError, ConnectionError):
+            pass  # a killed coordinator's connection
+        finally:
+            writer.close()
+
+    @classmethod
+    def _resp(cls, value) -> bytes:
+        if value is None:
+            return b"$-1\r\n"
+        if isinstance(value, int):
+            return b":%d\r\n" % value
+        if isinstance(value, bytes):
+            return b"$%d\r\n%s\r\n" % (len(value), value)
+        return b"*%d\r\n" % len(value) + b"".join(cls._resp(v) for v in value)
+
+    def _script_call(self, *parts):
+        """The commands the Lua scripts send (``redis.call``)."""
+        from xaynet_tpu_torch.utils import lua_mini
+
+        cmd, key = parts[0].upper(), parts[1]
+        if cmd == b"HSETNX":
+            h = self.hashes.setdefault(key, {})
+            if parts[2] in h:
+                return 0
+            h[parts[2]] = parts[3]
+            return 1
+        if cmd == b"HSET":
+            h = self.hashes.setdefault(key, {})
+            added = int(parts[2] not in h)
+            h[parts[2]] = parts[3]
+            return added
+        if cmd == b"HLEN":
+            return len(self.hashes.get(key, {}))
+        if cmd == b"HEXISTS":
+            return int(parts[2] in self.hashes.get(key, {}))
+        if cmd == b"SISMEMBER":
+            return int(parts[2] in self.sets.get(key, set()))
+        if cmd == b"SADD":
+            members = self.sets.setdefault(key, set())
+            added = sum(m not in members for m in set(parts[2:]))
+            members.update(parts[2:])
+            return added
+        if cmd == b"ZINCRBY":
+            z = self.zsets.setdefault(key, {})
+            z[parts[3]] = score = z.get(parts[3], 0.0) + float(parts[2])
+            return b"%d" % score if score.is_integer() else repr(score).encode()
+        raise lua_mini.LuaError(f"unsupported command in a script: {cmd!r}")
+
+    def _redis_dispatch(self, parts: list) -> bytes:
+        from xaynet_tpu_torch.utils import lua_mini
+
+        cmd = parts[0].upper()
+        spaces = (self.strings, self.hashes, self.sets, self.zsets)
+        if cmd == b"PING":
+            return b"+PONG\r\n"
+        if cmd in (b"SELECT", b"FLUSHDB"):
+            if cmd == b"FLUSHDB":
+                for space in spaces:
+                    space.clear()
+            return b"+OK\r\n"
+        if cmd == b"SET":
+            self.strings[parts[1]] = parts[2]
+            return b"+OK\r\n"
+        if cmd == b"GET":
+            return self._resp(self.strings.get(parts[1]))
+        if cmd == b"DEL":
+            return self._resp(sum(any(space.pop(key, None) is not None for space in spaces)
+                                  for key in parts[1:]))  # fmt: skip
+        if cmd == b"HGETALL":
+            return self._resp([x for kv in self.hashes.get(parts[1], {}).items() for x in kv])
+        if cmd == b"HKEYS":
+            return self._resp(list(self.hashes.get(parts[1], {})))
+        if cmd == b"HDEL":
+            h = self.hashes.get(parts[1], {})
+            n = sum(h.pop(f, None) is not None for f in parts[2:])
+            if not h:
+                self.hashes.pop(parts[1], None)
+            return self._resp(n)
+        if cmd == b"SMEMBERS":
+            return self._resp(sorted(self.sets.get(parts[1], set())))
+        if cmd == b"SREM":
+            members = self.sets.get(parts[1], set())
+            n = sum(m in members for m in set(parts[2:]))
+            members.difference_update(parts[2:])
+            if not members:
+                self.sets.pop(parts[1], None)
+            return self._resp(n)
+        if cmd == b"ZCARD":
+            return self._resp(len(self.zsets.get(parts[1], {})))
+        if cmd == b"ZREVRANGE":
+            # Redis orders equal scores by member, descending, in ZREVRANGE
+            ranked = sorted(self.zsets.get(parts[1], {}).items(),
+                            key=lambda kv: (kv[1], kv[0]), reverse=True)  # fmt: skip
+            lo, hi = int(parts[2]), int(parts[3])
+            flat = []
+            for member, score in ranked[lo : (None if hi < 0 else hi + 1)]:
+                flat += [member, b"%d" % score if score.is_integer() else repr(score).encode()]
+            return self._resp(flat)
+        if cmd == b"SCAN":
+            prefix = parts[3][:-1]  # MATCH <prefix>*
+            return self._resp([b"0", [k for space in spaces for k in space
+                                      if k.startswith(prefix)]])  # fmt: skip
+        if cmd == b"EVAL":
+            nkeys = int(parts[2])
+            try:
+                result = lua_mini.run_script(parts[1], parts[3 : 3 + nkeys], parts[3 + nkeys :],
+                                             self._script_call)  # fmt: skip
+            except lua_mini.LuaError as err:
+                return b"-ERR Error running script: %s\r\n" % str(err).encode()
+            return self._resp(result)
+        return b"-ERR unknown command '%s'\r\n" % cmd
+
+    # -- S3 ------------------------------------------------------------------
+
+    async def _s3_conn(self, reader, writer) -> None:
+        import asyncio
+
+        try:
+            request = await reader.readline()
+            t0 = time.perf_counter()
+            method, path, _ = request.decode().split(" ", 2)
+            headers = {}
+            while True:
+                line = await reader.readline()
+                if line in (b"\r\n", b"\n", b""):
+                    break
+                name, _, value = line.decode().partition(":")
+                headers[name.strip().lower()] = value.strip()
+            body = await reader.readexactly(int(headers.get("content-length", 0)))
+            with self.lock:
+                status, out = self._s3_dispatch(method, path, headers, body)
+            writer.write(f"HTTP/1.1 {status} X\r\ncontent-length: {len(out)}\r\n"
+                         "connection: close\r\n\r\n".encode() + out)  # fmt: skip
+            await writer.drain()
+            if method in ("PUT", "GET") and path.count("/") == 2:
+                self.ops.append(("s3", method, path, len(body) or len(out),
+                                 time.perf_counter() - t0))  # fmt: skip
+        except (asyncio.IncompleteReadError, ConnectionError, ValueError):
+            pass
+        finally:
+            writer.close()
+
+    def _s3_dispatch(self, method: str, path: str, headers: dict, body: bytes):
+        import hashlib
+
+        from xaynet_tpu_torch.storage import sign_v4
+
+        want = sign_v4(method, headers.get("host", ""), path, access_key=S3_ACCESS,
+                       secret_key=S3_SECRET, region=S3_REGION,
+                       payload_hash=headers.get("x-amz-content-sha256", ""),
+                       amz_date=headers.get("x-amz-date", ""))["authorization"]  # fmt: skip
+        if (headers.get("authorization") != want
+                or headers.get("x-amz-content-sha256") != hashlib.sha256(body).hexdigest()):
+            return 403, b"<Error><Code>SignatureDoesNotMatch</Code></Error>"
+        bucket, _, key = path.lstrip("/").partition("/")
+        if not key:
+            if method == "PUT":
+                if bucket in self.buckets:
+                    return 409, b"<Error><Code>BucketAlreadyOwnedByYou</Code></Error>"
+                self.buckets[bucket] = {}
+                return 200, b""
+            if method == "HEAD":
+                return (200, b"") if bucket in self.buckets else (404, b"")
+            return 400, b"bad request"
+        objects = self.buckets.get(bucket)
+        if objects is None:
+            return 404, b"<Error><Code>NoSuchBucket</Code></Error>"
+        if method == "HEAD":
+            return (200, b"") if key in objects else (404, b"")
+        if method == "GET":
+            return (200, objects[key]) if key in objects else (404, b"")
+        if method == "PUT":
+            if headers.get("if-none-match") == "*" and key in objects:
+                return 412, b"<Error><Code>PreconditionFailed</Code></Error>"
+            objects[key] = body
+            return 200, b""
+        return 400, b"bad request"
+
+
 class Smoke:
     def __init__(self, args):
         import torch
@@ -840,8 +1167,21 @@ class Smoke:
         self.sass = None
         self.t_start = time.perf_counter()
         self.phase_b_out: dict | None = None  # Phase B's wires and results, for Phase W
+        self.phase_r_model = None  # Phase R's model, for R-wire and D (same local models)
 
     # -- helpers ------------------------------------------------------------
+
+    def timed(self, phase: str, fn, *args, **kwargs):
+        """``fn(*args, **kwargs)``, its wall seconds added to the phase's in
+        ``records["phase_seconds"]`` and logged."""
+        t = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            spent = self.records.setdefault("phase_seconds", {})
+            spent[phase] = spent.get(phase, 0.0) + time.perf_counter() - t
+            log(f"[seconds] {fn.__name__}: {time.perf_counter() - t:.1f} (phase {phase} so far "
+                f"{spent[phase]:.1f})")
 
     def sync(self) -> None:
         if self.cuda:
@@ -1685,6 +2025,7 @@ class Smoke:
         from xaynet_tpu_torch.core.mask.object import MaskObject, MaskUnit, MaskVect
         from xaynet_tpu_torch.core.mask.serialization import serialize_mask_object
         from xaynet_tpu_torch.ops import kernels, limbs, masking
+        from xaynet_tpu_torch.parallel.aggregator import DeviceAggregator
         from xaynet_tpu_torch.server.aggregation import StagedAggregator
 
         args = self.args
@@ -1694,7 +2035,7 @@ class Smoke:
         seeds, idx, models = phase_b_population(args.seed, n_up, length)
         scalar = Scalar(Fraction(1, n_up))
         walls = {"participants_mask": 0.0, "update_aggregate": 0.0}
-        sampled, units, wires = [], [], []
+        sampled, units, wires, evens = [], [], [], []
         serialize_s = 0.0
         wsum = np.zeros(length, dtype=np.float64)
 
@@ -1724,6 +2065,8 @@ class Smoke:
             walls["participants_mask"] += time.perf_counter() - t
             sampled.append(obj.vect.data[idx].copy())
             units.append(obj.unit.data.copy())
+            if i % 2 == 0:  # the v1 ones: W's fused leg folds them again
+                evens.append(obj.vect.data)
             # Phase W's input, outside the walls: v1 for even, v2 for odd updates
             t = time.perf_counter()
             wires.append(serialize_mask_object(obj, planar_vect=i % 2 == 1))
@@ -1791,9 +2134,19 @@ class Smoke:
         stream = self.pipeline_record(pipeline, ring, fold_events)
         log(f"[phase B] serialized the {n_up} updates for Phase W in {serialize_s:.3f} s "
             "(outside the walls)")
+        # Phase W's fused-leg reference: the even (v1) updates folded as they
+        # were masked, after B's launches were read (K1 planar, one a row)
+        t = time.perf_counter()
+        even_acc = DeviceAggregator(pair.vect, length, device=self.dev)
+        while evens:
+            even_acc.add_batch(evens.pop(0)[None])
+        evens_vect, evens_s = even_acc.snapshot(), time.perf_counter() - t
+        del even_acc
+        log(f"[phase B] folded the {len(range(0, n_up, 2))} even updates for Phase W's fused leg "
+            f"in {evens_s:.3f} s (outside the walls)")
         spec = self.phase_b_speculation(seeds, length, pair, unit_m, vect_m)
         self.phase_b_out = {"wires": wires, "vect": got.vect.data, "unit": got.unit.data,
-                            "model": model, "mask": mask}
+                            "model": model, "mask": mask, "evens_vect": evens_vect}
         return {"walls": walls, "launches": launches, "decode_max_err": err, "pipeline": stream,
                 "serialize_s": serialize_s, "speculation": spec}
 
@@ -1962,19 +2315,20 @@ class Smoke:
                 log(f"[phase W] {name} at group {r['group']}'s {r['shape']}: {r['ms']:.3f} ms, device "
                     f"{r['device_ms'] or float('nan'):.3f} ms, bound {r['bytes'] / MEM_BYTES_PER_S * 1e3:.3f} "
                     f"ms ({r['bytes']} bytes), plain {r['plain_ms']:.1f} ms")
-        fused = self.phase_w_fused(messages, [objs[i] for i in range(n_up + 1)], pair, timings)
+        fused = self.phase_w_fused([objs[i] for i in range(n_up + 1)], pair, timings,
+                                   b["evens_vect"])  # fmt: skip
         return {"walls": walls, "launches": launches, "groups": [len(g) for g in groups],
                 "prevalidate_parts": parts, "fused": fused}
 
-    def phase_w_fused(self, messages: list, objs: list, pair, timings: dict) -> dict:
+    def phase_w_fused(self, objs: list, pair, timings: dict, want: np.ndarray) -> dict:
         """Phase W's fused leg: the v1 wires (B's even updates) and the
         corrupted 17th as raw element blocks, in two batches (4, then 5
         with the corrupted one in the middle), through
         ``DeviceAggregator.add_wire_batch`` and through
         ``StreamingAggregator.submit_wire_batch`` + ``drain`` (kernel K6,
         one launch a batch). Checks: both accumulators byte-identical to
-        the same 8 accepted updates parsed on the host and folded through
-        Phase B's path (``StagedAggregator``, K1 packed); ``ok`` rejects
+        ``want``, the same 8 accepted updates as Phase B masked them,
+        folded during Phase B (K1 planar); ``ok`` rejects
         the corrupted one alone and ``nb_models`` is 8; K6 bit for bit
         against ``wire_fold_plain`` at both shapes. Then K6 timed at both
         shapes (CUDA events; the kernel line's time and bound are their
@@ -1982,12 +2336,10 @@ class Smoke:
         read and write of the accumulator, whatever the verdicts; the
         subtract-back pass's extra bytes are logged apart) beside its plain
         version, and at ``uint8[8, n * bpn]`` (8 valid updates)."""
-        from xaynet_tpu_torch.core.mask.serialization import parse_mask_object
         from xaynet_tpu_torch.ops import kernels
         from xaynet_tpu_torch.ops.fold import zeros_u32
         from xaynet_tpu_torch.parallel.aggregator import DeviceAggregator
         from xaynet_tpu_torch.parallel.streaming import StreamingAggregator
-        from xaynet_tpu_torch.server.aggregation import StagedAggregator
 
         torch = self.torch
         n_up = len(objs) - 1
@@ -2015,16 +2367,6 @@ class Smoke:
         stream_s = time.perf_counter() - t
         stream.close()
         launches = dict(kernels.LAUNCHES)
-        # the same accepted updates, parsed on the host, through Phase B's path
-        t = time.perf_counter()
-        ref = StagedAggregator(pair, length, batch_size=self.args.batch, device=self.dev)
-        for i in evens:
-            obj = parse_mask_object(messages[i])[0]
-            ref.validate_aggregation(obj)
-            ref.aggregate(obj)
-            del obj
-        want = ref.finalize_inplace().object.vect.data
-        ref_s = time.perf_counter() - t
         corrupted = [[i == n_up for i in b] for b in ids]
         self.check([o.tolist() for o in oks] == [[not c for c in b] for b in corrupted]
                    and [t.accepted.tolist() for t in tickets] == [o.tolist() for o in oks],
@@ -2033,13 +2375,13 @@ class Smoke:
                    f"(wf2) nb_models {direct.nb_models}, {streamed.nb_models} == {len(evens)}")
         self.check(np.array_equal(direct.snapshot(), want) and np.array_equal(streamed.snapshot(), want),
                    "(wf3) add_wire_batch's and the pipeline's accumulators byte-identical to the "
-                   "8 accepted updates folded through Phase B's path")  # fmt: skip
+                   "fold of the 8 accepted updates as Phase B masked them")  # fmt: skip
         if self.cuda:
             self.check(launches["wire_fold"] == 4 and launches["wire_unpack"] == 0
                        and launches["fold_planar"] == 0,
                        f"(wf4) K6 once a batch on each path, no K3 and no planar batch "
                        f"({launches})")  # fmt: skip
-        del ref, want, direct, streamed, stream
+        del want, direct, streamed, stream
         runs = []
         for b, batch in zip(ids, batches):
             staged = torch.from_numpy(batch).to(self.dev)
@@ -2084,7 +2426,7 @@ class Smoke:
             timings["wire_fold"]["device_ms"] = mean("device_ms")
         log(f"[phase W] fused leg: {len(evens)} v1 wires + the corrupted one in batches "
             f"{[len(b) for b in ids]}: checks (wf1)-(wf4) passed; add_wire_batch {direct_s:.3f} s, "
-            f"submit_wire_batch + drain {stream_s:.3f} s, the host-parsed reference {ref_s:.3f} s; "
+            f"submit_wire_batch + drain {stream_s:.3f} s; "
             f"launches {launches}")
         for r in runs + [k8]:
             log(f"[phase W] K6 at {r['shape']}: {r['ms']:.3f} ms, device "
@@ -2092,8 +2434,7 @@ class Smoke:
                 f"{r['bytes'] / MEM_BYTES_PER_S * 1e3:.3f} ms ({r['bytes']} bytes)"
                 + (f", plain {r['plain_ms']:.1f} ms, {r['rejected']} rejected (the subtract-back "
                    f"pass moves {r['unfold_bytes']} bytes more)" if "plain_ms" in r else ""))
-        return {"launches": launches, "direct_s": direct_s, "stream_s": stream_s,
-                "reference_s": ref_s}
+        return {"launches": launches, "direct_s": direct_s, "stream_s": stream_s}
 
     def phase_w_kernels(self, groups: list[list], order: int, timings: dict) -> dict:
         """K3 and K4 at every shape Phase W launched them, on its data: each
@@ -2306,8 +2647,9 @@ class Smoke:
     # -- phase S: the whole-round simulation ----------------------------------
 
     def phase_s(self, wires: list) -> dict:
-        """(s1) ``SimRound`` on Phase B's first flush of participants (its
-        first ``batch`` seeds and f32 models, scalar 1/16 as B encoded them,
+        """(s1) ``SimRound`` on Phase B's first participants (those whose
+        wires ``wires`` holds: main passes half of B's first flush; their
+        seeds and f32 models, scalar 1/16 as B encoded them,
         one block, ``fuse_mask_sum``) at the main length, against the same
         participants through the round's own path: K1's fold of their masked
         wires as B serialized them (``wires``; lazy parse, K3/K4, K1 on the
@@ -2461,13 +2803,13 @@ class Smoke:
         from xaynet_tpu_torch.core.crypto import encrypt
         from xaynet_tpu_torch.ops import kernels
         from xaynet_tpu_torch.server import settings as settings_mod
-        from xaynet_tpu_torch.server.aggregation import StagedAggregator
         from xaynet_tpu_torch.server.phases import update as update_phase
 
         args = self.args
         tag, c = ("phase R-wire", "rw") if wire else ("phase R", "r")
         length, n_up = args.length, 3
-        rng = np.random.default_rng(args.seed + (4 if wire else 3))
+        # R-wire (and Phase D) take R's local models: their model must be R's
+        rng = np.random.default_rng(args.seed + 3)
         weights = [rng.uniform(-0.9, 0.9, length).astype(np.float32) for _ in range(n_up)]
         work = Path(tempfile.mkdtemp(prefix="xn_phase_r_"))
         built, rings = [], {}  # the update phase's aggregators, their staging rings
@@ -2550,20 +2892,21 @@ class Smoke:
             "fold_s": window.get("fold_seconds"),
         }
 
-        # the same inputs through the plain versions on the CPU: the fold of
-        # the three masked updates and the unmask with the Sum2 mask
+        # R: the same inputs through the plain versions on the CPU (the fold
+        # of the three masked updates, the unmask with the Sum2 mask); R-wire
+        # took R's local models, so its model must be R's
         t = time.perf_counter()
-        ref = StagedAggregator(out["mask"].config, length, batch_size=n_up, device="cpu")
-        for obj in out["updates"]:
-            ref.validate_aggregation(obj)
-            ref.aggregate(obj)
-        ref_model = ref.finalize_inplace().unmask_array(out["mask"])
+        if wire:
+            ref_model, what = self.phase_r_model, "Phase R's model from the same local models"
+        else:
+            ref_model = plain_round_model(out, length)
+            what = "the plain CPU fold + unmask of the updates and the mask the SDK participants sent"
+            self.phase_r_model = ref_model
         plain_s = time.perf_counter() - t
         self.check(model.shape == (length,) and bool(np.all(np.isfinite(model))),
                    f"({c}1) global model finite, of the model length")
         self.check(model.tobytes() == ref_model.tobytes(),
-                   f"({c}2) global model byte-identical to the plain CPU fold + unmask of the "
-                   "updates and the mask the SDK participants sent")  # fmt: skip
+                   f"({c}2) global model byte-identical to {what}")
         mean = np.sum([w.astype(np.float64) for w in weights], axis=0) / n_up
         tol = n_up / out["mask"].config.vect.exp_shift + 1e-6
         err = float(np.max(np.abs(model - mean)))
@@ -2623,6 +2966,330 @@ class Smoke:
                 "cryptography_wheel": have_wheel, "decode_max_err": err,
                 "parts_per_update": out["parts_per_update"], "peak_rss_gib": peak_rss_gib,
                 "coordinator_start_s": start_s, "plain_reference_s": plain_s}
+
+    # -- phase D: the durable round, killed in Sum2 and resumed ---------------
+
+    def phase_d(self) -> dict:
+        """The durable round at full width: Phase R's config and local
+        models (the shipped prime/f32/b0/m3 at the main length, batch 64,
+        packed staging, the device fold, 1 sum, 3 updates, 1 sum2) with ``coordinator =
+        "redis"``, ``backend = "s3"``, the round journal and ``[restore]
+        enable``, against :class:`StoreServers`. The coordinator is the CLI
+        a user runs, ``python -m xaynet_tpu_torch.server.runner -c <cfg>``
+        (no device: CUDA), in a subprocess; the port's SDK participants run
+        in this process (``sdk_round``). Process 1 takes the sum message and
+        the 3 updates (its flush: K1 packed). Once ``/healthz`` says
+        ``sum2`` and the journal entry in Redis is tagged ``sum2``, before
+        the sum participant's next step, it is SIGKILLed; the same command
+        starts again on the same port (process 2), resumes Sum2 from the
+        journal with the accumulator uploaded onto the card, and the sum
+        participant sends its Sum2 (K5, K2); the model goes to S3.
+
+        Checks: process 1 launched K1 packed once (its ``GET /metrics``); the
+        journaled round is process 1's, with 3 models; process 2 answers
+        ``/healthz`` in ``sum2`` with the same round id and ``GET /params``
+        with the same seed; its log says it resumed Sum2 with 3 models and
+        read the uploaded accumulator back byte-identical to the journaled
+        one (the sha256 it logs is that of the journal's accumulator in
+        Redis), and neither log says "not resumable"; the model read
+        through ``examples.download_global_model.main`` is byte-identical
+        to the S3 object under ``{round_id}_{hex(seed)}``, to the SDK's
+        ``GET /model`` and to Phase R's model (run alone: the plain CPU fold
+        and unmask of what the participants sent), within ``n / exp_shift
+        + 1e-6`` of the mean; a
+        second conditional put of that id is refused; the participants
+        launched K1 planar 3, K2 6 and K5 4 times; process 2 stops on
+        SIGTERM with exit 0 and "coordinator stopped". Records process
+        1's walls, the kill-to-``GET /params`` gap, the journal's bytes and
+        the seconds of its SETs and GETs, the restore's upload seconds and
+        the model's wall from the first update POST."""
+        import asyncio
+        import hashlib
+        import os
+        import re
+        import shutil
+        import signal
+        import tempfile
+
+        from xaynet_tpu_torch.examples import download_global_model
+        from xaynet_tpu_torch.ops import kernels
+        from xaynet_tpu_torch.resilience.checkpoint import RoundCheckpoint
+        from xaynet_tpu_torch.server import settings as settings_mod
+        from xaynet_tpu_torch.storage import S3ModelStorage
+        from xaynet_tpu_torch.storage.traits import StorageError
+
+        args = self.args
+        length, n_up = args.length, 3
+        # R's local models: after R, its model is the reference (R holds it
+        # against the plain CPU fold + unmask of what its participants sent)
+        rng = np.random.default_rng(args.seed + 3)
+        weights = [rng.uniform(-0.9, 0.9, length).astype(np.float32) for _ in range(n_up)]
+        work = Path(tempfile.mkdtemp(prefix="xn_phase_d_"))
+        OUT_DIR.mkdir(exist_ok=True)
+        stores = StoreServers()
+        port = free_port()
+        base = f"http://127.0.0.1:{port}"
+        cfg = write_coordinator_config(work / "config.toml", port, length, work / "models", n_up,
+                                       durable=(stores.redis_port, stores.s3_port))  # fmt: skip
+        settings = settings_mod.Settings.load(str(cfg), env={})
+        agg_cfg, st = settings.aggregation, settings.storage
+        self.check(agg_cfg.device and agg_cfg.batch_size == 64 and agg_cfg.packed_staging
+                   and not agg_cfg.wire_ingest and st.coordinator == "redis"
+                   and st.backend == "s3" and settings.resilience.checkpoint_enabled
+                   and settings.restore.enable and settings.model.length == length,
+                   "(d0) phase D's config: R's (device fold, batch 64, packed staging), the "
+                   "redis coordinator store, the s3 model store, the journal, restore on")  # fmt: skip
+        # no device: CUDA (the CPU rehearsal names its device)
+        cmd = [sys.executable, "-m", "xaynet_tpu_torch.server.runner", "-c", str(cfg)]
+        cmd += [] if self.cuda else ["--device", "cpu"]
+        env = dict(os.environ, PYTHONPATH=str(HERE))
+        procs: list = []
+
+        def start(i: int):
+            log_path = OUT_DIR / f"phase_d_coordinator{i}.log"
+            with open(log_path, "wb") as out:
+                procs.append((subprocess.Popen(cmd, cwd=HERE, env=env, stdout=out,
+                                               stderr=subprocess.STDOUT), log_path))  # fmt: skip
+            return procs[-1][0]
+
+        def health() -> dict | None:
+            proc = procs[-1][0]
+            if proc.poll() is not None:
+                raise Failure(f"coordinator process {len(procs)} exited with {proc.returncode}")
+            try:
+                status, body = http_call(base, "GET", "/healthz", timeout=60)
+            except OSError:
+                return None
+            return json.loads(body) if status == 200 else None
+
+        def params_seed() -> bytes | None:
+            try:
+                status, body = http_call(base, "GET", "/params", timeout=60)
+            except OSError:
+                return None
+            return bytes.fromhex(json.loads(body)["seed"]) if status == 200 else None
+
+        def launches_of_process() -> dict:
+            status, body = http_call(base, "GET", "/metrics", timeout=60)
+            counts = dict.fromkeys(kernels.LAUNCHES, 0)
+            for m in re.finditer(rb'^xaynet_kernel_launches_total\{kernel="(\w+)"\} (\S+)$',
+                                 body, re.M):  # fmt: skip
+                counts[m.group(1).decode()] = int(float(m.group(2)))
+            return counts
+
+        found: dict = {}
+
+        def kill_and_resume() -> None:
+            """Process 1 in Sum2 with the journal tagged sum2: SIGKILL, then
+            process 2 until it serves the resumed Sum2."""
+            h1 = wait_for(lambda: (h := health()) is not None and h["phase"] == "sum2" and h,
+                          300, "process 1's sum2 phase")  # fmt: skip
+
+            def tagged():
+                blob = stores.journal()
+                return blob is not None and RoundCheckpoint.from_bytes(blob).phase == "sum2" and blob
+
+            blob = wait_for(tagged, 300, "the journal entry tagged sum2", poll=0.05)
+            found.update(p1_health=h1, p1_seed=params_seed(), p1_launches=launches_of_process(),
+                         journal_bytes=len(blob), journal=RoundCheckpoint.from_bytes(blob))
+            t_kill = time.perf_counter()
+            procs[0][0].send_signal(signal.SIGKILL)
+            procs[0][0].wait(60)
+            found["kill_t"] = t_kill
+            start(2)
+            found["p2_seed"] = wait_for(params_seed, 300, "process 2's GET /params", poll=0.05)
+            found["kill_to_params_s"] = time.perf_counter() - t_kill
+            found["p2_health"] = wait_for(health, 60, "process 2's /healthz")
+
+        async def second_put(round_id: int, seed: bytes, data: bytes) -> str | None:
+            """The S3 store's answer to a second put of the round's model."""
+            store = S3ModelStorage(f"http://127.0.0.1:{stores.s3_port}", S3_BUCKET, S3_ACCESS,
+                                   S3_SECRET, S3_REGION)  # fmt: skip
+            try:
+                await store.set_global_model(round_id, seed, data)
+            except StorageError as err:
+                return str(err)
+            return None
+
+        text = ["", ""]
+        try:
+            start(1)
+            wait_for(lambda: (h := health()) is not None and h["phase"] == "sum", 300,
+                     "process 1's sum phase")  # fmt: skip
+            kernels.reset_launches()
+            out = sdk_round(base, weights, None if self.cuda else self.dev, PHASE_R_PART_BYTES,
+                            timeout=600, before_sum2=kill_and_resume)  # fmt: skip
+            launches = dict(kernels.LAUNCHES)
+            found["p2_launches"] = launches_of_process()
+            t = time.perf_counter()
+            read = download_global_model.main([base])
+            download_s = time.perf_counter() - t
+            model, walls, ckpt = out["model"], out["walls"], found["journal"]
+            round_id, seed = found["p1_health"]["round_id"], found["p1_seed"]
+            model_id = f"{round_id}_{seed.hex()}"
+            with stores.lock:
+                latest = stores.strings.get(b"latest_global_model_id", b"").decode()
+                objects = dict(stores.buckets.get(S3_BUCKET, {}))
+            refused = asyncio.run(second_put(round_id, seed, model.tobytes()))
+            procs[1][0].send_signal(signal.SIGTERM)
+            rc = procs[1][0].wait(120)
+        finally:
+            for proc, _ in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            for i, (_, log_path) in enumerate(procs):
+                text[i] = log_path.read_text(errors="replace")
+            stores.stop()
+            shutil.rmtree(work, ignore_errors=True)
+        journal_ops = [op for op in stores.ops if op[0] == "redis"]
+        s3_ops = [op for op in stores.ops if op[0] == "s3"]
+
+        t = time.perf_counter()
+        if self.phase_r_model is not None:
+            ref_model, what = self.phase_r_model, "Phase R's model from the same local models"
+        else:  # Phase D alone
+            ref_model = plain_round_model(out, length)
+            what = "the plain CPU fold + unmask of what the participants sent"
+        plain_s = time.perf_counter() - t
+        digest = hashlib.sha256(np.ascontiguousarray(ckpt.wire_vect(), dtype=np.uint32)).hexdigest()
+        restored = re.search(r"journal restore: (\d+) models, (\d+) accumulator bytes uploaded "
+                             r"to (\S+) in ([\d.]+) s and read back byte-identical "
+                             r"\(sha256 ([0-9a-f]+)\)", text[1])  # fmt: skip
+
+        p1 = found["p1_launches"]
+        self.check(p1["fold_packed"] == (1 if self.cuda else 0)
+                   and sum(v for k, v in p1.items() if k != "fold_packed") == 0,
+                   f"(d1) process 1 folded the Update flush with K1 packed once ({p1})")
+        self.check(ckpt.round_id == round_id and ckpt.round_seed == seed and ckpt.nb_models == n_up,
+                   f"(d2) the journal tagged sum2 holds process 1's round {round_id} and its "
+                   f"{n_up} models ({ckpt.nb_models})")  # fmt: skip
+        self.check(found["p2_health"]["phase"] == "sum2"
+                   and found["p2_health"]["round_id"] == round_id and found["p2_seed"] == seed,
+                   f"(d3) process 2 serves the same round's Sum2, not Idle (phase "
+                   f"{found['p2_health']['phase']}, round {found['p2_health']['round_id']}, "
+                   "same seed)")  # fmt: skip
+        self.check(f"resuming round {round_id} sum2 phase from journal ({n_up} models restored)"
+                   in text[1] and restored is not None and restored.group(5) == digest
+                   and int(restored.group(1)) == n_up
+                   and restored.group(3).startswith(self.dev.type),
+                   f"(d4) process 2 resumed Sum2 with {n_up} models, the accumulator uploaded to "
+                   f"the {self.dev.type} device and read back byte-identical to the journaled one "
+                   f"(sha256 {digest[:16]}...)")  # fmt: skip
+        self.check(not any("not resumable" in t for t in text),
+                   "(d5) neither process logged 'not resumable'")
+        tol = n_up / out["mask"].config.vect.exp_shift + 1e-6
+        err = float(np.max(np.abs(model - np.mean([w.astype(np.float64) for w in weights], 0))))
+        self.check(read is not None and latest == model_id
+                   and objects.get(model_id) == read.tobytes() == model.tobytes()
+                   == ref_model.tobytes() and err <= tol,
+                   f"(d6) the model read through download_global_model == the S3 object "
+                   f"{model_id[:24]}... == GET /model == {what}; |model - mean| = {err:.3e} <= "
+                   f"{tol:.3e}")  # fmt: skip
+        self.check(refused is not None and "already exists" in refused,
+                   f"(d7) a second conditional put of {model_id[:24]}... is refused ({refused})")
+        if self.cuda:
+            self.check(launches["fold_planar"] == n_up and launches["mask_fold"] == 2 * n_up
+                       and launches["unit_draws"] == n_up + 1,
+                       f"(d8) the SDK participants: K1 planar {launches['fold_planar']} == "
+                       f"{n_up}, K2 {launches['mask_fold']} == {2 * n_up} (masking and Sum2), "
+                       f"K5 {launches['unit_draws']} == {n_up + 1}")  # fmt: skip
+        self.check(rc == 0 and "coordinator stopped" in text[1],
+                   f"(d9) SIGTERM stops process 2: exit code {rc}, 'coordinator stopped' logged")
+
+        def marks(log_text: str) -> dict:
+            """Seconds from the first update POST to each phase line of a log."""
+            import datetime
+
+            out_marks = {}
+            for m in re.finditer(r"^(\S+ \S+) xaynet\.coordinator \w+ \[[^\]]*\] (round \d+: "
+                                 r"entering \w+ phase)", log_text, re.M):  # fmt: skip
+                when = datetime.datetime.strptime(m.group(1), "%Y-%m-%d %H:%M:%S,%f").timestamp()
+                out_marks.setdefault(m.group(2), round(when - walls["t0_epoch"], 3))
+            return out_marks
+
+        sets = [op for op in journal_ops if op[1] == "SET"]
+        gets = [op for op in journal_ops if op[1] == "GET" and op[3] > 8]
+        record = {
+            "walls": walls, "launches": launches, "process_launches": [p1, found["p2_launches"]],
+            "process1_marks": marks(text[0]), "process2_marks": marks(text[1]),
+            "kill_after_first_post_s": found["kill_t"] - walls["t0"],
+            "kill_to_params_s": found["kill_to_params_s"],
+            "journal_bytes": found["journal_bytes"],
+            "journal_sets": [(n, s_) for _, _, _, n, s_ in sets],
+            "journal_gets": [(n, s_) for _, _, _, n, s_ in gets],
+            "restore_upload_s": float(restored.group(4)),
+            "s3": [(op, n, s_) for _, op, _, n, s_ in s3_ops],
+            "download_s": download_s, "plain_reference_s": plain_s, "decode_max_err": err,
+            "model_available": walls["model_available"],
+        }
+        self.records["phase_d_logs"] = [t[-6000:] for t in text]
+        log(f"[phase D] {n_up} updates x {length} params, redis + s3 stores, the coordinator "
+            f"SIGKILLed in Sum2 and resumed: checks (d0)-(d9) passed; decode max err {err:.3e} "
+            f"<= {tol:.3e}")
+        log(f"[phase D] from the first update POST: process 1 {record['process1_marks']}, "
+            f"killed at {record['kill_after_first_post_s']:.3f} s; process 2 answered GET /params "
+            f"{found['kill_to_params_s']:.3f} s after the kill, {record['process2_marks']}; model "
+            f"available {walls['model_available']:.3f} s; update POSTs {walls['update_posts']:.3f} "
+            f"s; the sum participant's Sum2 step {walls['sum2_participant']:.3f} s")
+        log(f"[phase D] journal {found['journal_bytes']} bytes; SETs (bytes, s) "
+            f"{record['journal_sets']}; GETs {record['journal_gets']}; restore upload "
+            f"{record['restore_upload_s']:.3f} s; S3 {record['s3']}; download_global_model "
+            f"{download_s:.3f} s; the reference {plain_s:.3f} s")
+        log(f"[phase D] launches: this process {launches}; process 1 {p1}; process 2 "
+            f"{found['p2_launches']}")
+        return record
+
+    def phase_d_tools(self) -> dict:
+        """The sim's two command lines on the device: ``python -m
+        xaynet_tpu_torch.tools.sim_check --combos 2 --json`` (each seeded
+        combination's production round through the port's coordinator and
+        SDK, and ``SimRound``, must agree byte for byte) and ``python -m
+        xaynet_tpu_torch.examples.sim_quickstart -p 1024 -l 1000`` (two
+        rounds; each model within ``p / exp_shift + 1e-6`` of the float
+        mean); each exits 0."""
+        import os
+        import re
+
+        from xaynet_tpu_torch.core.mask.config import (
+            BoundType, DataType, GroupType, MaskConfig, ModelType,
+        )  # fmt: skip
+
+        env = dict(os.environ, PYTHONPATH=str(HERE))
+        device = [] if self.cuda else ["--device", "cpu"]
+        p, n = (1024, 1000) if self.cuda else (64, 100)
+        runs = {"sim_check": ["-m", "xaynet_tpu_torch.tools.sim_check", "--combos", "2", "--json"],
+                "sim_quickstart": ["-m", "xaynet_tpu_torch.examples.sim_quickstart", "-p", str(p),
+                                   "-l", str(n)]}  # fmt: skip
+        found = {}
+        for name, argv in runs.items():
+            t = time.perf_counter()
+            r = subprocess.run([sys.executable, *argv, *device], cwd=HERE, env=env,
+                               capture_output=True, text=True, timeout=600)  # fmt: skip
+            found[name] = {"seconds": time.perf_counter() - t, "rc": r.returncode,
+                           "stdout": r.stdout[-3000:], "stderr": r.stderr[-3000:]}
+            self.check(r.returncode == 0, f"(dt) {name} exits 0 ({r.returncode}): "
+                                          f"{r.stderr[-500:]}")
+        combos = [json.loads(line) for line in found["sim_check"]["stdout"].splitlines()
+                  if line.startswith("{")]  # fmt: skip
+        self.check(len(combos) == 2 and all(c["result"] == "ok"
+                                            and c["single_device"] == "byte-identical"
+                                            for c in combos),
+                   f"(dt1) sim_check: both combinations' production round and sim "
+                   f"byte-identical ({[c['case'] for c in combos]})")  # fmt: skip
+        exp_shift = MaskConfig(GroupType.INTEGER, DataType.F32, BoundType.B0,
+                               ModelType.M6).pair().vect.exp_shift  # fmt: skip
+        errs = [float(x) for x in re.findall(r"max \|global - float mean\| = (\S+) ",
+                                             found["sim_quickstart"]["stdout"])]  # fmt: skip
+        tol = p / exp_shift + 1e-6
+        self.check(len(errs) == 2 and max(errs) <= tol,
+                   f"(dt2) sim_quickstart -p {p} -l {n}: 2 rounds, max |model - mean| {errs} "
+                   f"<= {tol:.3e}")  # fmt: skip
+        log(f"[phase D tools] sim_check --combos 2 in {found['sim_check']['seconds']:.1f} s: "
+            f"{[(c['case'], c['seconds']) for c in combos]}; sim_quickstart -p {p} -l {n} in "
+            f"{found['sim_quickstart']['seconds']:.1f} s: "
+            f"{found['sim_quickstart']['stdout'].strip().splitlines()[:2]}")
+        return found
 
     # -- phase L: a forged 2,000-update round through the coordinator ---------
 
@@ -3014,14 +3681,12 @@ class Smoke:
         participants, 2 per edge, in 64 MiB parts; the sum2 through edge
         0. Checks: the coordinator folded 2 envelopes of 2 members, with
         one K1 launch each (``fold_partial``; K1's packed variant, as R's
-        config stages packed); ``nb_models`` is 4; each envelope's partial
-        byte-identical to a host ``Aggregation`` fold of its members'
-        masked updates; the model within ``n_updates / exp_shift + 1e-6``
-        of the mean. Prints the walls from the first update POST, as R."""
+        config stages packed); ``nb_models`` is 4; the model within
+        ``n_updates / exp_shift + 1e-6`` of the mean. Prints the walls from
+        the first update POST, as R."""
         import shutil
         import tempfile
 
-        from xaynet_tpu_torch.core.mask.masking import Aggregation
         from xaynet_tpu_torch.edge import api as edge_api
         from xaynet_tpu_torch.edge.envelope import PartialAggregateEnvelope
         from xaynet_tpu_torch.ops import kernels
@@ -3097,18 +3762,7 @@ class Smoke:
                    f"folded: {got}; sizes {[len(e) for e, _ in envelopes]})")  # fmt: skip
         nb = [a.nb_models for a in built]
         self.check(nb == [n_up], f"(e2) the round's aggregator counted nb_models {nb} == [{n_up}]")
-        by_pk = dict(zip(out["update_pks"], out["updates"]))
         pair = out["mask"].config
-        t = time.perf_counter()
-        for i, (env, _) in enumerate(envelopes):
-            host = Aggregation(pair, length)
-            for pk in env.members:
-                host.aggregate(by_pk[pk])
-            self.check(env.masked.vect.data.tobytes() == host.object.vect.data.tobytes()
-                       and env.masked.unit.data.tobytes() == host.object.unit.data.tobytes(),
-                       f"(e3.{i}) envelope {env.edge_id}/{env.window_seq}'s partial "
-                       "byte-identical to a host Aggregation fold of its 2 members")  # fmt: skip
-        host_fold_s = time.perf_counter() - t
         mean = np.sum([w.astype(np.float64) for w in weights], axis=0) / n_up
         tol = n_up / pair.vect.exp_shift + 1e-6
         err = float(np.max(np.abs(model - mean)))
@@ -3129,18 +3783,18 @@ class Smoke:
                   "sum2_closed": mark("round 1", "entering unmask phase"),
                   "model_available": walls["model_available"]}  # fmt: skip
         log(f"[phase E] {n_up} updates x {length} params through 2 edges (2 members a window) "
-            f"into the coordinator: checks (e0)-(e6) passed; decode max err {err:.3e} <= "
+            f"into the coordinator: checks (e0)-(e2), (e4)-(e6) passed; decode max err {err:.3e} <= "
             f"{tol:.3e}")
         log(f"[phase E] walls from the first update POST: update POSTs {walls['update_posts']:.3f} "
             f"s ({out['parts_per_update']} parts each, to the edges), update phase closed "
             f"{phases['update_closed']}, sum2 closed {phases['sum2_closed']}, model available "
             f"{phases['model_available']:.3f} s; participants mask {walls['participants_mask']:.3f} "
-            f"s; edges up in {edges_up_s:.3f} s; host check of the partials {host_fold_s:.3f} s")
+            f"s; edges up in {edges_up_s:.3f} s")
         log(f"[phase E] edges {[{k: h[k] for k in ('edge_id', 'shipped', 'rejected', 'dropped')} for h in health]}; "
             f"launches {launches}")
         return {"walls": walls, "phases": phases, "launches": launches, "decode_max_err": err,
                 "edge_health": health, "envelopes": [len(e) for e, _ in envelopes],
-                "host_fold_s": host_fold_s, "edges_up_s": edges_up_s}
+                "edges_up_s": edges_up_s}
 
     # -- phase T: local training on the port ----------------------------------
 
@@ -3881,56 +4535,6 @@ class Smoke:
                 "pool_stats_end": stats_end, "onboard": onboarded, "drain": drained,
                 "drain_s": drain_s, "peak_rss_gib": peak_rss_gib, "coordinator_start_s": start_s}
 
-    def phase_r_cli(self) -> dict:
-        """``python -m xaynet_tpu_torch.server.runner -c <cfg>`` at a small
-        length: ``GET /params`` answers, SIGTERM stops it with exit code 0
-        and "coordinator stopped" in its log."""
-        import signal
-        import shutil
-        import tempfile
-
-        length = 1000
-        work = Path(tempfile.mkdtemp(prefix="xn_runner_"))
-        port = free_port()
-        base = f"http://127.0.0.1:{port}"
-        # the CPU rehearsal's runner folds on the host (it has no card)
-        cfg = write_coordinator_config(work / "config.toml", port, length, work / "models",
-                                       device_fold=self.cuda)
-        log_path = work / "runner.log"
-        t = time.perf_counter()
-        with open(log_path, "wb") as out:
-            proc = subprocess.Popen(
-                [sys.executable, "-m", "xaynet_tpu_torch.server.runner", "-c", str(cfg)],
-                cwd=HERE, stdout=out, stderr=subprocess.STDOUT,
-            )  # fmt: skip
-        try:
-            def params():
-                if proc.poll() is not None:
-                    raise Failure(f"the runner exited early with {proc.returncode}")
-                try:
-                    status, body = http_call(base, "GET", "/params", timeout=30)
-                except OSError:
-                    return None
-                return json.loads(body) if status == 200 else None
-
-            answered = wait_for(params, 120, "the runner's GET /params", poll=0.1)
-            up_s = time.perf_counter() - t
-            proc.send_signal(signal.SIGTERM)
-            rc = proc.wait(timeout=60)
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            text = log_path.read_text(errors="replace")
-            shutil.rmtree(work, ignore_errors=True)
-        self.records["runner_log_tail"] = text[-4000:]
-        self.check(answered["model_length"] == length, "(r9) the runner's GET /params answers")
-        self.check(rc == 0 and "coordinator stopped" in text,
-                   f"(r10) SIGTERM stops the runner: exit code {rc}, 'coordinator stopped' logged")
-        log(f"[phase R] runner CLI: GET /params answered {up_s:.1f} s after the start; "
-            f"SIGTERM -> exit code {rc}, 'coordinator stopped' logged")
-        return {"params_after_s": up_s, "exit_code": rc}
-
     def kernel_table(self, timings: dict, launches: dict, paths: dict) -> list[dict]:
         """One row per kernel entry: ``launches`` from its main path's run,
         and beside it the launches of each other path in ``paths``."""
@@ -4099,6 +4703,9 @@ def main() -> int:
     parser.add_argument("--device", default="cuda",
                         help="'cpu' rehearses the control flow with the plain versions "
                              "(no kernels, no result line)")
+    parser.add_argument("--only", choices=("D",), default=None,
+                        help="run one phase alone (Phase D and its tools; no kernel "
+                             "line and no result line)")
     args = parser.parse_args()
 
     sys.path.insert(0, str(HERE))
@@ -4123,31 +4730,40 @@ def main() -> int:
             log(f"[setup] {smoke_name}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
                 f"{torch.cuda.device_count()} device(s)")
             smoke.build()
-        smoke.phase_a_fold()
-        smoke.phase_a_mask_fold()
-        smoke.phase_a_look_back()
-        smoke.phase_a_mask_fold_rows()
-        smoke.phase_a_wire()
-        timings = smoke.phase_a_main_shapes()
-        timings["unit_draws"] = smoke.phase_a_unit_draws()
-        timings["mask_fold_rows"] = smoke.phase_a_rows_main()
-        smoke.phase_a_wire_main()
-        pipeline = smoke.phase_pipeline()
-        result = smoke.phase_b()
-        first_flush = smoke.phase_b_out["wires"][: args.batch]
-        wire = smoke.phase_w(result["walls"], timings)
-        sim = smoke.phase_s(first_flush)
+        if args.only == "D":
+            durable = smoke.timed("D", smoke.phase_d)
+            durable["tools"] = smoke.timed("D tools", smoke.phase_d_tools)
+            smoke.records.update(durable_round=durable, seconds=time.perf_counter() - t0)
+            _write_records(smoke.records)
+            log(f"chip_smoke: Phase D alone on {args.device} passed in "
+                f"{time.perf_counter() - t0:.1f} s")
+            return 0
+        timed = smoke.timed
+        timed("A", smoke.phase_a_fold)
+        timed("A", smoke.phase_a_mask_fold)
+        timed("A", smoke.phase_a_look_back)
+        timed("A", smoke.phase_a_mask_fold_rows)
+        timed("A", smoke.phase_a_wire)
+        timings = timed("A", smoke.phase_a_main_shapes)
+        timings["unit_draws"] = timed("A", smoke.phase_a_unit_draws)
+        timings["mask_fold_rows"] = timed("A", smoke.phase_a_rows_main)
+        timed("A", smoke.phase_a_wire_main)
+        pipeline = timed("P", smoke.phase_pipeline)
+        result = timed("B", smoke.phase_b)
+        first_flush = smoke.phase_b_out["wires"][: args.batch // 2]
+        wire = timed("W", smoke.phase_w, result["walls"], timings)
+        sim = timed("S", smoke.phase_s, first_flush)
         del first_flush
-        coordinator = smoke.phase_r()
-        coordinator_wire = smoke.phase_r(wire=True)
-        loadgen = smoke.phase_l()
-        loadgen_shed = smoke.phase_l_shed()
-        fanin = smoke.phase_e_fanin()
-        training = smoke.phase_t()
-        edge = smoke.phase_e(training["rounds"]["length"])
-        multi = smoke.phase_m(training["rounds"]["length"])
-        if smoke.cuda:  # the runner CLI resolves CUDA; without a card it exits
-            coordinator["runner_cli"] = smoke.phase_r_cli()
+        coordinator = timed("R", smoke.phase_r)
+        coordinator_wire = timed("R-wire", smoke.phase_r, wire=True)
+        durable = timed("D", smoke.phase_d)
+        durable["tools"] = timed("D tools", smoke.phase_d_tools)
+        loadgen = timed("L", smoke.phase_l)
+        loadgen_shed = timed("L-shed", smoke.phase_l_shed)
+        fanin = timed("E-fanin", smoke.phase_e_fanin)
+        training = timed("T", smoke.phase_t)
+        edge = timed("E", smoke.phase_e, training["rounds"]["length"])
+        multi = timed("M", smoke.phase_m, training["rounds"]["length"])
     except Exception as exc:  # every phase failure ends the run without a result
         traceback.print_exc()
         print(f"chip_smoke: FAILED: {type(exc).__name__}: {exc}", file=sys.stderr)
@@ -4161,7 +4777,8 @@ def main() -> int:
             log(f"[profile] unavailable: {exc}")
     smoke.records.update(timings=timings, pipeline=pipeline, round=result, wire_round=wire,
                          sim=sim, coordinator_round=coordinator,
-                         coordinator_round_wire=coordinator_wire, loadgen_round=loadgen,
+                         coordinator_round_wire=coordinator_wire, durable_round=durable,
+                         loadgen_round=loadgen,
                          loadgen_shed_round=loadgen_shed, edge_fanin_round=fanin,
                          edge_round=edge, training=training, multi_tenant=multi,
                          seconds=time.perf_counter() - t0)
@@ -4180,6 +4797,9 @@ def main() -> int:
     table = smoke.kernel_table(timings, launches, {
         "launches_coordinator_round": coordinator["launches"],
         "launches_coordinator_round_wire": coordinator_wire["launches"],
+        # the participants in this process, the coordinator's two processes
+        "launches_durable": {k: v + sum(proc.get(k, 0) for proc in durable["process_launches"])
+                             for k, v in durable["launches"].items()},
         "launches_sim": sim["launches"],
         "launches_loadgen": loadgen_launches,
         "launches_loadgen_shed": {k: v + loadgen_shed["driver_launches"].get(k, 0)

@@ -386,17 +386,18 @@ def test_rest_server_stops_with_keep_alive_open():
 
 UNSUPPORTED = {
     "tenant-file-kernel-xla": ("aggregation", "kernel", "xla", "Queue 2"),
-    "redis": ("storage", "coordinator", "redis", "item 19"),
-    "s3": ("storage", "backend", "s3", "item 19"),
     "kernel-xla": ("aggregation", "kernel", "xla", "Queue 2"),
     "kernel-pallas": ("aggregation", "kernel", "pallas", "Queue 2"),
     "kernel-native": ("aggregation", "kernel", "native-u64", "Queue 2"),
     "shard-parallel": ("aggregation", "shard_parallel", False, "item 10"),
     "shard-threads": ("aggregation", "shard_threads", 4, "item 10"),
 }
-# refused until the port had them: the edge tier (item 18) and the
-# speculative sum2's knobs (item 9b); now accepted as the JAX package does
+# refused until the port had them: the edge tier (item 18), the
+# speculative sum2's knobs (item 9b) and the redis and s3 stores (item 19);
+# now accepted as the JAX package does
 ACCEPTED = {
+    "redis": ("storage", "coordinator", "redis"),
+    "s3": ("storage", "backend", "s3"),
     "tenancy-edge": ("edge", "enabled", True),
     "edge": ("edge", "enabled", True),
     "speculative-derive": ("overlap", "speculative_derive", False),
@@ -409,9 +410,9 @@ def test_port_settings_refuse_what_the_port_lacks(case, tmp_path):
     """Each key the port lacks is refused by name, where the JAX package
     accepts the same settings. The port serves tenants (``[tenancy]
     enabled``), and a tenant's own settings file is held to the same
-    refusals. The edge tier (alone and with tenancy) and non-default
-    ``[overlap] speculative_derive`` / ``spec_group`` are accepted, as in
-    the JAX package."""
+    refusals. The edge tier (alone and with tenancy), non-default
+    ``[overlap] speculative_derive`` / ``spec_group`` and the ``redis`` and
+    ``s3`` stores are accepted, as in the JAX package."""
     settings = _settings(port_settings, device=True)
     theirs = _settings(jax_settings, device=True)
     if case.startswith("tenan"):

@@ -11,7 +11,8 @@ The streaming pipeline's card cases (the dispatch-ahead stress, the
 degrade-once fault and the fault on both tries) use the same seams as
 ``chip_smoke.py``'s phase P: the accumulator's fold seam and the
 ``streaming.fold`` fault site. The coordinator rounds use the port's
-participant SDK as ``chip_smoke.py``'s phases R and R-wire do.
+participant SDK as ``chip_smoke.py``'s phases R and R-wire do, and the
+durable round is its Phase D at a small length.
 """
 
 from __future__ import annotations
@@ -752,6 +753,26 @@ def test_coordinator_round_on_card(cuda, tmp_path):
     assert out["model"].tobytes() == want.tobytes()
     mean = np.sum([w.astype(np.float64) for w in out["weights"]], axis=0) / n_up
     assert np.max(np.abs(out["model"] - mean)) <= n_up / out["mask"].config.vect.exp_shift + 1e-6
+
+
+def test_durable_round_killed_in_sum2_resumes_on_card(cuda, tmp_path, monkeypatch):
+    """``chip_smoke.py``'s Phase D at a small length: the coordinator CLI on
+    the card with the Redis and S3 stores (in this process), SIGKILLed in
+    Sum2 once the journal holds the entry tagged ``sum2``, and started
+    again: it resumes Sum2 with the accumulator uploaded to the card and
+    read back byte-identical to the journaled one (the sha256 of the
+    journal's accumulator in Redis), and the model read back from S3 is the
+    plain CPU fold and unmask of what the participants sent (checks
+    (d0)-(d9))."""
+    import argparse
+
+    import chip_smoke
+
+    monkeypatch.chdir(tmp_path)  # the coordinators' logs go to ./chiprun_out
+    args = argparse.Namespace(length=10_000, updates=3, batch=8, seed=11, device="cuda")
+    record = chip_smoke.Smoke(args).phase_d()
+    assert record["journal_gets"] and record["restore_upload_s"] >= 0
+    assert record["process_launches"][0]["fold_packed"] == 1
 
 
 @pytest.mark.parametrize("wire", [False, True], ids=["staged", "wire-ingest"])

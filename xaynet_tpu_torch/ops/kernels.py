@@ -55,7 +55,9 @@ thread): K1 one per batch fold; K2 one per seed and trip for
 keystream candidates; a seed takes one trip except with probability
 < 2^-60, or when a caller shrinks ``chunk_candidates``); K3 and K4 one per
 group of wire updates; K5 one per call; K6 one per batch (its fold pass
-and its subtract-back pass, launched together).
+and its subtract-back pass, launched together). The process's registry
+carries the same counts as ``xaynet_kernel_launches_total{kernel}``, so a
+coordinator's launches can be read off its ``GET /metrics``.
 """
 
 from __future__ import annotations
@@ -74,6 +76,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..telemetry.registry import get_registry
 from . import chacha
 from . import limbs as host_limbs
 from .fold import (
@@ -107,6 +110,14 @@ LAUNCHES = {
     "wire_fold": 0,
 }
 _LAUNCHES_LOCK = threading.Lock()
+# the same counts on the process's registry (``GET /metrics``), never reset:
+# a coordinator's launches read from outside its process
+LAUNCHES_TOTAL = get_registry().counter(
+    "xaynet_kernel_launches_total",
+    "Hand-written CUDA kernel launches of this process, by wrapper (the "
+    "names of ops.kernels.LAUNCHES).",
+    ("kernel",),
+)
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LIB_LOCK = threading.Lock()
@@ -122,6 +133,7 @@ def reset_launches() -> None:
 def _launched(name: str) -> None:
     with _LAUNCHES_LOCK:
         LAUNCHES[name] += 1
+    LAUNCHES_TOTAL.labels(kernel=name).inc()
 
 
 # --- build and load --------------------------------------------------------

@@ -58,7 +58,20 @@ from ..ops.fold import (
     wire_to_planar,
     zeros_u32,
 )
+from ..telemetry.registry import get_registry
 from ..tenancy.pool import PagePool, get_pool
+
+# what crosses to the device for the round's fold, by layout (the JAX
+# package's family): the streaming pipeline's ring bytes (packed /
+# unpacked) and, here, the raw wire blocks that device wire ingest uploads
+BYTES_STAGED = get_registry().counter(
+    "xaynet_bytes_staged_total",
+    "Bytes copied into host staging rings (and later across host->device), "
+    "by layout: packed = byte-planar wire-width planes, unpacked = full "
+    "uint32 limb planes, wire = raw serialized element blocks, "
+    "wire-planar = v2 byte-planar element blocks staged packed.",
+    ("layout",),
+)
 
 
 def _release_leases(pool: PagePool, leases: list) -> None:
@@ -194,7 +207,9 @@ class DeviceAggregator:
         order is left out of the fold and not counted in ``nb_models``
         (the reference rejects such a message before its seed-dict
         insert). Returns the ``bool[K]`` acceptance vector."""
-        staged = torch.from_numpy(self._check_raw(raw)).to(self.device)
+        raw = self._check_raw(raw)
+        BYTES_STAGED.labels(layout="wire").inc(raw.nbytes)
+        staged = torch.from_numpy(raw).to(self.device)
         ok = self.dispatch_staged_bytes(staged)
         with self.on_stream():
             ok_host = ok.cpu().numpy()  # the acceptance fetch, its one sync
@@ -227,6 +242,7 @@ class DeviceAggregator:
         if not raws:
             return []
         block = self._check_raw(np.stack([np.asarray(r) for r in raws]))
+        BYTES_STAGED.labels(layout="wire").inc(block.nbytes)
         planar, bad = kernels.wire_unpack(torch.from_numpy(block).to(self.device), self.order)
         return [planar[i] if ok else None for i, ok in enumerate(self._verdicts(bad))]
 
@@ -247,6 +263,7 @@ class DeviceAggregator:
             raise ValueError("expected uint8[K, bytes_per_number, model_len]")
         if block.shape[0] > MAX_LAZY_BATCH:
             raise ValueError("batch too large for lazy-carry fold")
+        BYTES_STAGED.labels(layout="wire-planar").inc(block.nbytes)
         staged = torch.from_numpy(block).to(self.device)
         bad = kernels.packed_check(staged, self.order)
         return [staged[i] if ok else None for i, ok in enumerate(self._verdicts(bad))]

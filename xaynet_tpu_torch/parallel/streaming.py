@@ -101,7 +101,7 @@ from ..telemetry import tracing as trace
 from ..telemetry.registry import get_registry
 from ..tenancy.pool import LOCAL_TENANT, PagePool, get_pool
 from ..tenancy.scheduler import TenantScheduler, get_scheduler
-from .aggregator import DeviceAggregator
+from .aggregator import BYTES_STAGED, DeviceAggregator
 
 logger = logging.getLogger(__name__)
 
@@ -138,14 +138,6 @@ DEGRADED = _registry.gauge(
 DEGRADATIONS = _registry.counter(
     "xaynet_streaming_degradations_total",
     "Times a streaming pipeline degraded to the synchronous fold path.",
-)
-BYTES_STAGED = _registry.counter(
-    "xaynet_bytes_staged_total",
-    "Bytes copied into host staging rings (and later across host->device), "
-    "by layout: packed = byte-planar wire-width planes, unpacked = full "
-    "uint32 limb planes, wire = raw serialized element blocks, "
-    "wire-planar = v2 byte-planar element blocks staged packed.",
-    ("layout",),
 )
 
 _SHUTDOWN = object()

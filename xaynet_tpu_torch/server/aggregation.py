@@ -46,6 +46,9 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import hashlib
+import logging
+import time
 
 import numpy as np
 import torch
@@ -66,6 +69,8 @@ from ..parallel.aggregator import DeviceAggregator
 from ..parallel.streaming import StreamingAggregator
 from ..resilience.checkpoint import AggSnapshot
 from ..tenancy.pool import LOCAL_TENANT
+
+logger = logging.getLogger("xaynet.aggregation")
 
 
 def build_staged_aggregator(shared) -> "StagedAggregator":
@@ -473,13 +478,29 @@ class StagedAggregator:
 
     @_on_device
     def restore_state(self, vect: np.ndarray, unit: np.ndarray, nb_models: int) -> None:
-        """Restore a snapshot into an EMPTY aggregator (resume)."""
+        """Restore a snapshot into an EMPTY aggregator (resume). The
+        accumulator is read back from the device after the upload and must
+        equal the snapshot byte for byte: a resume never unmasks an
+        aggregate other than the journaled one. The log line carries the
+        upload's seconds and the accumulator's sha256."""
         if self.nb_models:
             raise RuntimeError("restore_state requires an empty aggregator")
         vect = np.ascontiguousarray(vect, dtype=np.uint32)
         unit = np.ascontiguousarray(unit, dtype=np.uint32)
+        t0 = time.perf_counter()
         self._device.restore(vect, nb_models)
+        device = self._device.device
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        upload_s = time.perf_counter() - t0
+        if not np.array_equal(self._device.snapshot(), vect):
+            raise RuntimeError("the restored accumulator differs from the journaled one")
         self._unit_acc = unit
+        logger.info(
+            "journal restore: %d models, %d accumulator bytes uploaded to %s in %.3f s "
+            "and read back byte-identical (sha256 %s)",
+            nb_models, vect.nbytes, device, upload_s, hashlib.sha256(vect).hexdigest(),
+        )  # fmt: skip
 
     @_on_device
     def finalize(self) -> Aggregation:

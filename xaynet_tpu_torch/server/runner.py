@@ -5,7 +5,7 @@ rust/xaynet-server/src/bin/main.rs:29-138): settings -> logging -> metrics ->
 store -> state-machine initializer -> REST server, with the state machine
 and the API as the two long-lived tasks.
 
-Run:  python -m xaynet_tpu_torch.server.runner -c configs/config.toml
+Run:  python -m xaynet_tpu_torch.server.runner -c configs/config.toml [--device cpu]
 
 With ``[tenancy] enabled`` :func:`serve` hands off to
 :func:`serve_tenants`: one process serves several tenants' rounds on one
@@ -47,6 +47,8 @@ from ..storage.memory import (
     NoOpTrustAnchor,
 )
 from ..device import DeviceUnavailable, resolve_device
+from ..storage.redis import RedisCoordinatorStorage
+from ..storage.s3 import S3ModelStorage
 from ..storage.traits import Store
 from ..telemetry import BridgedMetrics, RoundReporter
 from ..utils import tracing
@@ -61,20 +63,35 @@ logger = logging.getLogger("xaynet.coordinator")
 
 def init_store(settings: Settings, tenant: str = "default") -> Store:
     # tenant-scoped storage keys (docs/DESIGN.md §19): a non-default tenant
-    # gets a "t-<tenant>" subtree for the file / filesystem backends, so N
-    # tenants share one model_dir without key collisions. The default
-    # tenant keeps the flat layout (single-tenant deployments are
-    # unchanged). The redis backend is not ported (ROADMAP item 19).
+    # prefixes every durable key — redis keys get "t:<tenant>:", file/
+    # filesystem backends get a "t-<tenant>" subtree — so N tenants share
+    # one backend without key collisions. The default tenant keeps the
+    # flat layout (single-tenant deployments are unchanged).
     scoped_dir = settings.storage.model_dir
     if tenant != "default":
         scoped_dir = os.path.join(settings.storage.model_dir, f"t-{tenant}")
-    if settings.storage.coordinator == "file":
+    if settings.storage.coordinator == "redis":
+        coordinator = RedisCoordinatorStorage(
+            host=settings.storage.redis_host,
+            port=settings.storage.redis_port,
+            db=settings.storage.redis_db,
+            key_prefix="" if tenant == "default" else f"t:{tenant}:",
+        )
+    elif settings.storage.coordinator == "file":
         os.makedirs(scoped_dir, exist_ok=True)
         coordinator = FileCoordinatorStorage(os.path.join(scoped_dir, "coordinator_state.json"))
     else:
         coordinator = InMemoryCoordinatorStorage()
     if settings.storage.backend == "filesystem":
         models = FilesystemModelStorage(scoped_dir)
+    elif settings.storage.backend == "s3":
+        models = S3ModelStorage(
+            endpoint=settings.storage.s3_endpoint,
+            bucket=settings.storage.s3_bucket,
+            access_key=settings.storage.s3_access_key,
+            secret_key=settings.storage.s3_secret_key,
+            region=settings.storage.s3_region,
+        )
     else:
         # memory archives EVERY round's model in RAM (a slow leak in a
         # long-running coordinator) — fine for tests/benches, wrong for
@@ -85,6 +102,14 @@ def init_store(settings: Settings, tenant: str = "default") -> Store:
         )
         models = InMemoryModelStorage()
     return Store(coordinator, models, NoOpTrustAnchor())
+
+
+async def create_bucket(store: Store) -> None:
+    """The S3 model store's bucket must exist before the first model save
+    (the reference creates it at startup, main.rs init_store path); every
+    other model store needs nothing."""
+    if isinstance(store.models, S3ModelStorage):
+        await store.models.create_bucket()
 
 
 def init_metrics(settings: Settings):
@@ -247,6 +272,7 @@ async def serve(settings: Settings, store: Optional[Store] = None, device=None) 
             "package's host fold; the port folds on the resolved device)", device
         )
     store = store if store is not None else init_store(settings)
+    await create_bucket(store)
     _install_process_hooks(settings)
     # every storage call flows through retry + circuit breaker from here on
     store = wrap_store(store, settings.resilience)
@@ -330,7 +356,9 @@ async def _build_tenant_context(settings: Settings, tenant: str, budget, registr
     from .rest import TenantRoutes
 
     tset = _tenant_settings(settings, tenant)
-    store = wrap_store(init_store(tset, tenant), tset.resilience, tenant=tenant)
+    raw_store = init_store(tset, tenant)
+    await create_bucket(raw_store)
+    store = wrap_store(raw_store, tset.resilience, tenant=tenant)
     reporter = (
         RoundReporter(tset.metrics.round_report_path, tenant=tenant)
         if tset.metrics.round_report_path
@@ -490,10 +518,13 @@ async def serve_tenants(settings: Settings, device=None, boot_t0: Optional[float
 def main() -> None:
     parser = argparse.ArgumentParser(description="xaynet-tpu coordinator (PyTorch/CUDA port)")
     parser.add_argument("-c", "--config", help="TOML configuration file", default=None)
+    parser.add_argument("--device", default=None,
+                        help="torch device of the round's aggregator (default: cuda; "
+                             "'cpu' folds with the plain versions)")
     args = parser.parse_args()
     settings = Settings.load(args.config)
     try:
-        asyncio.run(serve(settings))
+        asyncio.run(serve(settings, device=args.device))
     except DeviceUnavailable as err:
         sys.exit(f"coordinator not started: {err}")
 

@@ -9,9 +9,10 @@ settings/mod.rs:307-376).
 
 The port's copy keeps every key the JAX package reads, so one config file
 loads in both, and refuses with a ``SettingsError`` what the port does not
-have (``Settings.validate_port``): the ``redis`` coordinator store, the
-``s3`` model store, any fold kernel other than ``auto``, and the knobs of
-the shard-parallel pipeline.
+have (``Settings.validate_port``): any fold kernel other than ``auto``, and
+the knobs of the shard-parallel pipeline. Every store of the JAX package is
+served: ``memory``, ``file`` and ``redis`` for the coordinator's state,
+``memory``, ``filesystem`` and ``s3`` for the global models.
 """
 
 from __future__ import annotations
@@ -779,18 +780,6 @@ class Settings:
         each message names the ROADMAP item that would add it. A
         multi-tenant coordinator loads each tenant's file through the same
         loader, so a per-tenant file is refused for the same keys."""
-        if self.storage.coordinator == "redis":
-            raise SettingsError(
-                "storage.coordinator = \"redis\" is not supported by "
-                "xaynet_tpu_torch (ROADMAP Queue 1 item 19, storage backends); "
-                "use \"memory\" or \"file\""
-            )
-        if self.storage.backend == "s3":
-            raise SettingsError(
-                "storage.backend = \"s3\" is not supported by xaynet_tpu_torch "
-                "(ROADMAP Queue 1 item 19, storage backends); use \"memory\" "
-                "or \"filesystem\""
-            )
         if self.aggregation.kernel != "auto":
             raise SettingsError(
                 f"aggregation.kernel = {self.aggregation.kernel!r} names a TPU "

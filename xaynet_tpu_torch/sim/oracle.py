@@ -180,7 +180,10 @@ async def _drive_production_round(case: OracleCase, device) -> np.ndarray:
                     raise
                 except Exception as err:
                     last_errors.append(err)
-                if fetcher.model() is not None and sm.phase.value == "awaiting":
+                # the model exists only once every message of the round's
+                # windows was accepted; a participant that already took a
+                # role in the next round would never come back to awaiting
+                if fetcher.model() is not None:
                     return
                 await asyncio.sleep(0.01)
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``xaynet_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # the full run: 25M-element round, 16 updates
+    python3 chip_smoke.py            # the full run: 25M-element round, 8 updates
 
 Builds the hand-written CUDA kernels from ``xaynet_tpu_torch/csrc`` with
 ``nvcc`` (one process per source, started together, into
@@ -55,35 +55,35 @@ Builds the hand-written CUDA kernels from ``xaynet_tpu_torch/csrc`` with
   later drain and submit raises ``StreamingError``.
 - **Phase B** drives one PET round through the port's entry points at the
   size of ResNet-50 (25,000,000 parameters), the shipped mask config
-  prime/f32/b0/m3, 16 update participants (each masks on the card: mask
+  prime/f32/b0/m3, 8 update participants (each masks on the card: mask
   derived by K2, weights added by K1), ``StagedAggregator`` with batch 8 and
-  packed staging: each flush submits into the streaming pipeline (two K1
-  flushes, folded by its worker on the accumulator's stream while the next
-  updates are masked and staged), ``finalize_inplace`` (the drain: the
+  packed staging: each flush submits into the streaming pipeline (one K1
+  flush of 8, folded by its worker on the accumulator's stream while the
+  caller goes on), ``finalize_inplace`` (the drain: the
   round's only synchronization of the folds), the Sum2 ``sum_masks`` over
-  the 16 seeds (K2), ``validate_unmasking`` and ``unmask_array``. It checks
+  the 8 seeds (K2), ``validate_unmasking`` and ``unmask_array``. It checks
   the aggregate against python big-int sums at 2,048 positions, the unit
   part and model count, the decoded model against the f32 mean within
-  16/exp_shift + 1e-6, and that the launch counters show every kernel ran.
+  8/exp_shift + 1e-6, and that the launch counters show every kernel ran.
   It reports each flush's stage and fold seconds, the pipeline's overlap
   ratio, K1 packed's device time inside the pipeline and what pinning the
   staging ring cost. Outside its timed walls it serializes each masked
   update for Phase W: even-indexed ones in wire format v1, odd ones in v2.
   Then the speculative Sum2 (``ops.speculation``): a session on B's config
-  with a ``TenantScheduler`` is offered 15 of B's 16 seeds and one that
-  never arrives, folds all 16 in its worker (K5, K2, K1 planar) and
-  settles on B's 16: byte-identical to B's ``sum_masks``, outcomes 15
+  with a ``TenantScheduler`` is offered 7 of B's 8 seeds and one that
+  never arrives, folds all 8 in its worker (K5, K2, K1 planar) and
+  settles on B's 8: byte-identical to B's ``sum_masks``, outcomes 7
   hits, 1 miss, 1 discard, no worker error; its seconds are printed.
-- **Phase W** is the Update phase with device wire ingest, on Phase B's 16
-  updates plus a 17th whose element block holds one all-0xFF element (in
-  the middle of the second group): each message parses lazily
+- **Phase W** is the Update phase with device wire ingest, on Phase B's 8
+  updates plus one more whose element block holds one all-0xFF element (in
+  the middle of the last group): each message parses lazily
   (``parse_mask_object(lazy_vect=True)``), ``prevalidate_wire_batch`` runs
   per group of ``batch`` updates (K3 over the v1 members, K4 over the v2
   ones), then ``validate_aggregation`` + ``aggregate`` per update (flushes
   fold the device rows with K1 on the caller's thread, packed and planar),
   then ``finalize_inplace`` and ``unmask_array`` with Phase B's mask. It
   checks that the corrupted update is rejected with ``InvalidObject``, that
-  ``nb_models == 16``, that the accumulator and the decoded model are
+  ``nb_models == 8``, that the accumulator and the decoded model are
   byte-identical to Phase B's, that K3, K4 and both K1 variants ran as many
   times as the groups and flush chunks need, and that no update was parsed
   on the host; and prints its walls beside Phase B's. Then, on the same
@@ -92,19 +92,54 @@ Builds the hand-written CUDA kernels from ``xaynet_tpu_torch/csrc`` with
   there: the kernel line's K3 and K4 times and bounds are the means over
   Phase W's launches, K4's bound counting only the bytes its verdict needs
   from this data (every top byte, and the sectors of lower planes where an
-  element still ties the order). Its fused leg: the 8 v1 wires and the
+  element still ties the order). Its fused leg: the 4 v1 wires and the
   corrupted one as raw element blocks in two batches, through
   ``DeviceAggregator.add_wire_batch`` and through
   ``StreamingAggregator.submit_wire_batch`` + ``drain`` (K6, one launch a
-  batch): both accumulators byte-identical to the fold of the same 8
+  batch): both accumulators byte-identical to the fold of the same 4
   updates as Phase B masked them, the corrupted one alone
   rejected, ``nb_models`` 8; K6 against ``wire_fold_plain`` at both
   shapes and timed there and at ``uint8[8, n * bpn]``. The reference for
   those 8 is folded during Phase B from B's own masked updates (K1
   planar, after B's launches are read).
+- **Phase X** is the model-axis mesh on the card: a mesh of the card
+  repeated 4 times (``make_mesh([cuda:0] * 4)``: 4 shards, each its own
+  accumulator slice, stream, staging ring and fold worker), at Phase B's
+  25M, from the 8 updates Phase B serialized (their wire rows and v1
+  blocks, no new encode or masking). (x1) A ``StagedAggregator`` on the
+  mesh stages B's 8 updates and flushes them through the shard-parallel
+  pipeline (one packed flush: K1 packed once a shard), then
+  ``finalize_inplace(defer_drain=True)`` and ``unmask_array`` with B's mask,
+  which stages the unmask per shard behind the folds (the eager per-shard
+  unmask): the model must be B's one-shard model byte for byte. (x2) The
+  journal entry (``snapshot_journal``: one plane per shard) restores into
+  a 1-shard and a 4-shard aggregator, each holding B's accumulator. (x3)
+  The 4 even (v1) updates as raw element blocks in two wire batches
+  (``submit_wire_batch``), the first with a member whose last element,
+  in the last shard's slice alone, is all 0xFF: K6 on each shard's byte
+  slice, the verdicts settled at each batch's commit and the rejected
+  member taken back from shards 0-2 by K6's subtract-back pass
+  (``kernels.wire_unfold``, held against its plain version at this shape
+  and timed there); the verdicts, ``nb_models`` and the accumulator must
+  be those of B's even updates on one shard. (x4) The same wire leg with
+  a fault at shard 2's first fold: the shard retries, the pipeline
+  degrades, the result is the same. Where several cards are visible,
+  (x5) runs x1 on a mesh of every card. It prints K1 and K6 by shard, the
+  per-shard overlap gauges and the walls of the submit, the drain and the
+  unmask beside Phase B's.
+- **Phase H** is the multi-process ingest: two processes of this script
+  (``--h-worker``) share the card, each with its own CUDA context, and
+  form a ``torch.distributed`` gloo group over 127.0.0.1; each folds its
+  half of a 25M model with ``parallel.multihost.MultiHostAggregator``: a
+  raw wire batch of 8 whose last member has an invalid element in rank 1's
+  slice (``add_local_wire_batch``: K6, the verdict all-reduced, rank 0
+  taking the member back), a planar batch of the 8 (``add_local_batch``,
+  K1 planar), then ``unmask_local``. Each rank's slice must equal a numpy
+  limb oracle and the acceptance vector must be the same on both ranks.
+  ``python3 chip_smoke.py --only H`` runs it alone.
 - **Phase S** is the whole-round simulation (``sim.SimRound``): (s1)
-  Phase B's first 4 participants (half its first flush: their seeds and
-  models, scalar 1/16 as B encoded them) at the main length in one block, the units drawn
+  Phase B's first 2 participants (a quarter of its flush: their seeds and
+  models, scalar 1/8 as B encoded them) at the main length in one block, the units drawn
   by K5, the masks derived into zero rows by K2 per row (one launch) and
   folded by K1 planar; its
   aggregates, unmasked limbs and float64 model must be, byte for byte,
@@ -114,7 +149,10 @@ Builds the hand-written CUDA kernels from ``xaynet_tpu_torch/csrc`` with
   x 1,000 parameters, integer/f32/b0/m6, blocks of 256, a warm-up and three
   timed runs (median participants/s with min and max), the model within
   1e-6 of the f32 mean, one K5 and one K2-per-row launch a block, and K5's
-  time over the 2,048 seeds.
+  time over the 2,048 seeds. **Phase S-mesh** runs s2 on a participant-axis
+  mesh of 2 shards of the card (each shard its blocks on its own stream,
+  the partials combined by K1 planar): the model must be s2's byte for
+  byte; its participants/s print beside s2's.
 - **Phase R** is a round through the port's coordinator: ``serve()`` on an
   event loop in a thread, no device given (CUDA), a temporary config with
   the shipped mask config and aggregation knobs (batch 64, packed staging,
@@ -214,11 +252,11 @@ Builds the hand-written CUDA kernels from ``xaynet_tpu_torch/csrc`` with
   ``flatten_params`` byte for byte on the card, one SGD step on the card
   against the same step on the CPU in f32 (TF32 off) and in bf16, and the
   bf16 step's milliseconds at batch 32 (CUDA events, median of 10) and
-  images/s. (t2) Two rounds of ResNet-50 federated through the
+  images/s. (t2) One round of ResNet-50 federated through the
   coordinator (Phase R's config at the model's length): a sum participant
   and three update participants, each ``spawn_participant(url,
-  FederatedTrainer, ...)`` training on the card (2 batches of 32 a round),
-  round 2's from round 1's global model; each global model within 3 /
+  FederatedTrainer, ...)`` training on the card (2 batches of 32); the
+  global model within 3 /
   exp_shift + 1e-6 of the mean of the vectors the trainers returned, the
   fold on CUDA, K1 planar 3 and K2 3 in the participants' masking, K2 3 in
   Sum2, K1 packed 1 in the flush; per round the training and masking
@@ -1162,7 +1200,7 @@ class Smoke:
         self.records: dict = {"checks": []}
         self.max_err = dict.fromkeys(
             ("fold_planar", "fold_packed", "mask_fold", "mask_fold_rows", "wire_unpack",
-             "packed_check", "unit_draws", "wire_fold"), 0
+             "packed_check", "unit_draws", "wire_fold", "wire_unfold"), 0
         )  # fmt: skip
         self.sass = None
         self.t_start = time.perf_counter()
@@ -1437,8 +1475,8 @@ class Smoke:
         """K2 with one accumulator per seed (``mask_fold_rows``) against its
         plain version, rows and end cursors: B in {1, 8, 256} on the shipped
         order (draw width 6) at a ragged length, from mid-block cursors, in
-        one trip and in forced multi-trip runs; B in {1, 8} on the widest
-        orders of Phase A's K2 cases (draw widths 37 and 268)."""
+        one trip and (B in {1, 8}) in forced multi-trip runs; B in {1, 8} on
+        the widest orders of Phase A's K2 cases (draw widths 37 and 268)."""
         from xaynet_tpu_torch.core.mask.config import (
             BoundType, DataType, GroupType, MaskConfig, ModelType,
         )  # fmt: skip
@@ -1462,7 +1500,8 @@ class Smoke:
                 seeds = [self.rng.bytes(32) for _ in range(b)]
                 kws = to_device_u32(np.stack([np.frombuffer(x, "<u4") for x in seeds]), self.dev)
                 offs = [13 * i + 5 for i in range(b)]  # mid-block cursors
-                for chunk in (None, max(7, expected // 5)):
+                # the forced multi-trip run at B in {1, 8}; 256 seeds in one trip
+                for chunk in (None, max(7, expected // 5))[: 1 if b > 8 else 2]:
                     rows = to_device_u32(self.elements(order, n_limb, (b, count)), self.dev)
                     got, ends = kernels.mask_fold_rows(rows.clone(), kws, offs, count, order, chunk)
                     want, want_ends = kernels.mask_fold_rows_plain(rows.clone(), kws, offs, count,
@@ -1477,8 +1516,8 @@ class Smoke:
     def phase_a_unit_draws(self) -> dict:
         """K5 (``unit_draws``) against its plain version, units and cursors,
         at the configs and seed counts the paths give it: the shipped
-        prime/f32/b0/m3 (Phase B, R, T: one seed a participant, 16 in B's
-        Sum2), integer/f32/b0/m6 (Phase S s2: blocks of 256, 2,048 seeds),
+        prime/f32/b0/m3 (Phase B, R, T: one seed a participant, B's
+        updates in its Sum2), integer/f32/b0/m6 (Phase S s2: blocks of 256, 2,048 seeds),
         prime/f32/b0/m6 (Phase L: the drivers' blocks of 512, the Sum2's
         2,000), and the widest draws of Phase A's K2 cases (37, 268 bytes)
         and a 2^(32 L) order (17-byte draws); the first seeds also against
@@ -1496,7 +1535,7 @@ class Smoke:
         m3 = MaskConfig(GroupType.PRIME, DataType.F32, BoundType.B0, ModelType.M3).order
         s2 = MaskConfig(GroupType.INTEGER, DataType.F32, BoundType.B0, ModelType.M6).order
         cases = [  # (label, order, seed counts)
-            ("prime/f32/b0/m3 draw6", m3, (1, 16)),
+            ("prime/f32/b0/m3 draw6", m3, (1, self.args.updates)),
             ("integer/f32/b0/m6 draw7", s2, (256, 2048)),
             ("prime/f32/b0/m6 draw7",
              MaskConfig(GroupType.PRIME, DataType.F32, BoundType.B0, ModelType.M6).order, (512, 2000)),
@@ -1529,7 +1568,7 @@ class Smoke:
         log(f"[phase A] K5 (unit_draws) byte-exact vs plain and host sampler in {n_cases} cases")
 
         out = {}
-        for tag, order, b in (("main", m3, 16), ("s2", s2, 2048)):
+        for tag, order, b in (("main", m3, self.args.updates), ("s2", s2, 2048)):
             kws = to_device_u32(self.rng.integers(0, 1 << 32, (b, 8), dtype=np.uint64)
                                 .astype(np.uint32), self.dev)  # fmt: skip
             _, cursors = kernels.unit_draws(kws, order)
@@ -2146,17 +2185,18 @@ class Smoke:
             f"in {evens_s:.3f} s (outside the walls)")
         spec = self.phase_b_speculation(seeds, length, pair, unit_m, vect_m)
         self.phase_b_out = {"wires": wires, "vect": got.vect.data, "unit": got.unit.data,
-                            "model": model, "mask": mask, "evens_vect": evens_vect}
+                            "model": model, "mask": mask, "evens_vect": evens_vect,
+                            "units": units}
         return {"walls": walls, "launches": launches, "decode_max_err": err, "pipeline": stream,
                 "serialize_s": serialize_s, "speculation": spec}
 
     def phase_b_speculation(self, seeds: list, length: int, pair, unit_m, vect_m) -> dict:
         """The speculative Sum2 (``ops.speculation``) on Phase B's round: a
         session on B's config with a ``TenantScheduler`` (idle slots only) is
-        offered 15 of B's 16 Sum2 seeds and one seed that never arrives;
-        once it has folded all 16 (K5, K2, K1 planar in its worker, groups
-        of ``batch``), it settles on B's 16. Checks: the result is
-        byte-identical to B's ``sum_masks``, the outcomes are 15 hits, 1
+        offered all but one of B's Sum2 seeds and one seed that never
+        arrives; once it has folded them all (K5, K2, K1 planar in its
+        worker, groups of ``batch``), it settles on B's seeds. Checks: the result is
+        byte-identical to B's ``sum_masks``, the outcomes are n - 1 hits, 1
         miss and 1 discard, and the worker failed nothing."""
         from xaynet_tpu_torch.ops import kernels
         from xaynet_tpu_torch.ops.speculation import SpeculativeMaskSession
@@ -2190,9 +2230,9 @@ class Smoke:
         self.check(spec.worker_error is None,
                    f"(b-spec1) the speculative worker failed nothing ({spec.worker_error!r})")
         self.check(vect.tobytes() == vect_m.tobytes() and unit.tobytes() == unit_m.tobytes(),
-                   "(b-spec2) settle == Phase B's sum_masks over its 16 seeds, byte for byte")
+                   "(b-spec2) settle == Phase B's sum_masks over its seeds, byte for byte")
         self.check(got == {"hit": len(seeds) - 1, "miss": 1, "discard": 1},
-                   f"(b-spec3) outcomes {got} == 15 hits, 1 miss, 1 discard")
+                   f"(b-spec3) outcomes {got} == {len(seeds) - 1} hits, 1 miss, 1 discard")
         if self.cuda:
             groups = -(-len(offered) // self.args.batch)
             self.check(launches["fold_planar"] == groups + 1,
@@ -2218,12 +2258,12 @@ class Smoke:
         from xaynet_tpu_torch.server.aggregation import StagedAggregator
 
         args = self.args
-        b, self.phase_b_out = self.phase_b_out, None
+        b = self.phase_b_out  # Phase X reads it too, then lets it go
         cfg = MaskConfig(GroupType.PRIME, DataType.F32, BoundType.B0, ModelType.M3)
         pair, length, bpn, batch = cfg.pair(), args.length, cfg.bytes_per_number, args.batch
         wires = b["wires"]
         n_up = len(wires)
-        # the 17th update: update 0's v1 wire with its middle element all 0xFF
+        # one more update: update 0's v1 wire with its middle element all 0xFF
         corrupt = bytearray(wires[0])
         at = VECT_HEADER_LENGTH + bpn * (length // 2)
         corrupt[at : at + bpn] = b"\xff" * bpn
@@ -2322,14 +2362,14 @@ class Smoke:
 
     def phase_w_fused(self, objs: list, pair, timings: dict, want: np.ndarray) -> dict:
         """Phase W's fused leg: the v1 wires (B's even updates) and the
-        corrupted 17th as raw element blocks, in two batches (4, then 5
-        with the corrupted one in the middle), through
+        corrupted one as raw element blocks, in two batches (half of them,
+        then the rest with the corrupted one in the middle), through
         ``DeviceAggregator.add_wire_batch`` and through
         ``StreamingAggregator.submit_wire_batch`` + ``drain`` (kernel K6,
         one launch a batch). Checks: both accumulators byte-identical to
-        ``want``, the same 8 accepted updates as Phase B masked them,
-        folded during Phase B (K1 planar); ``ok`` rejects
-        the corrupted one alone and ``nb_models`` is 8; K6 bit for bit
+        ``want``, the accepted updates as Phase B masked them, folded
+        during Phase B (K1 planar); ``ok`` rejects the corrupted one alone
+        and ``nb_models`` counts B's v1 updates; K6 bit for bit
         against ``wire_fold_plain`` at both shapes. Then K6 timed at both
         shapes (CUDA events; the kernel line's time and bound are their
         means, the bound counting one pass over the members' bytes and one
@@ -2375,7 +2415,7 @@ class Smoke:
                    f"(wf2) nb_models {direct.nb_models}, {streamed.nb_models} == {len(evens)}")
         self.check(np.array_equal(direct.snapshot(), want) and np.array_equal(streamed.snapshot(), want),
                    "(wf3) add_wire_batch's and the pipeline's accumulators byte-identical to the "
-                   "fold of the 8 accepted updates as Phase B masked them")  # fmt: skip
+                   f"fold of the {len(evens)} accepted updates as Phase B masked them")  # fmt: skip
         if self.cuda:
             self.check(launches["wire_fold"] == 4 and launches["wire_unpack"] == 0
                        and launches["fold_planar"] == 0,
@@ -2405,7 +2445,8 @@ class Smoke:
                 "device_ms": self.device_ms(lambda: kernels.wire_fold(acc0, staged, order), "wire_"),
             })  # fmt: skip
             del staged, acc0
-        eight = torch.from_numpy(np.stack([blocks[i] for i in evens])).to(self.dev)
+        # 8 valid members (B's v1 blocks, repeated where B has fewer than 8)
+        eight = torch.from_numpy(np.stack(([blocks[i] for i in evens] * 8)[:8])).to(self.dev)
         acc0 = zeros_u32((n_limb, length), self.dev)
         k8 = {"shape": list(eight.shape),
               "bytes": eight.numel() + 8 * n_limb * length + 4 * eight.shape[0],
@@ -2648,8 +2689,8 @@ class Smoke:
 
     def phase_s(self, wires: list) -> dict:
         """(s1) ``SimRound`` on Phase B's first participants (those whose
-        wires ``wires`` holds: main passes half of B's first flush; their
-        seeds and f32 models, scalar 1/16 as B encoded them,
+        wires ``wires`` holds: main passes a quarter of B's first flush; their
+        seeds and f32 models, scalar 1/n as B encoded them,
         one block, ``fuse_mask_sum``) at the main length, against the same
         participants through the round's own path: K1's fold of their masked
         wires as B serialized them (``wires``; lazy parse, K3/K4, K1 on the
@@ -2772,6 +2813,7 @@ class Smoke:
         kw2 = to_device_u32(masking.seed_words(seeds2), self.dev)
         unit_draws_ms = self.time_ms(lambda: kernels.unit_draws(kw2, cfg2.order), 10)
         pps = sorted(p / r for r in runs)
+        self.s2_model = res2.global_model  # Phase S-mesh's reference
         log(f"[phase S] (s2) SimRound {p} participants x {n} params, integer/f32/b0/m6, blocks "
             f"of {block2}: median {pps[1]:.1f} participants/s (min {pps[0]:.1f}, max {pps[2]:.1f}; "
             f"runs {[round(r, 3) for r in runs]} s; warm-up {warm_s:.3f} s); |model - mean| "
@@ -3945,23 +3987,23 @@ class Smoke:
         """(t2) ResNet-50 federated through the port's coordinator:
         ``serve()`` in a thread with no device (CUDA), Phase R's config (the
         shipped mask config, batch 64, packed staging) at the model's
-        length, two rounds of 1 sum, 3 updates and 1 sum2. Every
+        length, one round of 1 sum, 3 updates and 1 sum2 (a second round
+        repeated the first's path and was cut for the script's time). Every
         participant is ``spawn_participant(url, FederatedTrainer, ...)`` on
         the card (no device: CUDA), 64 MiB message parts, roles pinned with
-        ``keys_for_task``; each update trainer takes 2 batches of 32 a
-        round from a copy of ``init`` (t1's ResNet-50, on the CPU); round 2's
-        trainers start from round 1's global model. Once a
-        round's sum2 closes its participants have done their part and are
-        stopped (a participant left running re-draws its role on the next
-        seed and could take a slot). Checks per round: the global model
-        within 3 / exp_shift + 1e-6 of the mean of the three vectors the
-        trainers returned (each within 3, so scalar 1/3 keeps it inside
-        B0's bound), round 2's trainers given round 1's model, the update
-        phase folding on CUDA, and the launches: K1 planar 3 and K2 3 by
-        the time the update phase closes (the participants' masking), then
-        K2 3 more (Sum2) and K1 packed 1 (the flush). Each round runs in a
-        ``torch.profiler`` window (:meth:`traced`), for the card's idle share
-        while participants train, mask and federate."""
+        ``keys_for_task``; each update trainer takes 2 batches of 32 from a
+        copy of ``init`` (t1's ResNet-50, on the CPU). Once the round's sum2
+        closes its participants have done their part and are stopped (a
+        participant left running re-draws its role on the next seed and
+        could take a slot). Checks: the global model within 3 / exp_shift +
+        1e-6 of the mean of the three vectors the trainers returned (each
+        within 3, so scalar 1/3 keeps it inside B0's bound), the trainers
+        starting from their init, the update phase folding on CUDA, and the
+        launches: K1 planar 3 and K2 3 by the time the update phase closes
+        (the participants' masking), then K2 3 more (Sum2) and K1 packed 1
+        (the flush). The round runs in a ``torch.profiler`` window
+        (:meth:`traced`), for the card's idle share while participants
+        train, mask and federate."""
         import copy
         import resource
         import shutil
@@ -4042,7 +4084,7 @@ class Smoke:
         try:
             wait_for(lambda: coordinator_phase(base) == "sum", 120, "the coordinator's sum phase")
             seed, previous = None, None
-            for r in (1, 2):
+            for r in (1,):  # one round: the second repeated the first's path (cut for time)
                 seed = next_round_seed(probe, seed)
                 params = sync(probe.get_round_params())
                 trained.clear(), mask_s.clear(), first_post.clear(), built.clear()
@@ -4086,10 +4128,6 @@ class Smoke:
                 log(f"[phase T] (t2) round {r}: the flush's staging lease page-locked pool slabs "
                     f"for {rounds[-1]['pool_pin_s']:.3f} s ({rounds[-1]['pool_new_slabs']} new "
                     f"slab(s); {rounds[-1]['pool_pinned_bytes']} bytes of the pool locked)")
-                if r == 2 and self.cuda:
-                    self.check(rounds[-1]["pool_pin_s"] == 0.0,
-                               "(t2) round 2's flush pinned no new slab: its staging lease "
-                               "reused the page-locked slab of round 1")
                 rounds[-1]["peak_rss_gib"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
                 log(f"[phase T] (t2) round {r}: peak host RSS of this process so far "
                     f"{rounds[-1]['peak_rss_gib']:.2f} GiB")
@@ -4535,6 +4573,365 @@ class Smoke:
                 "pool_stats_end": stats_end, "onboard": onboarded, "drain": drained,
                 "drain_s": drain_s, "peak_rss_gib": peak_rss_gib, "coordinator_start_s": start_s}
 
+    # -- phase X: several shards on the card (the model-axis mesh) ------------
+
+    def _x_rows(self) -> tuple[list, list]:
+        """Phase B's staged updates from the wires B serialized (no encode,
+        no masking): every update's host wire rows ``uint32[n, L]`` (v1
+        element blocks and v2 byte planes widened to 8 bytes an element),
+        and the even (v1) updates' raw element blocks."""
+        from xaynet_tpu_torch.core.mask.serialization import parse_mask_object
+
+        n = self.args.length
+        rows, raws = [], []
+        for w in self.phase_b_out["wires"]:
+            vect = parse_mask_object(w, lazy_vect=True)[0].vect
+            wide = np.zeros((n, 8), dtype=np.uint8)
+            if vect.planar:
+                for b, plane in enumerate(vect.planar_block):
+                    wide[:, b] = plane
+            else:
+                raw = np.asarray(vect.wire_block)
+                raws.append(raw)
+                wide[:, : raw.size // n] = raw.reshape(n, -1)
+            rows.append(wide.view(np.uint32))
+        return rows, raws
+
+    def _x_round(self, mesh, rows: list, tag: str, timed_legs: bool = False) -> dict:
+        """B's round through a ``StagedAggregator`` on ``mesh``: B's host
+        rows staged and flushed (packed flushes of ``batch``, shard-parallel),
+        ``finalize_inplace(defer_drain=True)`` and ``unmask_array`` with B's
+        mask (the eager per-shard unmask). Returns the model, the walls, the
+        aggregator and the K1 launches by shard."""
+        from xaynet_tpu_torch.core.mask.config import (
+            BoundType, DataType, GroupType, MaskConfig, ModelType,
+        )  # fmt: skip
+        from xaynet_tpu_torch.core.mask.object import MaskObject, MaskUnit, MaskVect
+        from xaynet_tpu_torch.server.aggregation import StagedAggregator
+
+        b = self.phase_b_out
+        pair = MaskConfig(GroupType.PRIME, DataType.F32, BoundType.B0, ModelType.M3).pair()
+        units = b["units"]
+        agg = StagedAggregator(pair, self.args.length, batch_size=self.args.batch, mesh=mesh)
+        dev, stream = agg._device, agg._stream
+        plan = dev.ensure_plan()
+        shard_of = {a.data_ptr(): d for d, a in enumerate(plan.accs)}
+        by_shard = [0] * len(mesh)
+        events = [[] for _ in mesh]  # CUDA events around each shard's K1, on its stream
+        real_fold = dev._packed_fold_fn
+        torch = self.torch
+
+        def counted(acc, staged):
+            d = shard_of[acc.data_ptr()]
+            by_shard[d] += 1
+            if not self.cuda:
+                return real_fold(acc, staged)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            real_fold(acc, staged)
+            end.record()
+            events[d].append((start, end))
+
+        dev._packed_fold_fn = counted
+        walls = {}
+        if timed_legs:  # the drain and the eager legs' collection, inside unmask_array
+            for name in ("drain", "finish_unmask"):
+                real = getattr(stream, name)
+
+                def timed(*a, _real=real, _name=name):
+                    t0 = time.perf_counter()
+                    try:
+                        return _real(*a)
+                    finally:
+                        walls[_name] = walls.get(_name, 0.0) + time.perf_counter() - t0
+
+                setattr(stream, name, timed)
+        t = time.perf_counter()
+        for row, unit in zip(rows, units):
+            obj = MaskObject(MaskVect(pair.vect, row), MaskUnit(pair.unit, unit))
+            agg.validate_aggregation(obj)
+            agg.aggregate(obj)
+        walls["submit"] = time.perf_counter() - t
+        t = time.perf_counter()
+        view = agg.finalize_inplace(defer_drain=True)
+        view.validate_unmasking(b["mask"])
+        model = view.unmask_array(b["mask"])
+        walls["drain_and_unmask"] = time.perf_counter() - t
+        overlap = [w["overlap_ratio"] for w in (stream.last_window or {}).get("shards", [])]
+        self.sync()
+        fold_ms = [[s.elapsed_time(e) for s, e in ev] for ev in events]
+        log(f"[phase X] {tag}: walls {', '.join(f'{k} {v:.3f} s' for k, v in walls.items())}; "
+            f"K1 packed launches by shard {by_shard}, each fold's ms on its stream {fold_ms}; "
+            f"overlap by shard {overlap}")
+        return {"model": model, "walls": walls, "agg": agg, "k1_by_shard": by_shard,
+                "k1_ms_by_shard": fold_ms, "overlap_by_shard": overlap,
+                "degraded": stream.degraded}
+
+    def _x_wire(self, mesh, batches: list, tag: str) -> dict:
+        """B's even (v1) updates as raw element blocks through a 4-shard
+        pipeline (``submit_wire_batch``, K6 on each shard's byte slice), the
+        first batch with the member whose last element is invalid; checks
+        the verdicts and the accumulator against B's even updates."""
+        from xaynet_tpu_torch.parallel.aggregator import DeviceAggregator
+        from xaynet_tpu_torch.parallel.streaming import StreamingAggregator
+
+        b, n = self.phase_b_out, self.args.length
+        agg = DeviceAggregator(b["mask"].vect.config, n, mesh=mesh)
+        stream = StreamingAggregator(agg, max_batch=self.args.batch)
+        plan = agg.ensure_plan()
+        shard_of = {a.data_ptr(): d for d, a in enumerate(plan.accs)}
+        k6_by_shard = [0] * len(mesh)
+        real_wire = agg._wire_fold_fn
+
+        def counted_wire(acc, staged):
+            k6_by_shard[shard_of[acc.data_ptr()]] += 1
+            return real_wire(acc, staged)
+
+        agg._wire_fold_fn = counted_wire
+        t = time.perf_counter()
+        tickets = [stream.submit_wire_batch(batch) for batch in batches]
+        submit_s = time.perf_counter() - t
+        t = time.perf_counter()
+        stream.drain()
+        drain_s = time.perf_counter() - t
+        accepted = [t.accepted.tolist() for t in tickets]
+        half = len(batches[0]) - 1
+        want = [[True] * half + [False], [True] * len(batches[1])]
+        self.check(accepted == want and agg.nb_models == half + len(batches[1]),
+                   f"{tag} the member invalid on the last shard alone rejected on every shard: "
+                   f"{accepted}")  # fmt: skip
+        self.check(np.array_equal(agg.snapshot(), b["evens_vect"]),
+                   f"{tag} the shards' accumulator == B's even updates folded on one shard")
+        degraded = stream.degraded
+        stream.close()
+        log(f"[phase X] {tag} wire leg: submit {submit_s:.3f} s, drain {drain_s:.3f} s; K6 by "
+            f"shard {k6_by_shard}; degraded {degraded}")
+        return {"agg": agg, "k6_by_shard": k6_by_shard, "submit_s": submit_s,
+                "drain_s": drain_s, "degraded": degraded}
+
+    def phase_x(self, walls_b: dict) -> dict:
+        """Phase X (module docstring): B's round on a 4-shard mesh of the
+        card, its wire leg through K6 per shard, the journal's planes, and a
+        shard fault."""
+        torch = self.torch
+        from xaynet_tpu_torch.core.mask.config import (
+            BoundType, DataType, GroupType, MaskConfig, ModelType,
+        )  # fmt: skip
+        from xaynet_tpu_torch.ops import kernels
+        from xaynet_tpu_torch.ops.fold import to_device_u32
+        from xaynet_tpu_torch.parallel.mesh import make_mesh
+        from xaynet_tpu_torch.parallel.streaming import SHARD_OVERLAP
+        from xaynet_tpu_torch.resilience import faults
+        from xaynet_tpu_torch.resilience.checkpoint import RoundCheckpoint
+        from xaynet_tpu_torch.server.aggregation import StagedAggregator
+
+        args, b = self.args, self.phase_b_out
+        cfg = MaskConfig(GroupType.PRIME, DataType.F32, BoundType.B0, ModelType.M3)
+        n, bpn, order = args.length, cfg.bytes_per_number, cfg.order
+        mesh4 = make_mesh([self.dev] * 4)
+        cards = torch.cuda.device_count() if self.cuda else 1
+        log(f"[phase X] {cards} visible card(s); the 4-shard mesh repeats {self.dev}")
+        t = time.perf_counter()
+        rows, raws = self._x_rows()
+        prep_s = time.perf_counter() - t
+        log(f"[phase X] B's {len(rows)} staged updates from its wires (no encode) in {prep_s:.3f} s")
+
+        # (x1) B's flush, packed, shard-parallel; the eager per-shard unmask
+        kernels.reset_launches()
+        x1 = self._x_round(mesh4, rows, "(x1) 4 shards", timed_legs=True)
+        x1_launches = dict(kernels.LAUNCHES)
+        self.check(x1["model"].tobytes() == b["model"].tobytes(),
+                   "(x1) the 4-shard model == Phase B's one-shard model, byte for byte")
+        flushes = -(-args.updates // args.batch)
+        self.check(x1["k1_by_shard"] == [flushes] * 4
+                   and (not self.cuda or x1_launches["fold_packed"] == 4 * flushes),
+                   f"(x1) K1 packed once a shard a flush: {x1['k1_by_shard']}")
+        gauges = [SHARD_OVERLAP.labels(shard=str(d)).value for d in range(4)]
+        # (x2) the journal's planes restore into 1 and 4 shards, byte for byte
+        agg = x1["agg"]
+        snap = agg.snapshot_journal()
+        self.check(snap.planes is not None and len(snap.planes) == 4,
+                   "(x2) the 4-shard journal entry holds one plane per shard")
+        entry = RoundCheckpoint(round_id=1, phase="sum2", round_seed=bytes(32), mask_config=[],
+                                model_length=n, nb_models=snap.nb_models, seed_watermark=0,
+                                vect=np.zeros((0, 0), np.uint32), unit=snap.unit,
+                                planes=snap.planes)  # fmt: skip
+        restored = {}
+        for size in (1, 4):
+            t = time.perf_counter()
+            fresh = StagedAggregator(cfg.pair(), n, batch_size=args.batch, mesh=[self.dev] * size)
+            fresh.restore_journal(entry)
+            vect, unit, nb = fresh.snapshot_state()
+            restored[size] = time.perf_counter() - t
+            self.check(np.array_equal(vect, b["vect"]) and np.array_equal(unit, b["unit"])
+                       and nb == args.updates,
+                       f"(x2) the planes restored into {size} shard(s) == Phase B's accumulator")
+            fresh.close()
+            del fresh, vect
+        agg.close()
+        del agg, x1["agg"]
+
+        # (x3) the wire leg: K6 on each shard's byte slice, one member invalid
+        # in the last shard's slice alone, subtracted back from shards 0-2
+        bad = raws[0].copy()
+        bad[(n - 1) * bpn :] = 0xFF
+        half = len(raws) // 2
+        batches = [np.stack(raws[:half] + [bad]), np.stack(raws[half:])]
+        kernels.reset_launches()
+        x3 = self._x_wire(mesh4, batches, "(x3)")
+        x3_launches = dict(kernels.LAUNCHES)
+        wagg, k6_by_shard = x3["agg"], x3["k6_by_shard"]
+        wire_submit_s, wire_drain_s = x3["submit_s"], x3["drain_s"]
+        plan = wagg.ensure_plan()
+        self.check(k6_by_shard == [2] * 4 and (not self.cuda or (
+                       x3_launches["wire_fold"] == 8 and x3_launches["wire_unfold"] == 3)),
+                   f"(x3) K6 once a shard a batch {k6_by_shard}, its subtract-back on shards 0-2 "
+                   f"({x3_launches['wire_unfold']})")  # fmt: skip
+        # wire_unfold at this shape against its plain version, and timed
+        lo, hi = plan.slices[0]
+        raw0 = torch.from_numpy(np.ascontiguousarray(batches[0][:, lo * bpn : hi * bpn])).to(self.dev)
+        drop = torch.tensor([False] * half + [True], device=self.dev)
+        base = to_device_u32(self.elements(order, 2, (hi - lo,)), self.dev)
+        got = kernels.wire_unfold(base.clone(), raw0, drop, order)
+        want = kernels.wire_unfold_plain(base.clone(), raw0, drop, order)
+        self.compare("wire_unfold", got, want, f"one flagged member of 5 at {hi - lo} elements")
+        acc = base.clone()
+        timing = {"ms": self.time_ms(lambda: kernels.wire_unfold(acc, raw0, drop, order), 10),
+                  "plain_ms": self.time_ms(lambda: kernels.wire_unfold_plain(acc, raw0, drop, order), 2),
+                  # the flagged member's bytes and the accumulator's read and write
+                  "bytes": (hi - lo) * bpn + 2 * 2 * 4 * (hi - lo) + 5,
+                  "shape": [half + 1, (hi - lo) * bpn]}  # fmt: skip
+        del wagg, raw0, base, acc, got, want
+
+        # (x4) a fault on one shard's fold: degrade, then end byte-identical
+        faults.install_plan(faults.FaultPlan.parse("streaming.shard2.fold:error,nth=1"))
+        try:
+            x4 = self._x_wire(mesh4, batches, "(x4) shard 2's first fold faulted:")
+        finally:
+            faults.clear_plan()
+        self.check(x4["degraded"], "(x4) the faulted shard retried and the pipeline degraded")
+        del x4["agg"]
+        walls = dict(x1["walls"])
+        walls.update(wire_submit=wire_submit_s, wire_drain=wire_drain_s)
+        every = None
+        if cards > 1:  # a mesh of every visible card
+            every = self._x_round(make_mesh(), rows, f"(x5) every visible card ({cards})")
+            self.check(every["model"].tobytes() == b["model"].tobytes(),
+                       f"(x5) the model on {cards} cards == Phase B's")
+            every["agg"].close()
+            every = {k: v for k, v in every.items() if k not in ("agg", "model")}
+        del rows, raws, batches
+        log(f"[phase X] checks (x1)-(x4) passed; walls (4 shards): submit {walls['submit']:.3f} s "
+            f"(B's one shard: update_aggregate {walls_b['update_aggregate']:.3f} s), drain "
+            f"{walls.get('drain', 0.0):.3f} s, eager unmask legs "
+            f"{walls.get('finish_unmask', 0.0):.3f} s, drain + unmask + decode "
+            f"{walls['drain_and_unmask']:.3f} s (B's finalize {walls_b['finalize']:.3f} s + "
+            f"unmask_array {walls_b['unmask_array']:.3f} s); wire leg submit "
+            f"{wire_submit_s:.3f} s, drain {wire_drain_s:.3f} s; journal restore seconds "
+            f"{restored}; per-shard overlap gauges {gauges}")
+        log(f"[phase X] launches: (x1) {x1_launches}; (x3) {x3_launches}; K6 by shard "
+            f"{k6_by_shard}; wire_unfold {timing['ms']:.4f} ms (plain {timing['plain_ms']:.4f} ms)")
+        launches = {k: x1_launches[k] + x3_launches[k] for k in x1_launches}
+        self.phase_b_out = None  # B's wires and results: no later phase reads them
+        return {"walls": walls, "launches": launches, "x1_launches": x1_launches,
+                "x3_launches": x3_launches, "k1_by_shard": x1["k1_by_shard"],
+                "k1_ms_by_shard": x1["k1_ms_by_shard"],
+                "k6_by_shard": k6_by_shard, "overlap_by_shard": x1["overlap_by_shard"],
+                "overlap_gauges": gauges, "restore_s": restored, "prep_s": prep_s,
+                "wire_unfold": timing, "fault_walls": {"submit": x4["submit_s"],
+                                                       "drain": x4["drain_s"]}, "cards": cards,
+                "every_card": every}
+
+    # -- phase H: two processes, one card, one gloo group ----------------------
+
+    def phase_h(self) -> dict:
+        """Phase H (module docstring): two ``--h-worker`` processes of this
+        script share the card, form a gloo group, and ingest their halves."""
+        port = free_port()
+        OUT_DIR.mkdir(exist_ok=True)
+        t = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(HERE / "chip_smoke.py"), "--h-worker", str(r), "--h-port",
+             str(port), "--length", str(self.args.length), "--seed", str(self.args.seed),
+             "--device", str(self.dev)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ) for r in range(2)]  # fmt: skip
+        try:
+            outs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t
+        for r, out in enumerate(outs):
+            (OUT_DIR / f"phase_h_rank{r}.log").write_text(out)
+        self.check(all(p.returncode == 0 for p in procs),
+                   f"(h) both workers exit 0 ({[p.returncode for p in procs]}; logs in "
+                   f"chiprun_out/phase_h_rank*.log)")
+        results = [json.loads((OUT_DIR / f"phase_h_rank{r}.json").read_text()) for r in range(2)]
+        self.check(results[0]["ok"] == results[1]["ok"] == [True] * 7 + [False],
+                   f"(h) the acceptance vector is the same on both ranks: {results[0]['ok']}")
+        self.check(results[0]["slice"][1] == results[1]["slice"][0]
+                   and results[1]["slice"][1] == self.args.length,
+                   f"(h) the ranks' slices tile the model: {[r['slice'] for r in results]}")
+        launches = {k: sum(r["launches"][k] for r in results) for k in results[0]["launches"]}
+        if self.cuda:
+            self.check(all(r["launches"]["wire_fold"] == 1 and r["launches"]["fold_planar"] == 1
+                           for r in results)
+                       and results[0]["launches"]["wire_unfold"] == 1
+                       and results[1]["launches"]["wire_unfold"] == 0,
+                       "(h) K6 and K1 planar once a rank; rank 0 took rank 1's rejected member "
+                       f"back ({[r['launches'] for r in results]})")  # fmt: skip
+        log(f"[phase H] 2 processes on one card, gloo: checks passed in {wall:.3f} s; per rank "
+            + "; ".join(f"rank {r['rank']} slice {r['slice']} walls {r['walls']}" for r in results))
+        return {"wall_s": wall, "ranks": results, "launches": launches}
+
+    # -- phase S-mesh: the sim over a participant-axis mesh ----------------------
+
+    def phase_s_mesh(self, sim: dict) -> dict:
+        """Phase S-mesh (module docstring): s2's shape on 2 shards of the card,
+        against Phase S's one-shard model."""
+        from xaynet_tpu_torch.core.mask.config import (
+            BoundType, DataType, GroupType, MaskConfig, ModelType,
+        )  # fmt: skip
+        from xaynet_tpu_torch.ops import kernels
+        from xaynet_tpu_torch.parallel.mesh import make_mesh
+        from xaynet_tpu_torch.sim import SimRound, SimSpec, seeds_for
+
+        cfg2 = MaskConfig(GroupType.INTEGER, DataType.F32, BoundType.B0, ModelType.M6)
+        p, n, block2 = 2048, 1000, 256
+        seeds2 = seeds_for(p, root=42)
+        weights2 = np.random.default_rng(42).uniform(-1, 1, (p, n)).astype(np.float32)
+        sim2 = SimRound(SimSpec(cfg2.pair(), n, block_size=block2), mesh=make_mesh([self.dev] * 2))
+        kernels.reset_launches()
+        t = time.perf_counter()
+        res = sim2.run(seeds2, weights2, scalar=Fraction(1, p))  # warm-up
+        warm_s = time.perf_counter() - t
+        runs = []
+        for _ in range(3):
+            t = time.perf_counter()
+            res = sim2.run(seeds2, weights2, scalar=Fraction(1, p))
+            runs.append(time.perf_counter() - t)
+        launches = dict(kernels.LAUNCHES)
+        self.check(res.global_model.tobytes() == self.s2_model.tobytes(),
+                   f"(s-mesh) the 2-shard sim's model == Phase S's one-shard model ({p} x {n})")
+        blocks = p // block2
+        if self.cuda:
+            self.check(launches["mask_fold_rows"] == 4 * blocks and launches["unit_draws"] == 4 * blocks
+                       and launches["fold_planar"] == 4 * (3 * blocks + 2),
+                       f"(s-mesh) launches over 4 runs: K2 per row and K5 once a block "
+                       f"({launches['mask_fold_rows']}, {launches['unit_draws']}), K1 planar 3 a "
+                       f"block and 2 for the combine ({launches['fold_planar']})")  # fmt: skip
+        pps = sorted(p / r for r in runs)
+        one = sim["s2_participants_per_s"]
+        log(f"[phase S-mesh] SimRound {p} x {n} on 2 shards of the card: median {pps[1]:.1f} "
+            f"participants/s (min {pps[0]:.1f}, max {pps[2]:.1f}; warm-up {warm_s:.3f} s) beside "
+            f"Phase S's one shard median {one['median']:.1f}; launches {launches}")
+        return {"runs_s": runs, "warmup_s": warm_s,
+                "participants_per_s": {"median": pps[1], "min": pps[0], "max": pps[2]},
+                "one_shard_participants_per_s": one, "launches": launches}
+
     def kernel_table(self, timings: dict, launches: dict, paths: dict) -> list[dict]:
         """One row per kernel entry: ``launches`` from its main path's run,
         and beside it the launches of each other path in ``paths``."""
@@ -4556,6 +4953,9 @@ class Smoke:
             "unit_draws": ("xaynet_tpu_torch/csrc/mask_fold.cu", "xaynet_tpu/ops/masking_jax.py:141"),
             # K6: the JAX package's fused wire ingest (XLA, `_make_ingest_fn`)
             "wire_fold": ("xaynet_tpu_torch/csrc/fold.cu", "xaynet_tpu/parallel/aggregator.py:867"),
+            # K6's subtract-back pass alone: the cross-shard verdict, where the
+            # JAX mesh program psums the validity over the model axis
+            "wire_unfold": ("xaynet_tpu_torch/csrc/fold.cu", "xaynet_tpu/parallel/aggregator.py:113"),
         }
         # K2's operations: the xors and rotates of each ChaCha block the
         # data needs, on the ALU pipe
@@ -4633,7 +5033,7 @@ class Smoke:
         """Device time of each kernel (and fill) by name over one call of
         each at the main shapes: K1 packed (8 updates) and planar (1), one
         K2 seed, K2 per row at Phase S's s1 shape (8 rows, one launch), K5
-        over Phase B's Sum2 (16 seeds), in profiler
+        over Phase B's Sum2 (its seeds), in profiler
         windows with CUDA activity only (:meth:`traced`); K3 and K4 are
         profiled at Phase W's launches (:meth:`phase_w_kernels`). The calls
         run twice: launched as the window opens (the window PRs 4-6 read),
@@ -4655,7 +5055,8 @@ class Smoke:
         rows = zeros_u32((k, 2, n), self.dev)
         kws = torch.zeros((k, 8), dtype=torch.int32, device=self.dev).view(torch.uint32)
 
-        unit_kws = torch.zeros((16, 8), dtype=torch.int32, device=self.dev).view(torch.uint32)
+        unit_kws = torch.zeros((self.args.updates, 8), dtype=torch.int32,
+                               device=self.dev).view(torch.uint32)
 
         def work():
             kernels.fold_packed(acc, packed, order)
@@ -4694,18 +5095,100 @@ class Smoke:
         del acc, packed, one, rows, unit_kws
 
 
+def h_worker(args) -> int:
+    """One rank of Phase H (``--h-worker RANK --h-port PORT``): joins the
+    two-process gloo group on 127.0.0.1, folds its half of the model on the
+    card (``parallel.multihost.MultiHostAggregator``, mesh ``[cuda:0]``): a
+    raw wire batch of 8 whose last member has an invalid element in rank
+    1's slice (``add_local_wire_batch``: K6, the verdict all-reduced, the
+    member taken back on rank 0), a planar batch of the 8 updates
+    (``add_local_batch``: K1 planar), then ``unmask_local``. Its slice must
+    equal a numpy oracle (the two limbs as one ``uint64``: the order is
+    below 2^64). The data is seeded numpy, valid group elements, the same
+    on both ranks (``tests/multihost_worker.py``'s way). Writes
+    ``chiprun_out/phase_h_rank<RANK>.json``."""
+    sys.path.insert(0, str(HERE))
+    import torch
+
+    from xaynet_tpu_torch.core.mask.config import (
+        BoundType, DataType, GroupType, MaskConfig, ModelType,
+    )  # fmt: skip
+    from xaynet_tpu_torch.ops import kernels, limbs
+    from xaynet_tpu_torch.parallel.multihost import MultiHostAggregator, initialize
+
+    rank, k = args.h_worker, 8
+    dev = torch.device(args.device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        kernels.build()  # built by the parent: this only finds the libraries
+    walls = {}
+    t = time.perf_counter()
+    initialize(f"127.0.0.1:{args.h_port}", num_processes=2, process_id=rank, timeout_s=300)
+    walls["group"] = time.perf_counter() - t
+    cfg = MaskConfig(GroupType.INTEGER, DataType.F32, BoundType.B0, ModelType.M6)
+    order, n, bpn = cfg.order, args.length, cfg.bytes_per_number
+    assert limbs.n_limbs_for_order(order) == 2 and order < 1 << 64
+    t = time.perf_counter()
+    rng = np.random.default_rng(args.seed + 123)
+    values = rng.integers(0, order, size=(k + 1, n), dtype=np.uint64)  # 8 updates, the mask
+    agg = MultiHostAggregator(cfg, n, mesh=[dev])
+    lo, hi = agg.local_slice
+    mine = np.ascontiguousarray(values[:, lo:hi])
+    del values
+    local = mine[:k].view(np.uint32).reshape(k, hi - lo, 2)  # little-endian limbs
+    mask = mine[k].view(np.uint32).reshape(hi - lo, 2)
+    raw = np.stack([np.frombuffer(limbs.limbs_to_bytes_le(local[i], bpn), np.uint8)
+                    for i in range(k)])  # fmt: skip
+    if hi == n:  # the last member's last element: invalid, in rank 1's slice only
+        raw[k - 1, -bpn:] = 0xFF
+    walls["data"] = time.perf_counter() - t
+    kernels.reset_launches()
+    t = time.perf_counter()
+    ok = agg.add_local_wire_batch(raw)
+    walls["wire_batch"] = time.perf_counter() - t
+    t = time.perf_counter()
+    agg.add_local_batch(local)
+    walls["planar_batch"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out = agg.unmask_local(mask)
+    walls["unmask"] = time.perf_counter() - t
+    launches = dict(kernels.LAUNCHES)
+    t = time.perf_counter()
+    m = np.uint64(order)
+    want = np.zeros(hi - lo, dtype=np.uint64)
+    for x in [*mine[: k - 1], *mine[:k]]:  # the 7 accepted wire members, the 8 planar
+        s = want + x  # both below the order: one wrap at most
+        want = np.where((s < want) | (s >= m), s - m, s)
+    want = np.where(want >= mine[k], want - mine[k], want - mine[k] + m)
+    walls["oracle"] = time.perf_counter() - t
+    checks = {"slice == the numpy oracle": bool(np.array_equal(out.view(np.uint64)[:, 0], want)),
+              "nb_models == 15": agg.nb_models == 2 * k - 1}  # fmt: skip
+    torch.distributed.destroy_process_group()
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / f"phase_h_rank{rank}.json").write_text(json.dumps(
+        {"rank": rank, "slice": [lo, hi], "ok": ok.tolist(), "walls": walls,
+         "launches": launches, "checks": checks}))  # fmt: skip
+    print(f"rank {rank}: slice [{lo}, {hi}), acceptance {ok.tolist()}, checks {checks}, "
+          f"walls {walls}, launches {launches}", flush=True)
+    return 0 if all(checks.values()) else 1
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--length", type=int, default=25_000_000, help="model length")
-    parser.add_argument("--updates", type=int, default=16, help="update participants")
+    parser.add_argument("--updates", type=int, default=8, help="update participants")
     parser.add_argument("--batch", type=int, default=8, help="aggregation batch size")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", default="cuda",
                         help="'cpu' rehearses the control flow with the plain versions "
                              "(no kernels, no result line)")
-    parser.add_argument("--only", choices=("D",), default=None,
-                        help="run one phase alone (Phase D and its tools; no kernel "
-                             "line and no result line)")
+    parser.add_argument("--only", choices=("D", "H"), default=None,
+                        help="run one phase alone (Phase D and its tools, or Phase H; no "
+                             "kernel line and no result line)")
+    # Phase H's workers: this script again, one a rank
+    parser.add_argument("--h-worker", type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--h-port", type=int, default=None, help=argparse.SUPPRESS)
     args = parser.parse_args()
 
     sys.path.insert(0, str(HERE))
@@ -4721,6 +5204,8 @@ def main() -> int:
     if args.device == "cuda" and not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.h_worker is not None:
+        return h_worker(args)
 
     smoke = Smoke(args)
     t0 = time.perf_counter()
@@ -4738,6 +5223,13 @@ def main() -> int:
             log(f"chip_smoke: Phase D alone on {args.device} passed in "
                 f"{time.perf_counter() - t0:.1f} s")
             return 0
+        if args.only == "H":
+            smoke.records.update(hosts=smoke.timed("H", smoke.phase_h),
+                                 seconds=time.perf_counter() - t0)
+            _write_records(smoke.records)
+            log(f"chip_smoke: Phase H alone on {args.device} passed in "
+                f"{time.perf_counter() - t0:.1f} s")
+            return 0
         timed = smoke.timed
         timed("A", smoke.phase_a_fold)
         timed("A", smoke.phase_a_mask_fold)
@@ -4750,10 +5242,14 @@ def main() -> int:
         timed("A", smoke.phase_a_wire_main)
         pipeline = timed("P", smoke.phase_pipeline)
         result = timed("B", smoke.phase_b)
-        first_flush = smoke.phase_b_out["wires"][: args.batch // 2]
+        first_flush = smoke.phase_b_out["wires"][: max(1, args.batch // 4)]
         wire = timed("W", smoke.phase_w, result["walls"], timings)
+        shards = timed("X", smoke.phase_x, result["walls"])
+        timings["wire_unfold"] = shards["wire_unfold"]
+        hosts = timed("H", smoke.phase_h)
         sim = timed("S", smoke.phase_s, first_flush)
         del first_flush
+        sim_mesh = timed("S-mesh", smoke.phase_s_mesh, sim)
         coordinator = timed("R", smoke.phase_r)
         coordinator_wire = timed("R-wire", smoke.phase_r, wire=True)
         durable = timed("D", smoke.phase_d)
@@ -4776,6 +5272,7 @@ def main() -> int:
             smoke.records["profile"] = f"unavailable: {type(exc).__name__}: {exc}"
             log(f"[profile] unavailable: {exc}")
     smoke.records.update(timings=timings, pipeline=pipeline, round=result, wire_round=wire,
+                         shards=shards, hosts=hosts, sim_mesh=sim_mesh,
                          sim=sim, coordinator_round=coordinator,
                          coordinator_round_wire=coordinator_wire, durable_round=durable,
                          loadgen_round=loadgen,
@@ -4791,6 +5288,7 @@ def main() -> int:
     launches = {**result["launches"],
                 **{k: wire["launches"][k] for k in ("wire_unpack", "packed_check")},
                 "wire_fold": wire["fused"]["launches"]["wire_fold"],
+                "wire_unfold": shards["launches"]["wire_unfold"],
                 "mask_fold_rows": sim["launches"]["mask_fold_rows"]}
     loadgen_launches = {k: v + loadgen["driver_launches"].get(k, 0)
                         for k, v in loadgen["launches"].items()}
@@ -4801,6 +5299,10 @@ def main() -> int:
         "launches_durable": {k: v + sum(proc.get(k, 0) for proc in durable["process_launches"])
                              for k, v in durable["launches"].items()},
         "launches_sim": sim["launches"],
+        # this slice's paths: X (4 shards), H (2 processes), S-mesh (2 shards)
+        "launches_shards": shards["launches"],
+        "launches_hosts": hosts["launches"],
+        "launches_sim_mesh": sim_mesh["launches"],
         "launches_loadgen": loadgen_launches,
         "launches_loadgen_shed": {k: v + loadgen_shed["driver_launches"].get(k, 0)
                                   for k, v in loadgen_shed["launches"].items()},
@@ -4834,7 +5336,8 @@ def main() -> int:
 KERNEL_SYMBOLS = {"fold_packed": "fold_packed_kernel", "fold_planar": "fold_planar_kernel",
                   "mask_fold": "mf_mask_fold_kernel", "mask_fold_rows": "mf_mask_fold_rows_kernel",
                   "wire_unpack": "wire_unpack_kernel", "packed_check": "packed_check_kernel",
-                  "unit_draws": "mf_unit_draws_kernel", "wire_fold": "wire_fold_kernel"}
+                  "unit_draws": "mf_unit_draws_kernel", "wire_fold": "wire_fold_kernel",
+                  "wire_unfold": "wire_unfold_kernel"}
 
 
 def trace_complete(trace: dict, launches: dict) -> bool:

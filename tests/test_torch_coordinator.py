@@ -389,13 +389,13 @@ UNSUPPORTED = {
     "kernel-xla": ("aggregation", "kernel", "xla", "Queue 2"),
     "kernel-pallas": ("aggregation", "kernel", "pallas", "Queue 2"),
     "kernel-native": ("aggregation", "kernel", "native-u64", "Queue 2"),
-    "shard-parallel": ("aggregation", "shard_parallel", False, "item 10"),
-    "shard-threads": ("aggregation", "shard_threads", 4, "item 10"),
+    "shard-threads": ("aggregation", "shard_threads", 4, "not ported"),
 }
 # refused until the port had them: the edge tier (item 18), the
-# speculative sum2's knobs (item 9b) and the redis and s3 stores (item 19);
-# now accepted as the JAX package does
+# speculative sum2's knobs (item 9b), the redis and s3 stores (item 19) and
+# the shard-parallel switch (item 10); now accepted as the JAX package does
 ACCEPTED = {
+    "shard-parallel": ("aggregation", "shard_parallel", False),
     "redis": ("storage", "coordinator", "redis"),
     "s3": ("storage", "backend", "s3"),
     "tenancy-edge": ("edge", "enabled", True),

@@ -201,7 +201,7 @@ def test_launch_counters_count_kernel_launches(cuda):
     kernels.mask_fold(acc, kws, [0, 5], 64, order)
     assert kernels.LAUNCHES == {
         "fold_planar": 1, "fold_packed": 0, "mask_fold": 2, "mask_fold_rows": 0, "wire_unpack": 0,
-        "packed_check": 0, "unit_draws": 0, "wire_fold": 0,
+        "packed_check": 0, "unit_draws": 0, "wire_fold": 0, "wire_unfold": 0,
     }
 
 
@@ -1073,3 +1073,109 @@ def test_lora_step_on_card_matches_cpu(card_f32):
         step(adapters, optimizer_fn(adapters), batch)
         out[str(dev)] = lora.quantize_deltas(adapters, 10**6)
     assert np.abs(out["cpu"] - out["cuda"]).max() <= 100  # 1e-4 at scale 1e6: 1% of lr
+
+
+# --- several devices: the mesh and the process group ---------------------------
+
+
+def test_wire_unfold_matches_plain(cuda):
+    """K6's subtract-back pass alone (``kernels.wire_unfold``), held against
+    its plain version: the flagged members taken back, invalid elements
+    taken as 0, nothing launched for an empty flag vector's effect."""
+    order = ORDERS["L2"]
+    n, k, bpn = 4099, 6, limbs.wire_width_for(order)
+    rows = _elements(order, (k, n), 3).transpose(0, 2, 1)
+    raw = np.stack([np.frombuffer(limbs.limbs_to_bytes_le(np.ascontiguousarray(r), bpn), np.uint8)
+                    for r in rows])  # fmt: skip
+    raw[4, :bpn] = 0xFF  # one out-of-range element
+    acc = _elements(order, (n,), 4)
+    drop = torch.tensor([False, True, False, False, True, True])
+    want = kernels.wire_unfold_plain(to_device_u32(acc, "cpu"), torch.from_numpy(raw), drop, order)
+    kernels.reset_launches()
+    got = kernels.wire_unfold(to_device_u32(acc, cuda), torch.from_numpy(raw).to(cuda),
+                              drop.to(cuda), order)  # fmt: skip
+    assert kernels.LAUNCHES["wire_unfold"] == 1
+    assert _same(got.cpu(), want)
+
+
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "planar"])
+def test_four_shard_pipeline_on_card_matches_cpu(cuda, packed):
+    """A mesh of the card repeated 4 times (each shard its own stream,
+    ring and worker): packed or planar batches and a wire batch whose
+    invalid element lies in the last shard's slice fold per shard (K1 and
+    K6 once a shard a batch, K6's subtract-back on the other three), then
+    the eager per-shard unmask; all equal the one-shard CPU pipeline."""
+    cfg = MaskConfig(GroupType.PRIME, DataType.F32, BoundType.B0, ModelType.M3)
+    order, n, bpn = cfg.order, 10_007, cfg.bytes_per_number
+    rows = _elements(order, (9, n), 5).transpose(0, 2, 1)
+    raw = np.stack([np.frombuffer(limbs.limbs_to_bytes_le(np.ascontiguousarray(r), bpn), np.uint8)
+                    for r in rows[6:]])  # fmt: skip
+    raw[1, (n - 1) * bpn :] = 0xFF
+    mask = np.ascontiguousarray(_elements(order, (n,), 6).T)
+    outs = []
+    kernels.reset_launches()
+    for mesh in ([cuda] * 4, ["cpu"]):
+        agg = DeviceAggregator(cfg, n, mesh=mesh)
+        stream = StreamingAggregator(agg, max_batch=3, packed=packed)
+        for i in (0, 3):
+            stream.submit_batch(list(rows[i : i + 3]))
+        ticket = stream.submit_wire_batch(raw)
+        job = stream.stage_unmask(agg.mask_planar(mask))
+        stream.drain()
+        eager = stream.finish_unmask(job) if job is not None else agg.unmask_limbs(mask)
+        outs.append((agg.snapshot(), ticket.accepted.tolist(), agg.nb_models, eager))
+        stream.close()
+    launched = dict(kernels.LAUNCHES)
+    assert launched["fold_packed" if packed else "fold_planar"] == 2 * 4
+    assert launched["wire_fold"] == 4 and launched["wire_unfold"] == 3
+    (card, ok, nb, unmasked), (cpu, ok_cpu, nb_cpu, unmasked_cpu) = outs
+    assert np.array_equal(card, cpu) and ok == ok_cpu == [True, False, True] and nb == nb_cpu == 8
+    assert np.array_equal(unmasked, unmasked_cpu)
+
+
+def test_two_process_group_on_card(cuda, tmp_path):
+    """Two processes share the card (each its own CUDA context), form a gloo
+    group and ingest their halves (``tests/test_torch_multihost.py``'s worker
+    on ``cuda:0``): each slice equals the one-process CPU aggregator's, the
+    verdict the same on both."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from xaynet_tpu_torch.parallel.multihost import MultiHostAggregator
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import test_torch_multihost as mh
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    repo = Path(__file__).resolve().parents[1]
+    env = {**os.environ, "PYTHONPATH": str(repo)}
+    procs = [subprocess.Popen([sys.executable, mh.__file__, str(port), str(r), "2",
+                               str(tmp_path / f"rank{r}.npz"), "cuda:0"], cwd=repo, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]  # fmt: skip
+    try:
+        logs = [p.communicate(timeout=mh.TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    assert all(p.returncode == 0 for p in procs), "\n".join(logs)
+    cfg = MaskConfig(GroupType.INTEGER, DataType.F32, BoundType.B0, ModelType.M6)
+    wire, mask = mh._inputs(cfg.order, limbs.n_limbs_for_order(cfg.order))
+    ref = MultiHostAggregator(cfg, mh.MODEL_LEN, mesh=["cpu"])
+    ref.add_local_batch(wire)
+    unmasked = ref.unmask_local(mask)
+    ref2 = MultiHostAggregator(cfg, mh.MODEL_LEN, mesh=["cpu"])
+    ok = ref2.add_local_wire_batch(mh._raw_with_bad(wire, cfg.bytes_per_number,
+                                                    limbs.limbs_to_bytes_le))  # fmt: skip
+    for r in range(2):
+        got = np.load(tmp_path / f"rank{r}.npz")
+        lo, hi = int(got["lo"]), int(got["hi"])
+        assert np.array_equal(got["unmasked"], unmasked[lo:hi])
+        assert np.array_equal(got["wire_slice"], ref2.snapshot_local()[lo:hi])
+        assert got["ok"].tolist() == ok.tolist() == [True] * mh.K + [False]

@@ -15,7 +15,7 @@ runs as a subprocess on the CPU and refuses without a card;
 ``download_global_model`` reads the model a ``test_drive`` round published
 on the port's coordinator; ``sim_quickstart``'s models equal the JAX
 package's sim for the same population, byte for byte, and its ``--mesh``
-is refused by name.
+(every visible card) refuses to run without one.
 """
 
 from __future__ import annotations
@@ -149,9 +149,10 @@ def test_sim_quickstart_model_equals_the_jax_sim(rounds):
 
 
 def test_sim_quickstart_refuses_the_mesh_by_name(capsys):
+    """``--mesh`` meshes every visible card: without one it refuses, naming
+    CUDA (``tests/test_torch_sim_mesh.py`` runs ``--mesh 2 --device cpu``)."""
+    from xaynet_tpu_torch.device import DeviceUnavailable
     from xaynet_tpu_torch.examples import sim_quickstart
 
-    with pytest.raises(SystemExit) as exit_:
-        sim_quickstart.main(["--mesh", "--device", "cpu"])
-    assert exit_.value.code == 2
-    assert "item 10" in capsys.readouterr().err
+    with pytest.raises(DeviceUnavailable, match="CUDA"):
+        sim_quickstart.main(["--mesh", "-p", "4", "-l", "8"])

@@ -195,6 +195,37 @@ def test_pipeline_on_cpu_device_needs_no_cuda(no_cuda, monkeypatch):
     assert agg.nb_models == 2 and agg.stream is None and pool.balanced(LOCAL_TENANT)
 
 
+def test_mesh_entry_points_default_to_cuda_and_raise_without_it(no_cuda, monkeypatch):
+    """A mesh given no devices spans the visible cards, the coordinator's
+    and the multi-process aggregator's too: without CUDA they raise. A mesh
+    of the CPU device repeated runs the shard-parallel pipeline without
+    reaching the CUDA runtime."""
+    from xaynet_tpu_torch.parallel.mesh import make_mesh, serve_mesh
+    from xaynet_tpu_torch.parallel.multihost import MultiHostAggregator
+
+    for call in (make_mesh, lambda: serve_mesh("cuda"), lambda: make_mesh(["cuda:0"]),
+                 lambda: MultiHostAggregator(PAIR.vect, 8),
+                 lambda: SimRound(SimSpec(PAIR, 8), mesh=["cuda"]),
+                 lambda: StagedAggregator(PAIR, 8, mesh=["cuda"] * 2)):  # fmt: skip
+        with pytest.raises(DeviceUnavailable, match="no CUDA device"):
+            call()
+
+    def no_cudart():
+        raise AssertionError("the CPU path reached the CUDA runtime")
+
+    monkeypatch.setattr(torch.cuda, "cudart", no_cudart)
+    pool = PagePool(page_bytes=4096, slab_pages=4)
+    agg = DeviceAggregator(PAIR.vect, 8, mesh=["cpu"] * 2, tenant="t", pool=pool)
+    stream = StreamingAggregator(agg, max_batch=2, pool=pool)
+    stream.submit_batch(np.zeros((2, 8, agg.n_limbs), np.uint32))
+    stream.drain()
+    assert stream._sharded and pool.pinned_bytes() == 0
+    assert pool.device_pages_by_device() == {"cpu": 2}  # one page per shard's slice
+    stream.close()
+    agg.release_plan_pages()
+    assert agg.nb_models == 2 and pool.balanced(LOCAL_TENANT) and pool.balanced("t")
+
+
 def test_wrappers_refuse_non_cpu_non_cuda_tensors():
     """Only a CPU tensor takes the plain version; anything else must be a
     CUDA tensor for the kernel, or the wrapper raises."""
@@ -217,6 +248,10 @@ _ALONE = sorted(
         "xaynet_tpu_torch.core.mask.serialization",
         "xaynet_tpu_torch.core.mask.object",
         "xaynet_tpu_torch.parallel.aggregator",
+        "xaynet_tpu_torch.parallel.mesh",
+        "xaynet_tpu_torch.parallel.multihost",
+        "xaynet_tpu_torch.parallel.shards",
+        "xaynet_tpu_torch.parallel.streaming",
         "xaynet_tpu_torch.server.aggregation",
         "xaynet_tpu_torch.ops.speculation",
     }
@@ -267,8 +302,9 @@ def imported_alone() -> dict:
 
 @pytest.mark.parametrize("module", _ALONE)
 def test_wire_ingest_modules_import_alone_without_jax(module, imported_alone):
-    """Each module on the wire-ingest path and the coordinator's, every
-    module of the port's ``server``, ``core``, ``storage``, ``telemetry``,
+    """Each module on the wire-ingest path and the coordinator's, the
+    several-device modules (``parallel.mesh``, ``shards``, ``multihost``,
+    ``streaming``), every module of the port's ``server``, ``core``, ``storage``, ``telemetry``,
     ``resilience``, ``utils``, ``sdk``, ``sim``, ``loadgen``, ``models``,
     ``examples``, ``tenancy``, ``ingest`` and ``edge`` among them
     (``server.console`` and ``ops.speculation`` too), imported alone, pulls in neither ``jax``,

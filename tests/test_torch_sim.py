@@ -209,7 +209,7 @@ def test_sim_round_key_words_input_matches_seed_bytes():
 
 
 def test_sim_round_input_validation():
-    """The JAX package's refusals, and the mesh (ROADMAP item 10)."""
+    """The JAX package's refusals, and a mesh without a device."""
     _, pair = _pairs("INTEGER")
     sim = SimRound(SimSpec(pair, 8, block_size=4), device="cpu")
     seeds = seeds_for(3)
@@ -228,8 +228,8 @@ def test_sim_round_input_validation():
         SimSpec(pair, 0)
     with pytest.raises(ValueError):
         SimSpec(pair, 8, block_size=0)
-    with pytest.raises(ValueError, match="ROADMAP item 10"):
-        SimRound(SimSpec(pair, 8), mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="at least one device"):
+        SimRound(SimSpec(pair, 8), mesh=[], device="cpu")
 
 
 def test_sim_round_without_device_raises_where_there_is_no_cuda(monkeypatch):
@@ -293,9 +293,14 @@ def test_oracle_refuses_mask_kernel_routes_by_name(route):
 
 
 def test_oracle_refuses_a_mesh():
+    """A mesh the sim cannot run on is refused: an empty one, and one whose
+    first device is not the oracle's (``tests/test_torch_sim_mesh.py`` runs
+    the mesh leg)."""
     _, port_case = _cases(CASES[0])
-    with pytest.raises(ValueError, match="ROADMAP item 10"):
-        run_sim_round(port_case, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="at least one device"):
+        run_sim_round(port_case, mesh=[], device="cpu")
+    with pytest.raises(ValueError, match="first device"):
+        run_sim_round(port_case, mesh=["cpu"], device="meta")
 
 
 def test_oracle_sim_block_sizes_agree_with_one_production_round():

@@ -3,7 +3,8 @@
 - ``sim_check`` draws the JAX tool's seeded menu, the same combinations in
   the same order; on ``--device cpu`` each production round and sim agree
   byte for byte, and the sim's model equals the JAX package's sim for the
-  same case; the mesh leg is refused by name (item 10).
+  same case; the mesh leg on the CPU wants its size (``--mesh N``: a
+  repeated-device mesh is never implicit).
 - ``loadgen_soak`` runs its headline, ``--identity`` and
   ``--legacy-control`` legs against the port's coordinator CLI at a small
   size: every update lands, the loadgen round is byte-identical to the
@@ -81,10 +82,13 @@ def test_sim_check_on_cpu_matches_the_jax_sim(capsys):
 
 
 def test_sim_check_refuses_the_mesh_by_name(capsys):
+    """``--mesh`` without a size is refused by name: on one card or the CPU
+    the mesh repeats the device, which the tool never does unasked
+    (``tests/test_torch_sim_mesh.py`` runs ``--mesh 2``)."""
     with pytest.raises(SystemExit) as exit_:
         sim_check.main(["--mesh", "--device", "cpu"])
     assert exit_.value.code == 2
-    assert "item 10" in capsys.readouterr().err
+    assert "--mesh" in capsys.readouterr().err
 
 
 def test_loadgen_soak_identity_and_legacy_control_on_cpu(capsys, monkeypatch):

@@ -381,4 +381,31 @@ int xn_wire_fold(const void* raw, void* acc, void* bad, const void* order, int k
   return (int)cudaGetLastError();
 }
 
+// K6's subtract-back pass alone: acc uint32[L, n] (in place) -= every member
+// of raw uint8[K, n*bpn] whose flag in drop uint32[K] is set (its in-range
+// elements: what xn_wire_fold added for it). A sharded or multi-process
+// ingest launches it with the members another shard rejected.
+int xn_wire_unfold(const void* raw, void* acc, const void* drop, const void* order, int k,
+                   int bpn, int n_limb, long long n, int check, void* stream) {
+  if (n <= 0 || k <= 0) return 0;
+  if (k > 65535 || n_limb < 1 || n_limb > kMaxLimbs || bpn < 1 || bpn > 4 * n_limb ||
+      bpn <= 4 * (n_limb - 1))
+    return (int)cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  auto x = static_cast<const uint8_t*>(raw);
+  auto a = static_cast<uint32_t*>(acc);
+  auto b = static_cast<const uint32_t*>(drop);
+  auto o = static_cast<const uint32_t*>(order);
+  const unsigned g = grid_for(n);
+  const unsigned g2 = g < 4096u ? g : 4096u;
+  switch (n_limb) {
+    case 2: wire_unfold_kernel<2><<<g2, kThreads, 0, s>>>(x, a, b, o, k, bpn, n_limb, n, check); break;
+    case 3: wire_unfold_kernel<3><<<g2, kThreads, 0, s>>>(x, a, b, o, k, bpn, n_limb, n, check); break;
+    case 4: wire_unfold_kernel<4><<<g2, kThreads, 0, s>>>(x, a, b, o, k, bpn, n_limb, n, check); break;
+    case 5: wire_unfold_kernel<5><<<g2, kThreads, 0, s>>>(x, a, b, o, k, bpn, n_limb, n, check); break;
+    default: wire_unfold_kernel<0><<<g2, kThreads, 0, s>>>(x, a, b, o, k, bpn, n_limb, n, check);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // extern "C"

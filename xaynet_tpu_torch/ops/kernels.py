@@ -55,7 +55,9 @@ thread): K1 one per batch fold; K2 one per seed and trip for
 keystream candidates; a seed takes one trip except with probability
 < 2^-60, or when a caller shrinks ``chunk_candidates``); K3 and K4 one per
 group of wire updates; K5 one per call; K6 one per batch (its fold pass
-and its subtract-back pass, launched together). The process's registry
+and its subtract-back pass, launched together), and ``wire_unfold`` (K6's
+subtract-back pass alone, for the members another shard or process
+rejected) one per shard slice of a sharded wire batch. The process's registry
 carries the same counts as ``xaynet_kernel_launches_total{kernel}``, so a
 coordinator's launches can be read off its ``GET /metrics``.
 """
@@ -87,6 +89,7 @@ from .fold import (
     p_cond_sub_const,
     p_lt_const,
     p_mod_add,
+    p_mod_sub,
     store_,
     to_device_u32,
     widen,
@@ -108,6 +111,7 @@ LAUNCHES = {
     "packed_check": 0,
     "unit_draws": 0,
     "wire_fold": 0,
+    "wire_unfold": 0,
 }
 _LAUNCHES_LOCK = threading.Lock()
 # the same counts on the process's registry (``GET /metrics``), never reset:
@@ -214,6 +218,8 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.xn_fold_packed.restype = i
         lib.xn_wire_fold.argtypes = [p, p, p, p, i, i, i, ll, i, i, i, p]
         lib.xn_wire_fold.restype = i
+        lib.xn_wire_unfold.argtypes = [p, p, p, p, i, i, i, ll, i, p]
+        lib.xn_wire_unfold.restype = i
     elif name == "mask_fold":
         lib.xn_mask_fold_trip.argtypes = [p, ll, ll, i, i, i, i, p, p, p, ll, ll, p, p, p, p]
         lib.xn_mask_fold_trip.restype = i
@@ -884,3 +890,57 @@ def wire_fold(acc: torch.Tensor, raw: torch.Tensor, order: int) -> tuple[torch.T
     _check(rc, "K6 wire fold", lib)
     _launched("wire_fold")
     return acc, bad == 0
+
+
+def _check_unfold_args(acc: torch.Tensor, raw: torch.Tensor, drop: torch.Tensor,
+                       order: int) -> tuple[int, int]:
+    n_limb, bpn = _check_wire_fold_args(acc, raw, order)
+    if drop.dtype != torch.bool or drop.shape != (raw.shape[0],) or drop.device != acc.device:
+        raise ValueError(f"drop must be bool[{raw.shape[0]}] on {acc.device}")
+    return n_limb, bpn
+
+
+def wire_unfold_plain(acc: torch.Tensor, raw: torch.Tensor, drop: torch.Tensor,
+                      order: int) -> torch.Tensor:
+    """Plain torch of K6's subtract-back pass, any device: ``acc = (acc -
+    x) mod order`` for every member ``x`` of ``raw`` flagged in ``drop``,
+    its elements >= the order taken as 0 (what K6 folded for it), in place."""
+    n_limb, _ = _check_unfold_args(acc, raw, drop, order)
+    planar, _ = wire_unpack_plain(raw, order)
+    for i in torch.nonzero(drop).flatten().tolist():
+        x = widen(planar[i])
+        if order != 1 << (32 * n_limb):
+            x = torch.where(p_lt_const(x, _int_to_limbs_list(order, n_limb))[None, :], x, 0)
+        store_(acc, p_mod_sub(widen(acc), x, order))
+    return acc
+
+
+def wire_unfold(acc: torch.Tensor, raw: torch.Tensor, drop: torch.Tensor,
+                order: int) -> torch.Tensor:
+    """K6's subtract-back pass (``wire_unfold_kernel``) alone: subtract from
+    the planar ``uint32[L, n]`` accumulator, in place, every member of the v1
+    wire blocks ``uint8[K, n*bpn]`` flagged in the device ``bool[K]``
+    ``drop``, as :func:`wire_fold` folded it. A sharded ingest runs K6 on
+    each shard's slice, ORs the shards' verdicts, and takes back here the
+    members a shard folded that another one rejected. The kernel reads
+    ``drop`` on the device and returns at once where no flag is set, so
+    the caller need not fetch it. Returns ``acc``."""
+    n_limb, bpn = _check_unfold_args(acc, raw, drop, order)
+    if acc.device.type == "cpu":
+        return wire_unfold_plain(acc, raw, drop, order)
+    _require_cuda(acc, raw, drop)
+    dev = acc.device
+    k, n = raw.shape[0], acc.shape[1]
+    if k == 0 or n == 0:
+        return acc
+    order_wide, _, _ = _order_buffers(order, n_limb, dev)
+    flags = drop.to(torch.int32)
+    lib = load("fold")
+    with torch.cuda.device(dev):
+        rc = lib.xn_wire_unfold(
+            raw.data_ptr(), acc.data_ptr(), flags.data_ptr(), order_wide.data_ptr(),
+            k, bpn, n_limb, n, int(order != 1 << (32 * n_limb)), _stream(dev),
+        )  # fmt: skip
+    _check(rc, "K6 wire unfold", lib)
+    _launched("wire_unfold")
+    return acc

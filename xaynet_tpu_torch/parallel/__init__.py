@@ -1,1 +1,2 @@
-"""Device-resident aggregation (one device)."""
+"""Device-resident aggregation: one device, a mesh of devices (one shard
+each), or several processes (``multihost``)."""

@@ -78,9 +78,36 @@ read them. It records the spans ``stream.stage``, ``stream.fold`` and
 ``stream.drain``. The drain window's legs are also plain attributes
 (``last_window``).
 
-One device has no shards, so the JAX package's shard plan, per-shard
-workers, per-shard gauges and eager per-shard unmask have no counterpart
-here (ROADMAP item 10), nor have the flight dumps.
+**Shard-parallel mode (meshes of several shards).** On a mesh of D shards
+(``DeviceAggregator(mesh=...)``) the pipeline runs ONE FOLD WORKER PER
+SHARD over the aggregator's shard plan (``shards.ShardPlan``: each shard's
+accumulator on its device, with its own stream). The producer copies each
+shard's columns of a batch on the host into that shard's staging ring (a
+page-locked buffer of ``uint8[K, bpn, width]`` packed planes, ``uint32[K,
+L, width]`` planar ones or ``uint8[K, width * bpn]`` wire bytes: contiguous,
+so no device copy ever gathers a strided column slice), and each shard's
+worker uploads its slice on its shard's stream and folds it there (K1, or
+K6 for wire bytes) while the other shards copy and fold theirs. A batch
+COMMITS (counts toward ``nb_models`` or leaves flight) only when EVERY
+shard folded its slice (``_BatchJob``); the last shard to finish runs the
+commit. A wire batch's commit settles one verdict for every shard
+(``ShardPlan.settle_wire``): a member with an element >= the order on ANY
+shard is taken back, with K6's subtract-back pass, from every shard that
+folded it, as the JAX package's one mesh program leaves it out everywhere;
+its ticket still resolves at ``drain()``, which is the cross-shard barrier.
+The degradation ladder is per shard: a shard's failure before its launch
+retries that shard's slice once on its worker and switches the pipeline to
+the synchronous path (every shard folded in turn on the caller's thread);
+a failure at or after a launch, or a second failure, poisons the pipeline.
+``stage_unmask`` queues the round's unmask behind each shard's last fold,
+so each shard subtracts its slice of the mask as soon as its own folds are
+done (``finish_unmask`` collects them). ``shard_parallel=False`` keeps the
+single FIFO worker, which folds every shard's slice of each batch in turn.
+The per-shard gauges are the JAX package's:
+``xaynet_streaming_shard_{staging_depth,inflight_folds,overlap_ratio}``
+(label ``shard``). A poisoned pipeline takes one flight dump
+(``telemetry.recorder.flight_dump``, trigger ``pipeline-poison``), after
+the poisoning batch's spans have closed.
 """
 
 from __future__ import annotations
@@ -98,6 +125,7 @@ from ..ops import limbs as host_limbs
 from ..ops.fold import MAX_LAZY_BATCH
 from ..resilience.faults import maybe_fail
 from ..telemetry import tracing as trace
+from ..telemetry.recorder import flight_dump
 from ..telemetry.registry import get_registry
 from ..tenancy.pool import LOCAL_TENANT, PagePool, get_pool
 from ..tenancy.scheduler import TenantScheduler, get_scheduler
@@ -107,7 +135,9 @@ logger = logging.getLogger(__name__)
 
 SPAN_STAGE = trace.declare_span("stream.stage")
 SPAN_FOLD = trace.declare_span("stream.fold")
+SPAN_COMMIT = trace.declare_span("stream.commit")
 SPAN_DRAIN = trace.declare_span("stream.drain")
+SPAN_EAGER_UNMASK = trace.declare_span("overlap.eager_unmask")
 
 _registry = get_registry()
 STAGING_DEPTH = _registry.gauge(
@@ -139,6 +169,23 @@ DEGRADATIONS = _registry.counter(
     "xaynet_streaming_degradations_total",
     "Times a streaming pipeline degraded to the synchronous fold path.",
 )
+SHARD_STAGING_DEPTH = _registry.gauge(
+    "xaynet_streaming_shard_staging_depth",
+    "Per-shard staging ring buffers currently owned by in-flight batches "
+    "(shard-parallel pipelines).",
+    ("shard",),
+)
+SHARD_INFLIGHT = _registry.gauge(
+    "xaynet_streaming_shard_inflight_folds",
+    "Per-shard fold items queued to or executing in the shard's worker.",
+    ("shard",),
+)
+SHARD_OVERLAP = _registry.gauge(
+    "xaynet_streaming_shard_overlap_ratio",
+    "Per-shard fraction of the shorter pipeline leg (staging vs folding) "
+    "that ran concurrently with the other leg during the last drain window.",
+    ("shard",),
+)
 
 _SHUTDOWN = object()
 
@@ -161,6 +208,54 @@ class StreamTicket:
         self._ok: torch.Tensor | None = None  # the device vector, until drain
 
 
+class _BatchJob:
+    """Cross-shard accounting for ONE batch in shard-parallel mode: each of
+    the D shard workers folds its slice, and the LAST one to finish
+    (``remaining`` reaching zero under the pipeline lock) commits the
+    batch. ``failed`` is sticky: one shard's loss fails the whole batch (a
+    batch folded on some shards only is no consistent update set; the
+    pipeline is poisoned by then). A wire batch keeps each shard's device
+    byte slice and verdicts (``raws``, ``oks``) until its commit settles
+    them."""
+
+    __slots__ = ("kind", "k", "ticket", "seq", "remaining", "failed", "retried", "raws", "oks")
+
+    def __init__(self, kind: str, k: int, ticket, seq: int, n_shards: int):
+        self.kind = kind
+        self.k = k
+        self.ticket = ticket
+        self.seq = seq
+        self.remaining = n_shards  # guarded-by: the pipeline's _lock
+        self.failed = False  # guarded-by: the pipeline's _lock
+        self.retried = False  # guarded-by: the pipeline's _lock
+        # per shard; each worker writes its own index, the committing
+        # (last) worker reads them all after the counter handoff
+        self.raws: list = [None] * n_shards
+        self.oks: list = [None] * n_shards
+
+
+class _UnmaskJob:
+    """One eager per-shard unmask riding the shard queues: each shard worker
+    subtracts ITS slice of the mask from its own accumulator once its last
+    queued fold is done (queue FIFO orders it behind every fold of the
+    round) and every batch queued before it has committed (``waits``: a
+    wire batch's commit takes members another shard rejected back from
+    this one). Workers write disjoint rows of ``out``; ``error`` is sticky on
+    the first failure and the caller then unmasks at the drain (the
+    subtract writes no accumulator, so a failed leg changes nothing)."""
+
+    __slots__ = ("mask_planar", "out", "remaining", "error", "done", "waits")
+
+    def __init__(self, mask_planar: np.ndarray, out: np.ndarray, n_shards: int, waits: set):
+        self.mask_planar = mask_planar
+        # the batches queued before it: each leg waits for their commits
+        self.waits = waits
+        self.out = out
+        self.remaining = n_shards  # guarded-by: the pipeline's _lock
+        self.error: BaseException | None = None  # guarded-by: the pipeline's _lock
+        self.done = threading.Event()
+
+
 class _UnsafeFoldError(Exception):
     """A fold failed where the accumulator may already hold the batch (K1
     folds in place): no consistent retry exists, the pipeline must poison.
@@ -171,12 +266,6 @@ class _UnsafeFoldError(Exception):
     def __init__(self, settled: bool = False):
         super().__init__()
         self.settled = settled
-
-
-def _release_ring_leases(pool: PagePool, leases: list) -> None:
-    """Module-level so a ring's GC finalizer holds no ring reference."""
-    for lease in leases:
-        pool.release(lease)
 
 
 def _ring_migrator(view) -> None:
@@ -226,8 +315,10 @@ class _StagingRing:
     """
 
     def __init__(self, size: int, shape: tuple, dtype, pin: bool,
-                 pool: PagePool | None = None, tenant: str = LOCAL_TENANT):
+                 pool: PagePool | None = None, tenant: str = LOCAL_TENANT, gauge=None):
         self.size = size
+        # a shard's ring also reports on its shard-labelled gauge
+        self._gauge = gauge
         self._shape, self._dtype, self._pin = tuple(shape), np.dtype(dtype), pin
         self._pool = pool if pool is not None else get_pool()
         self._tenant = tenant
@@ -238,7 +329,7 @@ class _StagingRing:
         self.buffer_rows: list[int] = []  # guarded-by: _lock
         # abandoned pipelines give their pages back when the ring is
         # collected: by then nothing can alias them
-        weakref.finalize(self, _release_ring_leases, self._pool, self._leases)
+        weakref.finalize(self, self._pool.release_soon, self._leases)
         self.nbytes = 0
         self.pin_seconds = 0.0
         self.reused = 0
@@ -271,7 +362,8 @@ class _StagingRing:
         """Release the ring's leases (idempotent; none may still be in
         flight: the pipeline drains and waits for its folds before it
         closes)."""
-        _release_ring_leases(self._pool, self._leases)
+        for lease in self._leases:
+            self._pool.release(lease)
 
     def _free_of(self, rows: int) -> queue_mod.Queue:
         with self._lock:
@@ -295,6 +387,8 @@ class _StagingRing:
         with self._lock:
             self._inflight[id(buf)] = lease
         STAGING_DEPTH.inc()
+        if self._gauge is not None:
+            self._gauge.inc()
         return buf
 
     def release(self, buf: np.ndarray) -> None:
@@ -303,6 +397,8 @@ class _StagingRing:
         if lease is None:
             return
         STAGING_DEPTH.dec()
+        if self._gauge is not None:
+            self._gauge.dec()
         self._pool.set_migrator(lease, _ring_migrator)
         self._free_of(len(buf)).put(lease)
 
@@ -367,6 +463,7 @@ class StreamingAggregator:
         tenant: str = LOCAL_TENANT,
         pool: PagePool | None = None,
         scheduler: TenantScheduler | None = None,
+        shard_parallel: bool | None = None,
     ):
         if staging_buffers < 2:
             raise ValueError("staging_buffers must be >= 2 (no overlap below that)")
@@ -378,6 +475,24 @@ class StreamingAggregator:
         self.staging_buffers = staging_buffers
         self.dispatch_ahead = dispatch_ahead
         self.max_batch = min(max_batch, MAX_LAZY_BATCH)
+        # shard-parallel: one fold worker per mesh shard, on by default
+        # wherever the mesh has more than one (None = auto, as in the JAX
+        # package); False keeps the single worker, which folds every
+        # shard's slice in turn
+        n_dev = agg.n_shards
+        self._sharded = n_dev > 1 and (shard_parallel is None or bool(shard_parallel))
+        self._n_shards = n_dev if self._sharded else 1
+        self._shard_queues: list[queue_mod.Queue] | None = None
+        self._shard_workers: list[threading.Thread | None] = []
+        self._shard_rings: dict[tuple, _StagingRing] = {}  # (shard, kind)  # guarded-by: _lock
+        # per shard (seq, start, end) of each stage and fold leg
+        self._shard_stage_log: list[list] = [[] for _ in range(self._n_shards)]  # guarded-by: _lock
+        self._shard_fold_log: list[list] = [[] for _ in range(self._n_shards)]  # guarded-by: _lock
+        self._flight_dumped = False  # one flight dump per pipeline  # guarded-by: _lock
+        # shard-parallel batches dispatched and not yet committed: an eager
+        # unmask leg waits for those queued before it (a wire batch's commit
+        # may still take a member back from a shard that folded it)
+        self._open_jobs: set[int] = set()  # guarded-by: _lock
         # packed staging (on wherever it shrinks anything): the ring holds
         # byte-planar uint8[K, bpn, n] planes, bpn/(4L) of the planar bytes,
         # and K1's packed variant assembles the limbs inside the fold
@@ -411,6 +526,7 @@ class StreamingAggregator:
         self._closed = False  # guarded-by: _produce_lock
         self._shut = threading.Event()  # set when close() has finished
         self._lock = threading.Lock()
+        self._committed = threading.Condition(self._lock)
         # the drain window's legs: per batch (seq, start, end) on the
         # monotonic clock; stage on the producer, fold on the worker
         self._stage_log: list[tuple] = []
@@ -460,18 +576,22 @@ class StreamingAggregator:
         except StreamingError:
             logger.warning("closing poisoned streaming pipeline")
             # a poisoned drain raised before its barrier: wait out the fold
-            # stream before a copy out of a ring buffer could still be read
-            if self.agg.stream is not None:
-                try:
-                    self.agg.stream.synchronize()
-                except Exception:  # noqa: BLE001 - surfaced through drain already
-                    logger.warning("fold stream failed while closing", exc_info=True)
+            # streams before a copy out of a ring buffer could still be read
+            try:
+                self.agg.sync_folds()
+            except Exception:  # noqa: BLE001 - surfaced through drain already
+                logger.warning("fold stream failed while closing", exc_info=True)
         if self._worker is not None and self._worker.is_alive():
             self._queue.put(_SHUTDOWN)
             self._worker.join(timeout=60.0)
+        for q, w in zip(self._shard_queues or [], self._shard_workers):
+            q.put(_SHUTDOWN)
+            if w is not None and w.is_alive():
+                w.join(timeout=60.0)
         with self._lock:
-            rings = list(self._rings.values())
+            rings = list(self._rings.values()) + list(self._shard_rings.values())
             self._rings.clear()
+            self._shard_rings.clear()
         for ring in rings:
             ring.close()
         self._sched.release_owner(self._sched_owner)
@@ -532,6 +652,18 @@ class StreamingAggregator:
     def _poisoned(self) -> BaseException | None:
         with self._lock:
             return self._error
+
+    def _flight_poison(self) -> None:
+        """ONE flight dump per pipeline, of the span ring that holds the
+        poisoning batch's stage and fold spans (callers run it after those
+        spans have closed)."""
+        with self._lock:
+            if self._flight_dumped or self._error is None:
+                return
+            self._flight_dumped = True
+            cause, seq = self._error, self._poison_seq
+        flight_dump("pipeline-poison", f"batch {seq}: {type(cause).__name__}: {cause}",
+                    batch=seq, tenant=self.tenant)  # fmt: skip
 
     def _poison(self, cause: BaseException, seq: int | None, k: int, settled: bool) -> None:
         """Record the sticky error; the batch leaves flight unless its count
@@ -600,6 +732,7 @@ class StreamingAggregator:
             cause = (e.__cause__ or e) if unsafe else e
             self._poison(cause, seq, k, settled=unsafe and e.settled)
             BATCHES_TOTAL.labels(stage="failed").inc()
+            self._flight_poison()
             raise self._poison_error() from cause
         finally:
             self._slot_release()
@@ -623,16 +756,21 @@ class StreamingAggregator:
                 raise ValueError(f"expected wire rows uint32{list(want)}, got {np.shape(row)}")
         with self._produce_lock:
             self._check(k)
+            if self._sharded:
+                self._submit_sharded_rows(rows, k)
+                return
             kind = "packed" if self._packed else "planar"
             t0 = time.monotonic()
             buf = self._ring(kind).acquire(k)
             view = buf[:k]
+            n = self.agg.model_length
             for i, row in enumerate(rows):
                 if self._packed:
                     # the first bpn wire bytes of each element, straight into the ring
-                    host_limbs.pack_wire(row, self.agg.packed_width, out=view[i])
+                    host_limbs.pack_wire(row, self.agg.packed_width, out=view[i, :, :n])
                 else:
-                    view[i] = np.asarray(row, dtype=np.uint32).T
+                    view[i, :, :n] = np.asarray(row, dtype=np.uint32).T
+            view[:, :, n:] = 0  # the mesh's padding columns
             BYTES_STAGED.labels(layout="packed" if self._packed else "unpacked").inc(view.nbytes)
             self._staged_dispatch(buf, view, kind, k, t0, None)
 
@@ -658,12 +796,16 @@ class StreamingAggregator:
             raise ValueError("empty batch")
         with self._produce_lock:
             self._check(k)
+            ticket = StreamTicket(k)
+            if self._sharded:
+                self._submit_sharded_wire(raw, ticket)
+                return ticket
             t0 = time.monotonic()
             buf = self._ring("wire").acquire(k)
             view = buf[:k]
-            view[:] = raw
+            view[:, : raw.shape[1]] = raw
+            view[:, raw.shape[1] :] = 0  # padding: zero bytes are zero elements
             BYTES_STAGED.labels(layout="wire").inc(view.nbytes)
-            ticket = StreamTicket(k)
             self._staged_dispatch(buf, view, "wire", k, t0, ticket)
         return ticket
 
@@ -697,12 +839,11 @@ class StreamingAggregator:
             self._fold_rows_locked(rows, packed)
 
     def _fold_rows_locked(self, rows: list, packed: bool) -> None:
-        self._queue.join()
+        self._join_all()
         err = self._poisoned()
         if err is not None:
             raise self._poison_error() from err
         agg = self.agg
-        fold = agg._packed_fold_fn if packed else agg._fold_fn
         rows = list(rows)
         while rows:
             piece, rows = rows[:8], rows[8:]
@@ -711,11 +852,9 @@ class StreamingAggregator:
                 with agg.on_stream(*piece):
                     staged = torch.stack(piece)
                     try:
-                        fold(agg.acc, staged)
-                        if agg.stream is not None:
-                            folded = torch.cuda.Event()
-                            folded.record()
-                            folded.synchronize()
+                        # on a mesh each shard folds its columns of the chunk
+                        agg.fold_staged(staged, packed)
+                        agg.sync_folds()
                     except Exception as e:
                         # K1 folds in place: acc may hold part of the chunk
                         self._poison(e, None, 0, settled=True)
@@ -728,14 +867,16 @@ class StreamingAggregator:
 
     # -- fold worker -------------------------------------------------------
 
-    def _upload(self, payload: np.ndarray) -> torch.Tensor:
-        """The staged ring view as a tensor on the device: an asynchronous
-        copy out of the pinned buffer on the current (fold) stream; on the
-        CPU the fold reads the ring view itself."""
+    def _upload(self, payload: np.ndarray, device: torch.device | None = None) -> torch.Tensor:
+        """The staged ring view as a tensor on ``device`` (the aggregator's
+        by default): an asynchronous copy out of the pinned buffer on the
+        current (fold) stream; on the CPU the fold reads the ring view
+        itself."""
+        device = self.agg.device if device is None else device
         u32 = payload.dtype == np.uint32
         t = torch.from_numpy(payload.view(np.int32) if u32 else payload)
-        if self.agg.device.type == "cuda":
-            t = t.to(self.agg.device, non_blocking=True)
+        if device.type == "cuda":
+            t = t.to(device, non_blocking=True)
         return t.view(torch.uint32) if u32 else t
 
     def _credit(self, staged: torch.Tensor, k: int, packed: bool) -> None:
@@ -745,9 +886,8 @@ class StreamingAggregator:
         fold is in place: whatever the seam raises may leave the batch
         (partly) folded, so it is never retried."""
         agg = self.agg
-        fold = agg._packed_fold_fn if packed else agg._fold_fn
         try:
-            fold(agg.acc, staged)
+            agg.fold_staged(staged, packed)
         except Exception as e:
             raise _UnsafeFoldError() from e
         with self._lock:
@@ -763,7 +903,7 @@ class StreamingAggregator:
         credited."""
         agg = self.agg
         try:
-            ok = agg._wire_fold_fn(agg.acc, staged)
+            ok = agg.wire_fold_staged(staged)
         except Exception as e:
             raise _UnsafeFoldError() from e
         # -- acc now holds this batch: no retry beyond this line --
@@ -847,6 +987,10 @@ class StreamingAggregator:
     def _process(self, item: tuple) -> None:
         """Worker-side fold with the degradation ladder: streaming fold ->
         one synchronous retry (pre-launch failures only) -> sticky poison."""
+        if isinstance(item[0], _UnmaskJob):  # an eager unmask leg
+            return self._process_unmask(item)
+        if isinstance(item[0], _BatchJob):  # a shard's slice of a batch
+            return self._process_shard(item)
         buf, payload, kind, k, seq, ticket = item
         t0 = time.monotonic()
         outcome = "folded"
@@ -871,6 +1015,8 @@ class StreamingAggregator:
                 # a failed fold is not folded: staged against folded shows the loss
                 BATCHES_TOTAL.labels(stage=outcome).inc()
                 fold_span.set(outcome=outcome)
+        if outcome == "failed":  # after the batch's span closed
+            self._flight_poison()
 
     # -- drain -------------------------------------------------------------
 
@@ -884,7 +1030,7 @@ class StreamingAggregator:
         deferred wire batches in this window. A poisoned pipeline raises
         here every time, so no aggregate with lost updates escapes as a
         round result."""
-        with trace.get_tracer().span(SPAN_DRAIN):
+        with trace.get_tracer().span(SPAN_DRAIN, sharded=self._sharded):
             return self._drain()
 
     def _drop_pending(self) -> list:
@@ -898,7 +1044,7 @@ class StreamingAggregator:
         return stale
 
     def _drain(self) -> int:
-        self._queue.join()
+        self._join_all()
         err = self._poisoned()
         if err is not None:
             self._drop_pending()
@@ -907,8 +1053,7 @@ class StreamingAggregator:
             pending = list(self._pending)
         accepted = 0
         try:
-            if self.agg.stream is not None:
-                self.agg.stream.synchronize()
+            self.agg.sync_folds()  # every shard's stream, on a mesh
             oks = [t._ok.cpu().numpy() for t in pending]
         except Exception as e:
             # a fold failed on the device: acc may hold part of it
@@ -916,6 +1061,7 @@ class StreamingAggregator:
                 if self._error is None:
                     self._error = e
             self._drop_pending()
+            self._flight_poison()
             raise self._poison_error() from e
         for ticket, ok_host in zip(pending, oks):
             ticket._ok = None
@@ -944,15 +1090,428 @@ class StreamingAggregator:
         with self._lock:
             stage, self._stage_log = self._stage_log, []
             fold, self._fold_log = self._fold_log, []
-        stage_s = sum(e - s for _, s, e in stage)
-        fold_s = sum(e - s for _, s, e in fold)
-        shorter = min(stage_s, fold_s)
-        ratio = max(0.0, min(1.0, (stage_s + fold_s - wall) / shorter)) if shorter > 0 else None
+            shard_logs = list(zip(self._shard_stage_log, self._shard_fold_log))
+            self._shard_stage_log = [[] for _ in range(self._n_shards)]
+            self._shard_fold_log = [[] for _ in range(self._n_shards)]
+
+        def ratio_of(stage_s: float, fold_s: float) -> float | None:
+            shorter = min(stage_s, fold_s)
+            return max(0.0, min(1.0, (stage_s + fold_s - wall) / shorter)) if shorter > 0 else None
+
+        shards = []
+        if self._sharded:
+            for d, (s_log, f_log) in enumerate(shard_logs):
+                s_s = sum(e - b for _, b, e in s_log)
+                f_s = sum(e - b for _, b, e in f_log)
+                ratio = ratio_of(s_s, f_s)
+                if ratio is not None:
+                    SHARD_OVERLAP.labels(shard=str(d)).set(ratio)
+                shards.append({"stage_seconds": s_s, "fold_seconds": f_s, "overlap_ratio": ratio,
+                               "fold": f_log})  # fmt: skip
+            # the producer stages the shards in turn; their workers fold at
+            # once, so each worker's wall counts 1/D toward the fold leg
+            stage_s = sum(sh["stage_seconds"] for sh in shards)
+            fold_s = sum(sh["fold_seconds"] for sh in shards) / self._n_shards
+        else:
+            stage_s = sum(e - b for _, b, e in stage)
+            fold_s = sum(e - b for _, b, e in fold)
+        ratio = ratio_of(stage_s, fold_s)
         if ratio is not None:
             OVERLAP_RATIO.set(ratio)
         self.last_window = {
             "start": self._window_start, "wall_seconds": wall,
             "stage_seconds": stage_s, "fold_seconds": fold_s, "overlap_ratio": ratio,
-            "stage": stage, "fold": fold,
+            "stage": stage, "fold": fold, "shards": shards,
         }  # fmt: skip
         self._window_start = None
+
+    # -- shard-parallel mode ---------------------------------------------------
+    #
+    # One fold worker per mesh shard. The producer copies each shard's
+    # columns of a batch into that shard's ring; a batch commits only when
+    # every shard folded its slice (_BatchJob); drain() is the cross-shard
+    # barrier.
+
+    @property
+    def _plan(self):
+        return self.agg.ensure_plan()
+
+    def _join_all(self) -> None:
+        """Wait until every queued item (the single worker's and every
+        shard worker's) has been processed."""
+        self._queue.join()
+        for q in self._shard_queues or []:
+            q.join()
+
+    def _shard_ring(self, d: int, kind: str) -> _StagingRing:
+        with self._lock:
+            ring = self._shard_rings.get((d, kind))
+            if ring is None:
+                agg = self.agg
+                width = agg.padded_length // self._n_shards
+                if kind == "planar":
+                    shape, dtype = (self.max_batch, agg.n_limbs, width), np.uint32
+                elif kind == "wire":  # the shard's element-aligned byte slice
+                    shape, dtype = (self.max_batch, width * agg.packed_width), np.uint8
+                else:
+                    shape, dtype = (self.max_batch, agg.packed_width, width), np.uint8
+                ring = self._shard_rings[(d, kind)] = _StagingRing(
+                    self.staging_buffers, shape, dtype, pin=agg.mesh[d].type == "cuda",
+                    pool=self._pool, tenant=self.tenant,
+                    gauge=SHARD_STAGING_DEPTH.labels(shard=str(d)),
+                )  # fmt: skip
+            return ring
+
+    def _ensure_shard_workers(self) -> None:
+        if self._shard_queues is None:
+            self._shard_queues = [
+                queue_mod.Queue(maxsize=self.dispatch_ahead) for _ in range(self._n_shards)
+            ]
+            self._shard_workers = [None] * self._n_shards
+            for q in self._shard_queues:
+                # wake the worker if this pipeline is dropped without close()
+                weakref.finalize(self, q.put, _SHUTDOWN)
+        for d, q in enumerate(self._shard_queues):
+            w = self._shard_workers[d]
+            if w is None or not w.is_alive():
+                w = threading.Thread(target=_worker_main, args=(weakref.ref(self), q),
+                                     name=f"xn-stream-fold-{d}", daemon=True)  # fmt: skip
+                self._shard_workers[d] = w
+                w.start()
+
+    def _poison_first(self, cause: BaseException, seq: int | None) -> None:
+        """Record the sticky error unless one is recorded already."""
+        with self._lock:
+            if self._error is None:
+                self._error = cause
+                self._poison_seq = seq
+
+    def _stage_shards(self, kind: str, k: int, fill) -> tuple[_BatchJob, list]:
+        """Copy one batch into every shard's ring: ``fill(d, lo, hi, view)``
+        writes shard ``d``'s columns ``[lo, hi)`` of the padded axis into its
+        ring view. Returns the batch's job and its per-shard items."""
+        plan = self._plan
+        self._batch_seq += 1
+        job = _BatchJob(kind, k, None, self._batch_seq, self._n_shards)
+        items = []
+        layout = {"planar": "unpacked", "packed": "packed", "wire": "wire"}[kind]
+        for d, (lo, hi) in enumerate(plan.slices):
+            t0 = time.monotonic()
+            ring = self._shard_ring(d, kind)
+            buf = ring.acquire(k)
+            view = buf[:k]
+            fill(d, lo, hi, view)
+            BYTES_STAGED.labels(layout=layout).inc(view.nbytes)
+            t1 = time.monotonic()
+            with self._lock:
+                self._shard_stage_log[d].append((job.seq, t0, t1))
+            trace.get_tracer().record_span(SPAN_STAGE, start=t0, duration=t1 - t0,
+                                           batch=job.seq, shard=d, kind=kind, k=k)  # fmt: skip
+            items.append((job, d, view, ring, buf))
+        return job, items
+
+    def _submit_sharded_rows(self, rows, k: int) -> None:
+        """Each shard's columns of the wire rows, packed (or transposed)
+        straight into its ring, then one item per shard worker."""
+        n, bpn, packed = self.agg.model_length, self.agg.packed_width, self._packed
+
+        def fill(d, lo, hi, view):
+            real = max(0, min(hi, n) - lo)
+            for i, row in enumerate(rows):
+                part = np.asarray(row, dtype=np.uint32)[lo : lo + real]
+                if packed:
+                    host_limbs.pack_wire(part, bpn, out=view[i, :, :real])
+                else:
+                    view[i, :, :real] = part.T
+            view[:, :, real:] = 0  # padding columns
+
+        job, items = self._stage_shards("packed" if packed else "planar", k, fill)
+        self._dispatch_sharded(job, items)
+
+    def _submit_sharded_wire(self, raw: np.ndarray, ticket: StreamTicket) -> None:
+        """Each shard's element-aligned byte slice of the raw blocks into its
+        wire ring, then one item per shard worker (K6 there)."""
+        n, bpn = self.agg.model_length, self.agg.packed_width
+
+        def fill(d, lo, hi, view):
+            real = max(0, min(hi, n) - lo)
+            view[:, : real * bpn] = raw[:, lo * bpn : (lo + real) * bpn]
+            view[:, real * bpn :] = 0  # zero bytes are zero elements
+
+        job, items = self._stage_shards("wire", raw.shape[0], fill)
+        job.ticket = ticket
+        self._dispatch_sharded(job, items)
+
+    def _dispatch_sharded(self, job: _BatchJob, items: list) -> None:
+        """Queue one item per shard worker, or, once degraded, fold every
+        shard on the caller's thread after a full queue barrier (same math,
+        no overlap; the batch still commits once, whole)."""
+        self._slot_acquire()  # one slot per BATCH; its commit releases it
+        with self._lock:
+            self._in_flight_models += job.k
+            degraded = self._degraded
+        BATCHES_TOTAL.labels(stage="staged").inc()
+        if not degraded:
+            self._ensure_shard_workers()
+            INFLIGHT_FOLDS.inc()
+            with self._lock:
+                self._open_jobs.add(job.seq)
+            for item in items:
+                SHARD_INFLIGHT.labels(shard=str(item[1])).inc()
+                self._shard_queues[item[1]].put(item)
+            return
+        t0 = time.monotonic()
+        try:
+            self._join_all()
+            err = self._poisoned()
+            if err is not None:
+                raise self._poison_error() from err
+            for jb, d, view, ring, buf in items:
+                self._fold_shard_item(jb, d, view)
+            if job.kind == "wire":
+                try:
+                    ok = self._plan.settle_wire(job.raws, job.oks).numpy()
+                except Exception as e:
+                    raise _UnsafeFoldError() from e
+                job.ticket.accepted = ok
+                credit = int(ok.sum())
+            else:
+                credit = job.k
+            with self._lock:
+                self.agg.nb_models += credit
+                self._in_flight_models -= job.k
+        except StreamingError:
+            with self._lock:
+                self._in_flight_models -= job.k
+            BATCHES_TOTAL.labels(stage="failed").inc()
+            raise
+        except Exception as e:
+            cause = (e.__cause__ or e) if isinstance(e, _UnsafeFoldError) else e
+            self._poison_first(cause, job.seq)
+            with self._lock:
+                self._in_flight_models -= job.k
+            BATCHES_TOTAL.labels(stage="failed").inc()
+            self._flight_poison()
+            raise self._poison_error() from cause
+        finally:
+            job.raws = job.oks = None
+            self._slot_release()
+            for _jb, d, _view, ring, buf in items:
+                ring.release(buf)
+            with self._lock:
+                self._fold_log.append((job.seq, t0, time.monotonic()))
+        BATCHES_TOTAL.labels(stage="folded").inc()
+
+    def _fold_shard_item(self, job: _BatchJob, d: int, view: np.ndarray) -> None:
+        """Upload shard ``d``'s slice of one batch on its stream and fold it
+        (K1 planar or packed, or K6 for wire bytes, whose device slice and
+        verdicts stay on the job for its commit). Returns once the fold has
+        completed (or, if it never launched, once the copy out of the ring
+        buffer has), so the buffer may be reused. A failure before the
+        launch leaves the shard untouched (retry-safe); one at or after it
+        raises ``_UnsafeFoldError``."""
+        plan = self._plan
+        with plan.on_stream(d):
+            staged = self._upload(view, plan.devices[d])
+            copied = None
+            if plan.streams[d] is not None:
+                copied = torch.cuda.Event()
+                copied.record()
+            settled = False
+            try:
+                try:
+                    if job.kind == "wire":
+                        job.oks[d] = plan.wire_fold(d, staged)
+                        # read again by the commit; on the CPU ``staged`` is
+                        # the ring buffer itself, which goes back before that
+                        job.raws[d] = staged if staged.is_cuda else staged.clone()
+                    else:
+                        plan.fold(d, staged, packed=job.kind == "packed")
+                except Exception as e:
+                    raise _UnsafeFoldError() from e
+                settled = True
+            finally:
+                del staged
+                if copied is not None:
+                    done = copied
+                    if settled:
+                        done = torch.cuda.Event()
+                        done.record()
+                    try:
+                        done.synchronize()
+                    except Exception as e:
+                        raise _UnsafeFoldError() from e
+
+    def _retry_shard(self, job: _BatchJob, d: int, view, first: BaseException) -> bool:
+        """The per-shard leg of the ladder: shard ``d``'s slice failed before
+        its launch, so its accumulator is untouched; retry that slice once
+        on this worker (the other shards fold theirs as usual: the commit
+        keeps the accounting whole) and switch the pipeline to the
+        synchronous path. A second failure loses the batch and poisons."""
+        logger.warning(
+            "streaming shard %d fold failed at batch %d (%s: %s); retrying on this "
+            "shard and degrading the pipeline", d, job.seq, type(first).__name__, first,
+        )  # fmt: skip
+        with self._lock:
+            self._degraded = True
+            job.retried = True
+        DEGRADED.set(1)
+        DEGRADATIONS.inc()
+        try:
+            self._fold_shard_item(job, d, view)
+            return True
+        except Exception as second:
+            unsafe = isinstance(second, _UnsafeFoldError)
+            cause = (second.__cause__ or second) if unsafe else second
+            cause.__context__ = first
+            self._poison_first(cause, job.seq)
+            logger.exception("streaming shard %d lost batch %d; pipeline poisoned", d, job.seq)
+            return False
+
+    def _process_shard(self, item: tuple) -> None:
+        """One shard worker's fold of its slice of one batch, with the
+        per-shard ladder and the cross-shard commit."""
+        job, d, view, ring, buf = item
+        t0 = time.monotonic()
+        failed = False
+        try:
+            with trace.get_tracer().span(SPAN_FOLD, batch=job.seq, shard=d, kind=job.kind,
+                                         k=job.k) as fold_span:  # fmt: skip
+                try:
+                    if self._poisoned() is not None:
+                        failed = True  # the pipeline is lost: drop the slice
+                        return
+                    try:
+                        maybe_fail("streaming.fold")
+                        maybe_fail(f"streaming.shard{d}.fold")
+                        self._fold_shard_item(job, d, view)
+                    except _UnsafeFoldError as e:
+                        self._poison_first(e.__cause__ or e, job.seq)
+                        failed = True
+                        logger.exception("streaming shard %d fold of batch %d failed at or "
+                                         "after launch; pipeline poisoned", d, job.seq)
+                    except Exception as first:
+                        failed = not self._retry_shard(job, d, view, first)
+                finally:
+                    ring.release(buf)
+                    with self._lock:
+                        self._shard_fold_log[d].append((job.seq, t0, time.monotonic()))
+                    SHARD_INFLIGHT.labels(shard=str(d)).dec()
+                    fold_span.set(outcome="failed" if failed else "folded")
+        finally:
+            # after this shard's span closed: a flight dump from the commit
+            # then holds every shard span of the batch
+            self._shard_job_done(job, failed)
+
+    def _shard_job_done(self, job: _BatchJob, failed: bool) -> None:
+        """The per-batch commit: the LAST shard to finish settles it. A
+        planar or packed batch credits ``nb_models``; a wire batch settles
+        its one verdict across the shards (``ShardPlan.settle_wire``) and
+        leaves it on the ticket for the drain. A failed batch just leaves
+        flight."""
+        with self._lock:
+            if failed:
+                job.failed = True
+            job.remaining -= 1
+            last = job.remaining == 0
+        if not last:
+            return
+        # the counter handed the job to this worker alone
+        if not job.failed:
+            try:
+                if job.kind == "wire":
+                    job.ticket._ok = self._plan.settle_wire(job.raws, job.oks)
+                    with self._lock:
+                        self._pending.append(job.ticket)  # the drain owns its count
+                else:
+                    with self._lock:
+                        self.agg.nb_models += job.k
+                        self._in_flight_models -= job.k
+            except Exception as e:
+                self._poison_first(e, job.seq)
+                job.failed = True
+                logger.exception("streaming batch %d failed at its commit; pipeline "
+                                 "poisoned", job.seq)  # fmt: skip
+        with self._lock:
+            if job.failed:
+                self._in_flight_models -= job.k
+            self._open_jobs.discard(job.seq)
+            self._committed.notify_all()
+        job.raws = job.oks = None
+        self._slot_release()
+        INFLIGHT_FOLDS.dec()
+        outcome = "failed" if job.failed else ("folded-degraded" if job.retried else "folded")
+        trace.get_tracer().record_span(SPAN_COMMIT, start=time.monotonic(), duration=0.0,
+                                       batch=job.seq, outcome=outcome)  # fmt: skip
+        BATCHES_TOTAL.labels(stage=outcome).inc()
+        if job.failed:
+            self._flight_poison()
+
+    # -- eager per-shard unmask ----------------------------------------------
+
+    def stage_unmask(self, mask_planar: np.ndarray) -> _UnmaskJob | None:
+        """Queue the round's unmask as one leg per shard, behind the shard's
+        queued folds: each shard subtracts its slice of the padded planar
+        mask (``DeviceAggregator.mask_planar``) as soon as its own folds are
+        done, instead of after the global drain and then a separate pass.
+        None where the pipeline cannot (not shard-parallel, degraded,
+        poisoned or closed): the caller unmasks after the drain. The job
+        settles in :meth:`finish_unmask`."""
+        with self._lock:
+            eligible = (self._sharded and not self._degraded and self._error is None
+                        and not self._closed)  # fmt: skip
+        if not eligible:
+            return None
+        agg = self.agg
+        with self._lock:
+            waits = set(self._open_jobs)
+        job = _UnmaskJob(mask_planar, np.empty((agg.model_length, agg.n_limbs), np.uint32),
+                         self._n_shards, waits)  # fmt: skip
+        self.agg.ensure_plan()  # the plan exists before any leg reads it
+        self._ensure_shard_workers()
+        for d, q in enumerate(self._shard_queues):
+            q.put((job, d))
+        return job
+
+    def _process_unmask(self, item: tuple) -> None:
+        """One shard worker's unmask leg, behind its last fold (queue FIFO),
+        recorded as an ``overlap.eager_unmask`` span."""
+        job, d = item
+        try:
+            # this shard's folds are done (queue FIFO); the batches may not
+            # have committed yet: a wire batch's commit can still take a
+            # rejected member back from this shard
+            with self._committed:
+                self._committed.wait_for(lambda: not (job.waits & self._open_jobs))
+            t0 = time.monotonic()
+            err = self._poisoned()
+            if err is not None:
+                raise StreamingError("eager unmask skipped: the pipeline is poisoned") from err
+            self.agg.unmask_shard(self._plan, d, job.mask_planar, job.out)
+            trace.get_tracer().record_span(SPAN_EAGER_UNMASK, start=t0,
+                                           duration=time.monotonic() - t0, phase="unmask",
+                                           shard=d, tenant=self.tenant)  # fmt: skip
+        except Exception as e:
+            with self._lock:
+                if job.error is None:
+                    job.error = e
+        finally:
+            with self._lock:
+                job.remaining -= 1
+                last = job.remaining == 0
+            if last:
+                job.done.set()
+
+    def finish_unmask(self, job: _UnmaskJob) -> np.ndarray | None:
+        """Wait for every shard's unmask leg (most of them ran behind the
+        folds already) and return the unmasked host wire ``uint32[model_len,
+        L]``, or None if a leg failed (the caller unmasks after the drain,
+        with the same result)."""
+        job.done.wait()
+        with self._lock:
+            err = job.error
+        if err is not None:
+            logger.warning("eager unmask fell back to the drain-time pass: %s: %s",
+                           type(err).__name__, err)  # fmt: skip
+            return None
+        return job.out

@@ -39,7 +39,13 @@ the accumulator's CUDA device current first.
 
 ``build_staged_aggregator(shared)`` is the one way a phase builds the
 round's aggregator from settings, on the device the runner resolved
-(``Shared.device``).
+(``Shared.device``): ``cuda`` meshes every visible card
+(``parallel.mesh.serve_mesh``), one shard per card. On a mesh of several
+shards the pipeline folds shard-parallel unless ``[aggregation]
+shard_parallel = false``, the Unmask subtracts each shard's slice of the
+mask as soon as that shard's folds are done (``_eager_unmask``), and the
+journal carries one plane per shard (``snapshot_journal``,
+``restore_journal``). One card folds as a one-shard mesh, as before.
 """
 
 from __future__ import annotations
@@ -66,6 +72,7 @@ from ..core.mask.model import Model
 from ..core.mask.object import LazyWireMaskVect, MaskObject, MaskUnit, MaskVect
 from ..ops import limbs as limb_ops
 from ..parallel.aggregator import DeviceAggregator
+from ..parallel.mesh import serve_mesh
 from ..parallel.streaming import StreamingAggregator
 from ..resilience.checkpoint import AggSnapshot
 from ..tenancy.pool import LOCAL_TENANT
@@ -87,7 +94,8 @@ def build_staged_aggregator(shared) -> "StagedAggregator":
         packed_staging=settings.aggregation.packed_staging,
         dispatch_ahead=settings.aggregation.dispatch_ahead,
         staging_buffers=settings.aggregation.staging_buffers,
-        device=shared.device,
+        mesh=serve_mesh(shared.device),
+        shard_parallel=settings.aggregation.shard_parallel,
         tenant=shared.tenant,
     )
     # the round's live aggregator: Idle and a tenant's teardown close it
@@ -122,9 +130,10 @@ class DeviceAggregation(Aggregation):
 
     With ``stream`` (``StagedAggregator.finalize_inplace(defer_drain=True)``)
     the pipeline rides into Unmask still open, and folds may still be in
-    flight: ``nb_models`` reads the count atomically with the fold worker,
-    and the unmask drains first. One device has no eager per-shard unmask,
-    so the unmask drains, closes the pipeline, then subtracts.
+    flight: ``nb_models`` reads the count atomically with the fold workers.
+    On a shard-parallel mesh the unmask is staged per shard behind the
+    last folds (:meth:`_eager_unmask`); otherwise it drains, closes the
+    pipeline, then subtracts.
     """
 
     def __init__(self, config: MaskConfigPair, object_size: int, device: DeviceAggregator,
@@ -185,15 +194,27 @@ class DeviceAggregation(Aggregation):
             stream.close()
             self._nb_models = self._device.nb_models
 
+    def _eager_unmask(self, mask_obj: MaskObject) -> np.ndarray | None:
+        """The eager per-shard unmask: the subtract is queued as one leg per
+        shard BEHIND the round's last folds, so each shard unmasks as soon as
+        its own folds are done, instead of after the drain and then a
+        separate pass. None where the pipeline cannot (one shard, degraded,
+        a failed leg): the caller subtracts after the drain, with the same
+        result (a leg writes no accumulator)."""
+        stream = self._stream
+        job = stream.stage_unmask(self._device.mask_planar(mask_obj.vect.data))
+        try:
+            # fold errors surface here, as they would have at the drain
+            stream.drain()
+            return stream.finish_unmask(job) if job is not None else None
+        finally:
+            self._settle_stream()
+
     @_on_device
     def _unmasked_limbs(self, mask_obj: MaskObject) -> tuple[np.ndarray, int]:
-        if self._stream is not None:
-            try:
-                # fold errors surface here, as they would have at the drain
-                self._stream.drain()
-            finally:
-                self._settle_stream()
-        n_vect = self._device.unmask_limbs(mask_obj.vect.data)
+        n_vect = self._eager_unmask(mask_obj) if self._stream is not None else None
+        if n_vect is None:
+            n_vect = self._device.unmask_limbs(mask_obj.vect.data)
         ol_u = limb_ops.order_limbs_for(self._config.unit.order)
         n_unit = limb_ops.mod_sub(
             self._unit_acc[None, :], np.asarray(mask_obj.unit.data)[None, :], ol_u
@@ -229,7 +250,10 @@ class StagedAggregator:
     depths, as ``[aggregation]`` sets them). ``tenant`` labels the round's
     page leases (the accumulator on the pool's device ledger, the staging
     ring's host pages) and its scheduler slots; the default,
-    ``LOCAL_TENANT``, is no coordinator's."""
+    ``LOCAL_TENANT``, is no coordinator's. ``mesh`` (a tuple of devices,
+    ``parallel.mesh``) folds over one shard per entry instead of on
+    ``device``; ``shard_parallel`` picks the pipeline's worker per shard
+    there (the default) or its one worker."""
 
     def __init__(
         self,
@@ -241,6 +265,8 @@ class StagedAggregator:
         staging_buffers: int = 3,
         device=None,
         tenant: str = LOCAL_TENANT,
+        mesh=None,
+        shard_parallel: bool = True,
     ):
         self.config = config
         self.object_size = object_size
@@ -250,7 +276,8 @@ class StagedAggregator:
         # wire ingest (planar uint32[L, model_len], packed uint8[bpn, model_len])
         self._staged_vect: list = []
         self._staged_unit: list[np.ndarray] = []
-        self._device = DeviceAggregator(config.vect, object_size, device=device, tenant=tenant)
+        self._device = DeviceAggregator(config.vect, object_size, device=device, tenant=tenant,
+                                        mesh=mesh)
         # flush() submits micro-batches here; drain()/finalize() sync
         self._stream = StreamingAggregator(
             self._device,
@@ -259,6 +286,7 @@ class StagedAggregator:
             max_batch=self.batch_size,
             packed=packed_staging,
             tenant=tenant,
+            shard_parallel=shard_parallel,
         )
         # the tiny unit part stays on the host
         self._unit_acc = np.zeros(limb_ops.n_limbs_for_order(config.unit.order), dtype=np.uint32)
@@ -459,36 +487,57 @@ class StagedAggregator:
         self.drain()
         return self._device.snapshot(), np.array(self._unit_acc), self._device.nb_models
 
+    @_on_device
     def snapshot_journal(self) -> AggSnapshot:
-        """Exact host copy of the aggregate for a journal entry, in wire
-        layout (one device: no per-shard planes). Drains first."""
-        vect, unit, nb_models = self.snapshot_state()
-        return AggSnapshot(nb_models=nb_models, unit=unit, vect=vect)
+        """Exact host copy of the aggregate for a journal entry. Drains
+        first; then, on a mesh of several shards, reads the accumulator
+        shard by shard (one padded planar plane per shard,
+        ``DeviceAggregator.snapshot_shards``) instead of reassembling it;
+        on one shard, in wire layout."""
+        self.drain()
+        planes = self._device.snapshot_shards()
+        if planes is None:
+            vect, unit, nb_models = self.snapshot_state()
+            return AggSnapshot(nb_models=nb_models, unit=unit, vect=vect)
+        return AggSnapshot(nb_models=self._device.nb_models, unit=np.array(self._unit_acc),
+                           planes=planes)  # fmt: skip
 
     def restore_journal(self, ckpt) -> None:
         """Restore a journal entry (``RoundCheckpoint``) into an EMPTY
-        aggregator. An entry the JAX package wrote shard by shard (per-shard
-        ``planes``) is joined into the one accumulator
-        (``RoundCheckpoint.wire_vect``). An empty entry (``nb_models == 0``:
-        the sealed-sum-dict entry of the Sum -> Update transition) restores
-        to the zero accumulator the constructor built."""
+        aggregator. Per-shard ``planes`` restore shard by shard where they
+        are this mesh's slices, else joined on the host and cut at the
+        model length (``DeviceAggregator.restore_shards``), so a journal of
+        any mesh size restores on any other; a wire entry through
+        :meth:`restore_state`. An empty entry (``nb_models == 0``: the
+        sealed-sum-dict entry of the Sum -> Update transition) restores to
+        the zero accumulator the constructor built."""
         if ckpt.nb_models == 0:
+            return
+        if ckpt.planes:
+            self._restore(lambda: self._device.restore_shards(ckpt.planes, ckpt.nb_models),
+                          ckpt.wire_vect(), ckpt.unit, ckpt.nb_models)  # fmt: skip
             return
         self.restore_state(ckpt.wire_vect(), ckpt.unit, ckpt.nb_models)
 
-    @_on_device
     def restore_state(self, vect: np.ndarray, unit: np.ndarray, nb_models: int) -> None:
-        """Restore a snapshot into an EMPTY aggregator (resume). The
-        accumulator is read back from the device after the upload and must
-        equal the snapshot byte for byte: a resume never unmasks an
-        aggregate other than the journaled one. The log line carries the
-        upload's seconds and the accumulator's sha256."""
+        """Restore a snapshot into an EMPTY aggregator (resume)."""
+        vect = np.ascontiguousarray(vect, dtype=np.uint32)
+        self._restore(lambda: self._device.restore(vect, nb_models), vect, unit, nb_models)
+
+    @_on_device
+    def _restore(self, upload, vect: np.ndarray, unit: np.ndarray, nb_models: int) -> None:
+        """Run ``upload`` into an EMPTY aggregator, then read the accumulator
+        back from the device: it must equal ``vect`` (wire layout) byte for
+        byte, so a resume never unmasks an aggregate other than the
+        journaled one. The log line carries the upload's seconds and the
+        accumulator's sha256."""
         if self.nb_models:
             raise RuntimeError("restore_state requires an empty aggregator")
         vect = np.ascontiguousarray(vect, dtype=np.uint32)
         unit = np.ascontiguousarray(unit, dtype=np.uint32)
         t0 = time.perf_counter()
-        self._device.restore(vect, nb_models)
+        upload()
+        self._device.sync_folds()
         device = self._device.device
         if device.type == "cuda":
             torch.cuda.synchronize(device)

@@ -228,12 +228,12 @@ class AggregationSettings:
     # batch N+1 stages into one while batch N folds — >= dispatch_ahead + 1
     # for full overlap, minimum 2
     staging_buffers: int = 3
-    # the JAX package's per-device fold workers on a multi-device mesh; the
-    # port runs on one device, and validate_port refuses false
+    # one fold worker per shard on a mesh of several cards (the coordinator
+    # meshes every visible card); false keeps the single fold worker, which
+    # folds every shard's slice in turn; one card ignores it
     shard_parallel: bool = True
-    # the JAX package's per-shard native-u64 thread budget; the port has
-    # neither shards nor that kernel, and validate_port refuses anything
-    # but 0
+    # the JAX package's per-shard native-u64 thread budget; the port has no
+    # host native fold, and validate_port refuses anything but 0
     shard_threads: int = 0
     # packed byte-planar staging (docs/DESIGN.md §17): planar update
     # batches stage as ceil(log2(order)/8)-byte planes instead of full
@@ -787,18 +787,13 @@ class Settings:
                 "fold per device type (K1 on CUDA, the plain version on the "
                 "CPU) and accepts only \"auto\" (ROADMAP Queue 2)"
             )
-        unread = (
-            ("aggregation", "shard_parallel", "item 10, several GPUs"),
-            ("aggregation", "shard_threads", "item 10, several GPUs"),
-        )
-        for section, key, item in unread:
-            value = getattr(self, section)
-            default = getattr(type(value)(), key)
-            if getattr(value, key) != default:
-                raise SettingsError(
-                    f"{section}.{key} configures what xaynet_tpu_torch does not "
-                    f"have; leave it at {default!r} (ROADMAP Queue 1 {item})"
-                )
+        if self.aggregation.shard_threads != 0:
+            raise SettingsError(
+                "aggregation.shard_threads sizes the JAX package's host native "
+                "fold, which xaynet_tpu_torch does not have; leave it at 0 "
+                "(ROADMAP Queue 1, the modules deliberately not ported: "
+                "utils/native.py)"
+            )
 
     @classmethod
     def default(cls) -> "Settings":

@@ -5,8 +5,9 @@ Port of ``xaynet_tpu/sim``. ``SimRound`` computes an entire PET round
 reconstruction, unmask) from seeds and local models, with no server,
 sockets or phases in between, on K2 and K1; ``sim.oracle`` replays one
 seeded round through the port's coordinator and SDK and through the sim,
-and requires byte-identical global models. The participant-axis mesh of
-the JAX package is not ported (ROADMAP item 10).
+and requires byte-identical global models. ``SimRound(spec, mesh=...)``
+shards the participant axis over a mesh of devices, as the JAX package's
+does.
 """
 
 from .oracle import OracleCase, OracleMismatch, run_oracle_case, run_production_round

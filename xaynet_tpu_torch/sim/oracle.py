@@ -250,7 +250,7 @@ def run_oracle_case(
         max_abs_diff=max_diff,
         production_sha=p_sha,
         sim_sha=s_sha,
-        legs={"mesh": None, "nb_models": sim_result.nb_models},
+        legs={"mesh": None if mesh is None else len(mesh), "nb_models": sim_result.nb_models},
     )
     if not identical:
         raise OracleMismatch(

@@ -24,12 +24,20 @@ the decode after the unmask, runs through the same host functions
 what makes the simulated global model byte-identical to a coordinator
 round (``sim.oracle``).
 
+**Participant-axis mesh.** With ``mesh`` (``parallel.mesh.make_mesh``;
+a mesh may repeat a device) the population is padded to a multiple of
+``block_size x len(mesh)`` and shard ``s`` takes the ``s``-th contiguous
+run of blocks: its own thread runs them on its device, through K5, K2's
+per-row entry and K1 planar, into partial accumulators of its own. The
+partials are then folded on the mesh's first device with K1 planar (the
+function of the JAX program's ``batch_mod_sum`` combine, X5): modular sums
+are associative, so the result is byte-identical to one device's.
+
 Departures from the JAX program: the models are encoded one block at a
 time (the map is elementwise, so the bytes are the same, and the host
-holds one block's float64 temporaries, not the population's); the last
-block is not padded (the JAX program pads it with zero seeds and masks
-them out: no padding lane is derived or folded here, with the same
-result); a mesh is refused (ROADMAP item 10).
+holds one block's float64 temporaries, not the population's); the padding
+lanes are not derived (the JAX program derives zero seeds and masks them
+out: no padding lane is derived or folded here, with the same result).
 """
 
 from __future__ import annotations
@@ -38,7 +46,10 @@ from dataclasses import dataclass, field
 from fractions import Fraction
 from typing import Optional
 
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
+import torch
 
 from ..core.mask.config import MaskConfigPair
 from ..core.mask.encode import (
@@ -62,6 +73,7 @@ from ..ops.fold import (
     zeros_u32,
 )
 from ..ops.masking import seed_words, sum_masks_planar
+from ..parallel.mesh import make_mesh
 from ..telemetry import profiling
 
 # elements encoded per host call: a 25M-parameter model is one row per call
@@ -147,30 +159,43 @@ def _fold(acc, rows, order: int) -> None:
 
 
 class SimRound:
-    """A whole-round simulation for a fixed spec on one device.
+    """A whole-round simulation for a fixed spec on one device, or sharded
+    over the participant axis of a ``mesh``.
 
     ``run(seeds, weights, scalar)`` simulates the round for any population
     size; ``program_calls`` counts runs (one per ``run``, never one per
-    participant or block). ``device`` is CUDA unless given.
+    participant or block). ``device`` is CUDA unless given; with ``mesh``
+    the mesh's first device is where the shards' partials are combined.
     """
 
     def __init__(self, spec: SimSpec, mesh=None, device=None):
-        if mesh is not None:
-            raise ValueError(
-                "xaynet_tpu_torch.sim runs on one device; the participant-axis "
-                "mesh of the JAX package is not ported (ROADMAP item 10)"
-            )
         self.spec = spec
-        self.device = resolve_device(device)
+        self.mesh = make_mesh(mesh) if mesh is not None else None
+        if self.mesh is not None:
+            if device is not None and torch.device(device) != self.mesh[0]:
+                raise ValueError(f"device {device} is not the mesh's first device {self.mesh[0]}")
+            self.device = self.mesh[0]
+        else:
+            self.device = resolve_device(device)
         cfg = spec.config
         self._n_limb_v = host_limbs.n_limbs_for_order(cfg.vect.order)
         self._ol_u = host_limbs.order_limbs_for(cfg.unit.order)
         self.program_calls = 0
 
-    def _round(self, seeds: list[bytes], kw: np.ndarray, weights: np.ndarray, s_clamped):
-        """Every block folded, then the unmask: (model planar tensor, unit
-        limbs, internals or None)."""
-        spec, dev = self.spec, self.device
+    def _grid(self, n_participants: int) -> tuple[int, int]:
+        """(blocks, padded population) for this spec and mesh: the
+        population padded to a multiple of ``block_size x len(mesh)``."""
+        block = self.spec.block_size
+        stride = block * (1 if self.mesh is None else len(self.mesh))
+        padded = -(-n_participants // stride) * stride
+        return padded // block, padded
+
+    def _partials(self, seeds: list[bytes], kw: np.ndarray, weights: np.ndarray, s_clamped,
+                  start: int, stop: int, dev):
+        """Participants ``[start, stop)`` block by block on ``dev``: (masked
+        vect sum, masked unit sum, mask vect sum, mask unit sum), the vect
+        sums planar tensors, the unit sums host limbs."""
+        spec = self.spec
         cfg, n = spec.config, spec.model_length
         order = cfg.vect.order
         ol_u = self._ol_u
@@ -178,12 +203,12 @@ class SimRound:
         acc_kv = zeros_u32((self._n_limb_v, n), dev) if spec.fuse_mask_sum else None
         mu = np.zeros(host_limbs.n_limbs_for_order(cfg.unit.order), dtype=np.uint32)
         ku = np.zeros_like(mu)
-        for start in range(0, len(seeds), spec.block_size):
-            stop = min(start + spec.block_size, len(seeds))
-            enc = to_device_u32(encode_block(weights[start:stop], s_clamped, cfg.vect), dev)
+        for b0 in range(start, stop, spec.block_size):
+            b1 = min(b0 + spec.block_size, stop)
+            enc = to_device_u32(encode_block(weights[b0:b1], s_clamped, cfg.vect), dev)
             if spec.fuse_mask_sum:
                 masks = zeros_u32(enc.shape, dev)
-                units, masked = mask_rows(masks, kw[start:stop], s_clamped, cfg)
+                units, masked = mask_rows(masks, kw[b0:b1], s_clamped, cfg)
                 _fold(acc_kv, masks, order)
                 _fold(acc_mv, enc, order)
                 _fold(acc_mv, masks, order)
@@ -191,12 +216,64 @@ class SimRound:
                 ku = host_limbs.mod_add(ku[None], host_limbs.batch_mod_sum(units, ol_u)[None],
                                         ol_u)[0]  # fmt: skip
             else:
-                _, masked = mask_rows(enc, kw[start:stop], s_clamped, cfg)
+                _, masked = mask_rows(enc, kw[b0:b1], s_clamped, cfg)
                 _fold(acc_mv, enc, order)
             del enc
             mu = host_limbs.mod_add(mu[None], host_limbs.batch_mod_sum(masked, ol_u)[None], ol_u)[0]
         if not spec.fuse_mask_sum:
-            ku, acc_kv = sum_masks_planar(seeds, n, cfg, seed_batch=spec.block_size, device=dev)
+            if stop > start:
+                ku, acc_kv = sum_masks_planar(seeds[start:stop], n, cfg,
+                                              seed_batch=spec.block_size, device=dev)  # fmt: skip
+            else:
+                acc_kv = zeros_u32((self._n_limb_v, n), dev)
+        return acc_mv, mu, acc_kv, ku
+
+    def _shard(self, d: int, per: int, p: int, *args):
+        """Shard ``d``'s contiguous run of blocks, on its device and a stream
+        of its own, finished before it returns."""
+        dev = self.mesh[d]
+        start, stop = min(d * per, p), min((d + 1) * per, p)
+        if dev.type != "cuda":
+            return self._partials(*args, start, stop, dev)
+        with torch.cuda.device(dev), torch.cuda.stream(torch.cuda.Stream(dev)):
+            out = self._partials(*args, start, stop, dev)
+            torch.cuda.current_stream(dev).synchronize()
+        return out
+
+    def _combine(self, parts: list) -> tuple:
+        """The shards' partials folded on the mesh's first device: the vect
+        sums by one K1 planar launch over the stacked partials, the unit
+        sums on the host."""
+        dev, order, ol_u = self.device, self.spec.config.vect.order, self._ol_u
+
+        def fold_all(accs):
+            out = zeros_u32(accs[0].shape, dev)
+            stacked = torch.stack([a.view(torch.int32).to(dev) for a in accs]).view(torch.uint32)
+            kernels.fold_planar(out, stacked, order)
+            return out
+
+        def unit_sum(units):
+            return host_limbs.batch_mod_sum(np.stack(units)[:, None, :], ol_u)[0]
+
+        mv, mu, kv, ku = zip(*parts)
+        return fold_all(mv), unit_sum(mu), fold_all(kv), unit_sum(ku)
+
+    def _round(self, seeds: list[bytes], kw: np.ndarray, weights: np.ndarray, s_clamped):
+        """Every block folded, then the unmask: (model planar tensor, unit
+        limbs, internals or None)."""
+        spec = self.spec
+        order, ol_u = spec.config.vect.order, self._ol_u
+        args = (seeds, kw, weights, s_clamped)
+        if self.mesh is None:
+            acc_mv, mu, acc_kv, ku = self._partials(*args, 0, len(seeds), self.device)
+        else:
+            _, padded = self._grid(len(seeds))
+            per = padded // len(self.mesh)
+            with ThreadPoolExecutor(max_workers=len(self.mesh),
+                                    thread_name_prefix="xn-sim-shard") as pool:  # fmt: skip
+                parts = list(pool.map(lambda d: self._shard(d, per, len(seeds), *args),
+                                      range(len(self.mesh))))  # fmt: skip
+            acc_mv, mu, acc_kv, ku = self._combine(parts)
         model_v = mod_sub_planar(acc_mv, acc_kv, order)
         model_u = host_limbs.mod_sub(mu[None, :], ku[None, :], ol_u)[0]
         internals = (acc_mv, mu, acc_kv, ku) if spec.return_internals else None

@@ -47,6 +47,7 @@ import logging
 import threading
 import time
 import weakref
+from collections import deque
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -148,6 +149,8 @@ class PageLease:
     # host: the seconds this lease spent page-locking its slab (0.0 when
     # the slab was locked already or the lease is not pinned)
     pin_seconds: float = 0.0
+    # device: the card whose memory the ledger charges ("" = unnamed)
+    device: str = ""
 
 
 class _Slab:
@@ -247,6 +250,13 @@ class PagePool:
         self._leases: dict[int, PageLease] = {}  # guarded-by: _lock
         self._next_id = 0  # guarded-by: _lock
         self._in_use = {"host": 0, "device": 0}  # pages  # guarded-by: _lock
+        # device pages by card: each card has its own memory, so the cap
+        # holds per card (a mesh over several cards leases a slice on each)
+        self._device_in_use: dict[str, int] = {}  # guarded-by: _lock
+        # leases a GC finalizer handed back while a pool call held the lock
+        # (a collection may run inside any allocation): released by the next
+        # pool call (deque: appends and pops are atomic)
+        self._deferred: deque = deque()
         self.pin_seconds = 0.0  # every slab's page-locking, summed  # guarded-by: _lock
 
     # -- leasing ------------------------------------------------------------
@@ -263,6 +273,7 @@ class PagePool:
         under the pool lock and the slab locked after it is let go, so
         other tenants' leases and releases go on meanwhile. Page placement
         is the same either way."""
+        self._release_deferred()
         dtype = np.dtype(dtype)
         nbytes = int(np.prod(shape)) * dtype.itemsize
         pages = self.pages_for(nbytes)
@@ -327,19 +338,30 @@ class PagePool:
             event.set()
         return seconds
 
-    def lease_device(self, tenant: str, nbytes: int) -> PageLease:
-        """Ledger-only device lease: accounts ``nbytes`` of device memory
-        as pages against the device capacity (the accumulator is a torch
-        tensor of its own; the ledger carries its budget, not its pages)."""
+    def lease_device(self, tenant: str, nbytes: int, device: str = "") -> PageLease:
+        """Ledger-only device lease: accounts ``nbytes`` of ``device``'s
+        memory as pages against the device capacity, which holds per card
+        (the accumulator is a torch tensor of its own; the ledger carries
+        its budget, not its pages)."""
+        self._release_deferred()
         pages = self.pages_for(nbytes)
         with self._lock:
-            if self.device_pages and self._in_use["device"] + pages > self.device_pages:
+            used = self._device_in_use.get(device, 0)
+            if self.device_pages and used + pages > self.device_pages:
                 raise PoolExhausted(
-                    f"device arena: {pages} pages requested, "
-                    f"{self.device_pages - self._in_use['device']} of "
-                    f"{self.device_pages} available"
+                    f"device arena{' of ' + device if device else ''}: {pages} pages "
+                    f"requested, {self.device_pages - used} of {self.device_pages} available"
                 )
-            return self._grant_locked(tenant, "device", pages, -1, -1)
+            self._device_in_use[device] = used + pages
+            lease = self._grant_locked(tenant, "device", pages, -1, -1)
+            lease.device = device
+            return lease
+
+    def device_pages_by_device(self) -> dict[str, int]:
+        """Device-ledger pages in use, by card."""
+        self._release_deferred()
+        with self._lock:
+            return {d: n for d, n in self._device_in_use.items() if n}
 
     def _grant_locked(
         self, tenant: str, arena: str, pages: int, slab: int, offset: int
@@ -359,6 +381,26 @@ class PagePool:
         POOL_LEASES.labels(arena=arena, tenant=tenant).inc()
         return lease
 
+    def release_soon(self, leases: list) -> None:
+        """Release ``leases`` from a GC finalizer (the backstop of an
+        aggregator, shard plan or staging ring dropped without its explicit
+        release). A collection can run inside any pool call on this very
+        thread, with the pool lock held, so the finalizer must not wait for
+        that lock: the leases are queued, released here at once if no pool
+        call is in progress, else by the next pool call."""
+        self._deferred.extend(leases)
+        if self._lock.acquire(blocking=False):
+            self._lock.release()
+            self._release_deferred()
+
+    def _release_deferred(self) -> None:
+        while True:
+            try:
+                lease = self._deferred.popleft()
+            except IndexError:
+                return
+            self.release(lease)
+
     def release(self, lease: PageLease) -> bool:
         """Return a lease's pages (idempotent: the GC finalizer backstop
         and the explicit unmask-path release may both run). Returns True
@@ -371,6 +413,8 @@ class PagePool:
             lease.released = True
             del self._leases[lease.lease_id]
             self._in_use[lease.arena] -= lease.pages
+            if lease.arena == "device":
+                self._device_in_use[lease.device] -= lease.pages
             if lease.arena == "host" and 0 <= lease.slab < len(self._slabs):
                 self._slabs[lease.slab].give(lease.offset, lease.pages)
         lease.array = None
@@ -394,6 +438,7 @@ class PagePool:
     # -- accounting ---------------------------------------------------------
 
     def outstanding(self, tenant: Optional[str] = None) -> list[PageLease]:
+        self._release_deferred()
         with self._lock:
             return [
                 l
@@ -543,6 +588,7 @@ class PagePool:
             return sum(s.buf.nbytes for s in self._slabs if s.pinned)
 
     def stats(self) -> dict:
+        self._release_deferred()
         with self._lock:
             tenant_leases: dict[str, int] = {}
             for lease in self._leases.values():

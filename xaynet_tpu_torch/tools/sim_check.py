@@ -15,9 +15,11 @@ combinations from the JAX tool's seeded menu, the same draws in the same
 order, so a ``--seed`` names the same combinations in both packages. The
 JAX menu also draws a Sum2 route for its production leg; the port's sum
 participants always sum the masks on K2, and the drawn name is reported
-as ``jax_sum2_route``. The mesh-sharded leg (``--mesh``) needs several
-devices and is refused (ROADMAP Queue 1 item 10); ``--no-mesh`` is
-accepted for the JAX tool's command lines.
+as ``jax_sum2_route``. Where several CUDA devices are visible, each
+combination is also checked on the sim sharded over the participant axis
+of a mesh of every card, as the JAX tool does over its devices;
+``--mesh N`` checks it on a mesh of the device repeated N times (one card
+or the CPU), and ``--no-mesh`` skips it.
 """
 
 from __future__ import annotations
@@ -61,20 +63,27 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--combos", type=int, default=3, help="seeded combinations to replay")
     ap.add_argument("--seed", type=int, default=0, help="menu + population root seed")
-    ap.add_argument("--mesh", action="store_true",
-                    help="also check the mesh-sharded sim (not in this package)")
-    ap.add_argument("--no-mesh", action="store_true", help="skip the mesh leg (the default)")
+    ap.add_argument("--mesh", type=int, default=0, metavar="N",
+                    help="check the mesh-sharded sim on the device repeated N times")
+    ap.add_argument("--no-mesh", action="store_true", help="skip the mesh-sharded sim leg")
     ap.add_argument("--json", action="store_true", help="one JSON line per combination")
     ap.add_argument("--device", default="cuda", help="torch device of both legs")
     args = ap.parse_args(argv)
-    if args.mesh:
-        ap.error("the mesh-sharded sim leg needs several devices, which xaynet_tpu_torch "
-                 "does not have yet (ROADMAP Queue 1 item 10, several GPUs)")
+
+    import torch
 
     from ..device import resolve_device
+    from ..parallel.mesh import make_mesh
     from ..sim import OracleMismatch, run_oracle_case, run_production_round
 
     device = resolve_device(args.device)
+    mesh = None
+    if args.no_mesh:
+        pass
+    elif args.mesh > 0:
+        mesh = make_mesh([device] * args.mesh)
+    elif device.type == "cuda" and device.index is None and torch.cuda.device_count() > 1:
+        mesh = make_mesh()
     failures = 0
     for i, (case, route) in enumerate(menu(args.combos, args.seed)):
         t0 = time.time()
@@ -85,6 +94,9 @@ def main(argv=None) -> int:
             production = run_production_round(case, device=device)
             report = run_oracle_case(case, production_model=production, device=device)
             outcome["single_device"] = "byte-identical"
+            if mesh is not None:
+                run_oracle_case(case, mesh=mesh, production_model=production, device=mesh[0])
+                outcome["mesh"] = f"byte-identical (x{len(mesh)})"
             outcome["sha256"] = report.sim_sha[:16]
             outcome["seconds"] = round(time.time() - t0, 1)
             outcome["result"] = "ok"

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Times of kernel K2's two entries (and K5 where a checkout has it) on one
-NVIDIA GPU, at the shapes the port's paths give them.
+"""Times of kernels K2 and K6 (and K5 where a checkout has it) on one NVIDIA
+GPU, at the shapes the port's paths give them.
 
     python3 chip_k2_bench.py                       # this checkout
     python3 chip_k2_bench.py --root build/parent   # another checkout
+    python3 chip_k2_bench.py --sass                # also count K6's loads
 
 Builds the kernels of the ``xaynet_tpu_torch`` found under ``--root`` and
 times, with CUDA events over ``--reps`` calls after one warm-up call:
@@ -12,12 +13,25 @@ seed at ResNet-50's size), ``mask_fold_rows`` at Phase S's two shapes of
 ``chip_smoke.py`` (s1: 8 seeds into ``uint32[8,2,25M]``; s2: 256 seeds into
 ``uint32[256,2,1000]``, integer/f32/b0/m6) and, where the checkout has
 it, ``unit_draws`` over 2,048 seeds of s2's config. Every call includes
-its wrapper's host work (the trip's acceptance read). The seeds come from
-``--seed``, so two checkouts time the same inputs, and their results can
-be held against each other by digest (``k2_digest``: a hash of K2's
-accumulator and row bytes and end cursors; ``k5_digest``: of K5's units
-and cursors). It prints the card's name and power limit, then one JSON
-line.
+its wrapper's host work (the trip's acceptance read).
+
+K6's legs, over v1 wire blocks of prime/f32/b0/m3 (6 bytes an element)
+at 25,000,000 elements: ``wire_fold`` of 8 valid members
+(``uint8[8,150M]``); of Phase W's fused batches, 2 valid members and 3
+with one rejected; of 5 members with one rejected; and ``wire_unfold``
+over a shard's slice of Phase X (6,250,000 elements) of 3 and of 5
+members, one flagged. Each leg's line has its bound: the members' bytes
+read once and the accumulator read and written once (for ``wire_unfold``
+the flagged member's bytes), at 3.35 TB/s.
+
+The inputs come from ``--seed``, so two checkouts time the same inputs,
+and their results can be held against each other by digest
+(``k2_digest``: a hash of K2's accumulator and row bytes and end cursors;
+``k5_digest``: of K5's units and cursors; ``k6_digest``: of K6's
+accumulators and verdicts, one call of each leg from the same
+accumulator). ``--sass`` counts, in the built fold library's machine code
+(``cuobjdump -sass``), the load instructions of each K6 kernel by kind. It
+prints the card's name and power limit, then one JSON line.
 
 Compare two checkouts in one chip call, in turns: parent, this, this,
 parent.
@@ -28,6 +42,8 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -41,6 +57,7 @@ def main() -> int:
                         help="checkout whose xaynet_tpu_torch to time")
     parser.add_argument("--reps", type=int, default=10)
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--sass", action="store_true", help="count K6's load instructions")
     args = parser.parse_args()
 
     root = Path(args.root).resolve()
@@ -62,9 +79,9 @@ def main() -> int:
     from xaynet_tpu_torch.ops.fold import to_device_u32, zeros_u32
 
     dev = torch.device("cuda")
-    kernels.build()
+    libs = kernels.build()
     rng = np.random.default_rng(args.seed)
-    digests = {"k2_digest": hashlib.sha256(), "k5_digest": hashlib.sha256()}
+    digests = {k: hashlib.sha256() for k in ("k2_digest", "k5_digest", "k6_digest")}
 
     def key_words(b: int) -> torch.Tensor:
         return to_device_u32(rng.integers(0, 1 << 32, (b, 8), dtype=np.uint64).astype(np.uint32),
@@ -113,12 +130,89 @@ def main() -> int:
         record("k5_digest", *kernels.unit_draws(kws, m6))
         out["unit_draws_2048_ms"] = time_ms(lambda: kernels.unit_draws(kws, m6), 5 * args.reps)
 
+    if hasattr(kernels, "wire_fold"):
+        out.update(k6_legs(torch, kernels, to_device_u32, zeros_u32, m3, n, rng, dev, time_ms,
+                           record, args.reps))
+    if args.sass:
+        out["k6_sass"] = k6_sass(libs["fold"])
+
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()  # fmt: skip
     print(card)
     print(json.dumps({"root": str(root), "card": card, "reps": args.reps, **out,
                       **{k: d.hexdigest()[:16] for k, d in digests.items()}}))  # fmt: skip
     return 0
+
+
+MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+
+
+def k6_legs(torch, kernels, to_device_u32, zeros_u32, order, n, rng, dev, time_ms, record,
+            reps) -> dict:
+    """K6's legs (module docstring): each one's ms, bound_ms and share."""
+    bpn, n_limb = 6, 2
+    top = order >> (8 * (bpn - 1))  # an element is valid when its top byte is below this
+
+    def members(k: int, count: int, reject: tuple = ()) -> torch.Tensor:
+        x = np.frombuffer(rng.bytes(k * count * bpn), np.uint8).reshape(k, count, bpn).copy()
+        x[:, :, bpn - 1] %= top
+        for i in reject:  # one element at the order: a rejected member
+            x[i, count // 2] = np.frombuffer(order.to_bytes(8, "little")[:bpn], np.uint8)
+        return torch.from_numpy(x.reshape(k, count * bpn)).to(dev)
+
+    legs = {}
+
+    def leg(name: str, fn, acc0: torch.Tensor, nbytes: int) -> None:
+        record("k6_digest", *fn(acc0.clone()))
+        acc = acc0.clone()
+        ms = time_ms(lambda: fn(acc), reps)
+        bound = nbytes / MEM_BYTES_PER_S * 1e3
+        legs[name] = {"ms": ms, "bound_ms": bound, "share": bound / ms}
+
+    acc0 = zeros_u32((n_limb, n), dev)
+    for k, reject in ((8, ()), (2, ()), (3, (1,)), (5, (2,))):
+        raw = members(k, n, reject)
+        leg(f"wire_fold_k{k}" + ("_one_rejected" if reject else ""),
+            lambda acc, raw=raw: kernels.wire_fold(acc, raw, order), acc0,
+            raw.numel() + 8 * n_limb * n + 4 * k)  # fmt: skip
+        del raw
+    shard = n // 4  # Phase X's slice of four shards
+    limbs = rng.integers(0, 1 << 32, (n_limb, shard), dtype=np.uint64).astype(np.uint32)
+    limbs[0] %= 0xFFFFFFFF
+    limbs[1] %= top << 8  # below the order
+    acc0 = to_device_u32(limbs, dev)
+    for k in (3, 5):
+        raw = members(k, shard)
+        drop = torch.zeros(k, dtype=torch.bool, device=dev)
+        drop[-1] = True
+        leg(f"wire_unfold_k{k}",
+            lambda acc, raw=raw, drop=drop: (kernels.wire_unfold(acc, raw, drop, order),), acc0,
+            shard * bpn + 8 * n_limb * shard + k)  # fmt: skip
+        del raw
+    w_batches = (legs["wire_fold_k2"]["ms"], legs["wire_fold_k3_one_rejected"]["ms"])
+    legs["wire_fold_w_mean_ms"] = sum(w_batches) / len(w_batches)
+    torch.cuda.empty_cache()
+    return legs
+
+
+def k6_sass(lib: Path) -> dict:
+    """Load instructions of each K6 kernel in ``lib``'s machine code, by
+    opcode (global loads LDG, shared loads LDS, asynchronous global-to-shared
+    copies LDGSTS, local memory LDL)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True).stdout
+    counts = {}
+    for body in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = body.split("\n", 1)[0]
+        kernel = re.search(r"(wire_(?:un)?fold_kernel)ILi(\d+)E", name)
+        if kernel is None:
+            continue
+        ops: dict[str, int] = {}
+        for op in re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]+)", body):
+            if op.split(".")[0] in ("LDG", "LDS", "LDGSTS", "LDL"):
+                ops[op] = ops.get(op, 0) + 1
+        counts[f"{kernel.group(1)}<{kernel.group(2)}>"] = dict(sorted(ops.items()))
+    return counts
 
 
 if __name__ == "__main__":

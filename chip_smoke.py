@@ -1829,11 +1829,52 @@ class Smoke:
                 self.compare("wire_fold", ok, want_ok, what + " acceptance")
                 self.check({i for i, v in enumerate(ok.tolist()) if not v} == want_bad,
                            f"wire: {what} K6 leaves out updates {sorted(want_bad)}")
+                if k in (3, 64):
+                    self.k6_staging_edges(raw, acc0, acc, ok, order, n_limb, bpn, what)
                 del raw, packed, planar, bad, want_planar, want, got, acc0, acc, want_acc
                 n_cases += 1
         self.sync()
         log(f"[phase A] K3, K4 and K6 byte-exact vs plain in {n_cases} cases "
             "(planted invalid elements rejected, order - 1 accepted)")
+
+    def k6_staging_edges(self, raw, acc0, acc, ok, order: int, n_limb: int, bpn: int,
+                         what: str) -> None:
+        """K6 where its staged member tiles meet their edges: the same blocks
+        from bases 1 and 15 bytes past a 16-byte boundary (the bytes of a
+        ``raw[1:]`` view made contiguous) against the aligned result, and
+        the subtract-back pass there against its plain version; then the
+        first T - 1, T and T + 1 columns, T the kernel's tile at this width
+        (``wire_cpt`` times ``wire_threads`` in ``csrc/fold.cu``), against
+        the plain version."""
+        from xaynet_tpu_torch.ops import kernels
+
+        torch = self.torch
+        k = raw.shape[0]
+        drop = torch.zeros(k, dtype=torch.bool, device=self.dev)
+        drop[0] = drop[-1] = True
+        buf = torch.empty(raw.numel() + 16, dtype=torch.uint8, device=self.dev)
+        for off in (1, 15):
+            shifted = buf[off : off + raw.numel()].view(raw.shape)
+            shifted.copy_(raw)
+            got, got_ok = kernels.wire_fold(acc0.clone(), shifted, order)
+            self.compare("wire_fold", got, acc, f"{what} base + {off} bytes: accumulator")
+            self.compare("wire_fold", got_ok, ok, f"{what} base + {off} bytes: acceptance")
+        self.compare("wire_unfold", kernels.wire_unfold(acc0.clone(), shifted, drop, order),
+                     kernels.wire_unfold_plain(acc0.clone(), shifted, drop, order),
+                     f"{what} base + 15 bytes: members 0 and K-1 taken back")  # fmt: skip
+        del buf, shifted, got
+        cpt = {2: 4, 3: 2, 4: 2}.get(n_limb, 1)
+        threads = 256
+        while threads > 32 and threads * cpt * bpn > 8192:
+            threads //= 2
+        tile = cpt * threads
+        for m in (tile - 1, tile, tile + 1):
+            part = raw[:, : m * bpn].contiguous()
+            base = acc0[:, :m].contiguous()
+            got, got_ok = kernels.wire_fold(base.clone(), part, order)
+            want, want_ok = kernels.wire_fold_plain(base.clone(), part, order)
+            self.compare("wire_fold", got, want, f"{what} first {m} columns (tile {tile}): accumulator")
+            self.compare("wire_fold", got_ok, want_ok, f"{what} first {m} columns: acceptance")
 
     def phase_a_wire_main(self) -> None:
         """One batch of 64 updates at the main length, made on the card with

@@ -321,6 +321,66 @@ def test_wire_fold_matches_plain(cuda, name, k):
         assert not any(ok.tolist()) and _same(same, acc)
 
 
+def _wire_tile(n_limb: int, bpn: int) -> int:
+    """Columns of one K6 block: ``wire_cpt`` columns a thread times
+    ``wire_threads`` threads (256, halved while a member's tile tops 8 KB)
+    of ``csrc/fold.cu``."""
+    cpt = {2: 4, 3: 2, 4: 2}.get(n_limb, 1)
+    t = 256
+    while t > 32 and t * cpt * bpn > 8192:
+        t //= 2
+    return cpt * t
+
+
+STAGING_ORDERS = {**WIRE_ORDERS, "L10": ORDERS["L10"]}
+
+
+@pytest.mark.parametrize("k", [1, 3, 64])
+@pytest.mark.parametrize("name", list(STAGING_ORDERS))
+def test_wire_fold_staging_edges_match_plain(cuda, name, k):
+    """K6's staged member tiles at their edges, byte for byte against the
+    plain versions: n = T - 1, T and T + 1 for the kernel's own tile T at
+    this width, and n = 1001 (member rows not 16-byte aligned); each batch
+    from a 16-byte aligned base and from 1 and 15 bytes past one (the
+    bytes of a ``raw[1:]`` view made contiguous); the last column's element
+    out of range in the last member; ``wire_unfold`` taking back the first
+    and the last member; then every member rejected."""
+    order = STAGING_ORDERS[name]
+    n_limb, bpn = limbs.n_limbs_for_order(order), limbs.wire_width_for(order)
+    pow2 = order == 1 << (32 * n_limb)
+    t = _wire_tile(n_limb, bpn)
+
+    def wire_bytes(rows: np.ndarray) -> np.ndarray:
+        return np.stack([np.ascontiguousarray(r.view(np.uint8).reshape(n, -1)[:, :bpn]).reshape(-1)
+                         for r in rows])  # fmt: skip
+
+    for n in (t - 1, t, t + 1, 1001):
+        rows = _wire_case(order, k, n, seed=n + k)
+        if not pow2:
+            rows[k - 1, n - 1] = limbs.int_to_limbs(order, n_limb)
+        raw_np = wire_bytes(rows)
+        acc0 = to_device_u32(_elements(order, (n,), n), cuda)
+        buf = torch.empty(raw_np.size + 16, dtype=torch.uint8, device=cuda)
+        drop = torch.zeros(k, dtype=torch.bool, device=cuda)
+        drop[0] = drop[-1] = True
+        for off in (0, 1, 15):
+            raw = buf[off : off + raw_np.size].view(raw_np.shape)
+            raw.copy_(torch.from_numpy(raw_np))
+            what = f"n={n} base+{off}"
+            want, want_ok = kernels.wire_fold_plain(acc0.clone(), raw, order)
+            got, ok = kernels.wire_fold(acc0.clone(), raw, order)
+            assert _same(got, want) and ok.tolist() == want_ok.tolist(), what
+            assert bool(ok[-1]) == pow2, what
+            got = kernels.wire_unfold(acc0.clone(), raw, drop, order)
+            assert _same(got, kernels.wire_unfold_plain(acc0.clone(), raw, drop, order)), what
+        if not pow2:
+            for i in range(k):  # one element at the order in every member
+                rows[i, (37 * i) % n] = limbs.int_to_limbs(order, n_limb)
+            raw = torch.from_numpy(wire_bytes(rows)).to(cuda)
+            got, ok = kernels.wire_fold(acc0.clone(), raw, order)
+            assert not any(ok.tolist()) and _same(got, acc0), f"n={n} all rejected"
+
+
 def test_wire_fold_launches_and_aggregator_paths(cuda):
     """One K6 launch per batch; ``add_wire_batch`` and the pipeline's
     ``submit_wire_batch`` + ``drain`` on the card equal the CPU's."""

@@ -56,6 +56,7 @@ from xaynet_tpu.server import settings as jax_settings
 from xaynet_tpu.server.state_machine import StateMachineInitializer as JInitializer
 from xaynet_tpu.storage import memory as jax_memory
 from xaynet_tpu.storage.traits import Store as JStore
+from xaynet_tpu.telemetry import tracing as jax_tracing
 from xaynet_tpu_torch import convert
 from xaynet_tpu_torch.core.mask.masking import Aggregation
 from xaynet_tpu_torch.core.mask.seed import EncryptedMaskSeed
@@ -72,6 +73,7 @@ from xaynet_tpu_torch.server import settings as port_settings
 from xaynet_tpu_torch.server.state_machine import StateMachineInitializer
 from xaynet_tpu_torch.storage import memory as port_memory
 from xaynet_tpu_torch.storage.traits import Store
+from xaynet_tpu_torch.telemetry import tracing as port_tracing
 from xaynet_tpu_torch.telemetry.registry import get_registry
 from xaynet_tpu_torch.tenancy import lifecycle as port_lifecycle
 from xaynet_tpu_torch.tenancy import pool as port_pool_mod
@@ -103,7 +105,7 @@ def _pkg(name: str) -> SimpleNamespace:
     if name == "jax":
         return SimpleNamespace(
             name=name, edge=jax_edge, settings=jax_settings, requests=jax_requests,
-            client=jax_client, sim=jax_sim, RestServer=jax_rest.RestServer,
+            tracing=jax_tracing, client=jax_client, sim=jax_sim, RestServer=jax_rest.RestServer,
             EdgeRestServer=JEdgeRestServer, services=jax_services,
             Store=lambda: JStore(jax_memory.InMemoryCoordinatorStorage(),
                                  jax_memory.InMemoryModelStorage(), jax_memory.NoOpTrustAnchor()),
@@ -114,7 +116,7 @@ def _pkg(name: str) -> SimpleNamespace:
         )  # fmt: skip
     return SimpleNamespace(
         name=name, edge=port_edge, settings=port_settings, requests=port_requests,
-        client=port_client, sim=port_sim, RestServer=port_rest.RestServer,
+        tracing=port_tracing, client=port_client, sim=port_sim, RestServer=port_rest.RestServer,
         EdgeRestServer=EdgeRestServer, services=port_services,
         Store=lambda: Store(port_memory.InMemoryCoordinatorStorage(),
                             port_memory.InMemoryModelStorage(), port_memory.NoOpTrustAnchor()),
@@ -171,6 +173,9 @@ class _Coordinator:
             await self.machine_task
         except (asyncio.CancelledError, Exception):
             pass
+        # the runner's shutdown closes the round window of the process-wide
+        # tracer; without it the next test's first round flushes this one
+        self.pkg.tracing.get_tracer().end_round()
 
     @property
     def url(self) -> str:
@@ -679,7 +684,9 @@ def test_two_tier_round_single_stitched_trace(tmp_path):
 
     tracer = tracing.get_tracer()
     old_mode, old_dir = tracer.mode, tracer.trace_dir
+    tracer.end_round()  # a window another test left open is not this round's
     tracer.configure(mode="on", trace_dir=str(tmp_path))
+    driven = []
 
     async def run():
         n = 4
@@ -691,6 +698,10 @@ def test_two_tier_round_single_stitched_trace(tmp_path):
         async with _Coordinator(PORT, settings) as coord:
             async with _Edge(PORT, coord.url, "edge-tr", max_members=2) as edge:
                 await coord.wait_phase("sum")
+                probe = port_client.HttpClient(coord.url)
+                seed = (await probe.get_round_params()).seed.as_bytes()
+                driven.append(tracing.round_trace_id(seed))
+                probe.close()
                 targets = [port_client.ResilientClient(port_client.HttpClient(edge.url))]
 
                 async def edge_ready():
@@ -700,19 +711,20 @@ def test_two_tier_round_single_stitched_trace(tmp_path):
                     await asyncio.wait_for(
                         _drive_round(PORT, coord, models, targets, before_updates=edge_ready),
                         120)  # fmt: skip
-                    for _ in range(400):
-                        if list(tmp_path.glob("round_*.trace.json")):
-                            break
-                        await asyncio.sleep(0.05)
                 finally:
                     for t in targets:
                         t.close()
 
     try:
         asyncio.run(run())
-        files = sorted(tmp_path.glob("round_*.trace.json"))
-        assert files, "no per-round trace exported"
-        events = trace_report.load_events(str(files[0]))
+        # the coordinator's exit closed the window at the latest: the driven
+        # round's trace is on disk now (and a next round's, if one began)
+        traces = [trace_report.load_events(str(f))
+                  for f in sorted(tmp_path.glob("round_*.trace.json"))]
+        mine = [ev for ev in traces
+                if any(e["name"] == "round" and e["args"].get("trace") == driven[0] for e in ev)]
+        assert len(mine) == 1, f"{len(traces)} traces exported, {len(mine)} of the driven round"
+        (events,) = mine
         assert trace_report.validate(events) == []
         (round_event,) = [e for e in events if e["name"] == "round"]
         trace_id = round_event["args"]["trace"]

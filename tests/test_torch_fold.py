@@ -217,3 +217,88 @@ def test_kernel_launch_counter_untouched_on_cpu():
         "fold_planar": 0, "fold_packed": 0, "mask_fold": 0, "mask_fold_rows": 0, "wire_unpack": 0,
         "packed_check": 0, "unit_draws": 0, "wire_fold": 0, "wire_unfold": 0,
     }
+
+
+# --- K6's staging geometry (csrc/fold.cu), on the host ----------------------
+
+WIRE_WIDTHS = sorted({
+    (ref_limbs.n_limbs_for_order(c.order), ref_limbs.wire_width_for(c.order))
+    for c in (MaskConfig(g, d, b, m) for g in GroupType for d in DataType for b in BoundType
+              for m in ModelType)
+})  # fmt: skip
+
+
+def _k6_constants() -> dict:
+    """The constants and the columns-a-thread rule of ``csrc/fold.cu``'s K6."""
+    import re
+
+    src = (kernels.CSRC / "fold.cu").read_text()
+
+    def const(name: str) -> int:
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    cpt = re.search(r"return lt == 2 \? (\d+) : \(lt == 3 \|\| lt == 4\) \? (\d+) : (\d+);", src)
+    two, three_four, other = (int(g) for g in cpt.groups())
+    return {"stages": const("kWireStages"), "tile_bytes": const("kWireTileBytes"),
+            "threads": const("kThreads"),
+            "cpt": lambda L: two if L == 2 else three_four if L in (3, 4) else other}  # fmt: skip
+
+
+@pytest.mark.parametrize("n_limb,bpn", WIRE_WIDTHS)
+def test_k6_staging_geometry_covers_every_width_and_base(n_limb, bpn):
+    """K6's tile and stage arithmetic (``wire_cpt``, ``wire_threads``,
+    ``wire_stage_bytes``, ``wire_run`` of ``csrc/fold.cu``) reckoned by
+    brute force at every width of the repo's orders, for tensors starting
+    0-15 bytes past a 16-byte boundary and lengths at and around the tile:
+    the copied hulls stay inside the tensor, every byte of a run outside
+    its hull lies in the tensor's first or last 16 bytes, every shared read
+    stays inside its stage, four stages need no opt-in above 48 KB, and the
+    card tests' ``_wire_tile`` names the same tile."""
+    import importlib.util
+
+    k6 = _k6_constants()
+    cpt = k6["cpt"](n_limb) if n_limb <= 5 else 1
+    threads = k6["threads"]
+    while threads > 32 and threads * cpt * bpn > k6["tile_bytes"]:
+        threads //= 2
+    tile = cpt * threads
+    stage = (tile * bpn + 32 + 15) & ~15
+    assert k6["stages"] * stage <= 48 * 1024
+    if n_limb <= 5:
+        assert threads == k6["threads"]  # the kernel's compile-time width
+    spec = importlib.util.spec_from_file_location("cuda_tests", kernels.CSRC.parents[1] / "tests"
+                                                  / "test_torch_cuda.py")  # fmt: skip
+    cuda_tests = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cuda_tests)
+    assert cuda_tests._wire_tile(n_limb, bpn) == tile
+
+    def up(x):
+        return (x + 15) & ~15
+
+    def down(x):
+        return x & ~15
+
+    k = 3
+    for n in (tile - 1, tile, tile + 1, 1001):
+        for origin in range(16):
+            total = k * n * bpn
+            in_lo, in_hi = up(origin), down(origin + total)
+            for m in range(k):
+                for c0 in range(0, n, tile):
+                    cols = min(tile, n - c0)
+                    run = origin + (m * n + c0) * bpn
+                    end = run + cols * bpn
+                    base = down(run)
+                    lo, hi = max(base, in_lo), min(up(end), in_hi)
+                    if lo >= hi:  # nothing to copy: the run is in the first or last bytes
+                        assert end <= in_lo or run >= in_hi
+                        continue
+                    assert origin <= lo and hi <= origin + total and hi - base <= stage
+                    if run < lo:  # bytes before the hull: the tensor's first ones
+                        assert lo == in_lo
+                    if end > hi:  # bytes after it: the tensor's last ones
+                        assert hi == in_hi
+                    # the fast path's last shared word, for a run inside its hull
+                    if lo <= run and end <= hi:
+                        p = (run - base) + (cols - 1) * bpn
+                        assert ((p >> 2) + n_limb) * 4 + 4 <= stage

@@ -332,6 +332,7 @@ def test_flush_returns_before_the_fold_finishes():
     vect, _unit, nb = port.snapshot_state()
     assert nb == 2 and np.array_equal(vect, host.object.vect.data)
     port.finalize()
+    port.close()  # the gate ties the pipeline into a cycle: close, not GC, frees its pages
 
 
 @pytest.mark.parametrize("bad", ["model_length", "limbs", "ragged"])

@@ -462,3 +462,4 @@ def test_staged_wire_ingest_round_matches_jax(name, batch, prevalidate):
     assert sum(k for m, k in routes if m == "fold_planar_rows_now") == 3  # v1: 0, 2, 6
     assert sum(k for m, k in routes if m == "fold_packed_rows_now") == 2  # v2: 1, 3
     assert sum(k for m, k in routes if m == "submit_batch") == 2
+    port.close()  # the spies tie the pipeline into a cycle: close, not GC, frees its pages

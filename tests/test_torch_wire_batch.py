@@ -300,17 +300,20 @@ def test_wire_fault_at_fold_site_degrades_and_resolves_at_submit():
 
 def test_wire_ring_leases_from_the_pool_and_gives_back():
     """The ``wire`` ring leases its buffers from the page pool like the
-    planar and packed rings, and ``close`` returns them."""
-    from xaynet_tpu_torch.tenancy import LOCAL_TENANT
-    from xaynet_tpu_torch.tenancy.pool import get_pool
+    planar and packed rings, and ``close`` returns them. The pool is the
+    test's own: the process-wide one also holds the leases of any pipeline
+    another test left to the garbage collector."""
+    from xaynet_tpu_torch.tenancy import LOCAL_TENANT, PagePool
 
     n = 30
     raws, _ = _wires(CFG, n, 3, seed=12)
+    pool = PagePool()
     agg = DeviceAggregator(_port_cfg(CFG), n, device=CPU)
-    stream = StreamingAggregator(agg, max_batch=4)
+    stream = StreamingAggregator(agg, max_batch=4, pool=pool)
     stream.submit_wire_batch(np.stack(raws))
     stream.drain()
     ring = stream._rings["wire"]
     assert ring.allocated == 1 and ring.nbytes == 4 * n * CFG.bytes_per_number
+    assert len(pool.outstanding(LOCAL_TENANT)) == 1  # the ring's one buffer
     stream.close()
-    assert get_pool().balanced(LOCAL_TENANT)
+    assert pool.balanced(LOCAL_TENANT)

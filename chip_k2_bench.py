@@ -12,8 +12,17 @@ times, with CUDA events over ``--reps`` calls after one warm-up call:
 seed at ResNet-50's size), ``mask_fold_rows`` at Phase S's two shapes of
 ``chip_smoke.py`` (s1: 8 seeds into ``uint32[8,2,25M]``; s2: 256 seeds into
 ``uint32[256,2,1000]``, integer/f32/b0/m6) and, where the checkout has
-it, ``unit_draws`` over 2,048 seeds of s2's config. Every call includes
-its wrapper's host work (the trip's acceptance read).
+it, ``unit_draws`` over 2,048 seeds of s2's config and over 1, 8, 256
+and 2,048 seeds of prime/f32/b0/m3 (there also its device time a call,
+from a ``torch.profiler`` window). Every call includes its wrapper's host
+work (the trip's acceptance read).
+
+The handoff leg times the mask derivations through ``ops/masking.py``:
+``derive_mask_limbs`` (one seed, 25M, prime/f32/b0/m3) and
+``sum_masks_planar`` (8 seeds x 25M), each as host walls ending in
+``torch.cuda.synchronize()``, and reads from one profiler window a leg
+the gap on the stream from K5's end to K2's start (``gap_ms``; of it
+``busy_ms`` on other device work, ``idle_ms`` the card idle).
 
 K6's legs, over v1 wire blocks of prime/f32/b0/m3 (6 bytes an element)
 at 25,000,000 elements: ``wire_fold`` of 8 valid members
@@ -129,6 +138,12 @@ def main() -> int:
         kws = key_words(2048)
         record("k5_digest", *kernels.unit_draws(kws, m6))
         out["unit_draws_2048_ms"] = time_ms(lambda: kernels.unit_draws(kws, m6), 5 * args.reps)
+        out["unit_draws_m3"] = k5_sizes(torch, kernels, key_words, m3, time_ms, record,
+                                        5 * args.reps)  # fmt: skip
+        from xaynet_tpu_torch.ops import masking
+
+        pair = MaskConfig(GroupType.PRIME, DataType.F32, BoundType.B0, ModelType.M3).pair()
+        out["handoff"] = handoff_legs(torch, masking, pair, n, rng, args.reps, digests)
 
     if hasattr(kernels, "wire_fold"):
         out.update(k6_legs(torch, kernels, to_device_u32, zeros_u32, m3, n, rng, dev, time_ms,
@@ -145,6 +160,106 @@ def main() -> int:
 
 
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+K5_SYMBOL, K2_SYMBOL = "mf_unit_draws_kernel", "mf_mask_fold_kernel"
+
+
+def device_events(torch, fn) -> list:
+    """``(start_us, end_us, name)`` of every device event (kernels, copies,
+    fills) in one ``torch.profiler`` window around ``fn`` (CUDA activity
+    only), in order of start."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted((ev.time_range.start, ev.time_range.end, ev.name) for ev in prof.events()
+                  if "CUDA" in str(ev.device_type))  # fmt: skip
+
+
+def k5_sizes(torch, kernels, key_words, order, time_ms, record, reps) -> dict:
+    """K5 at 1, 8, 256 and 2,048 seeds of ``order``: ms a call by CUDA
+    events over ``reps`` calls, and the kernel's own device time a call
+    from a profiler window of ``reps`` calls."""
+    out = {}
+    for b in (1, 8, 256, 2048):
+        kws = key_words(b)
+        record("k5_digest", *kernels.unit_draws(kws, order))
+        ms = time_ms(lambda: kernels.unit_draws(kws, order), reps)
+
+        def calls():
+            for _ in range(reps):
+                kernels.unit_draws(kws, order)
+
+        spans = [e - s for s, e, name in device_events(torch, calls) if K5_SYMBOL in name]
+        out[str(b)] = {"ms": ms, "device_ms": sum(spans) / len(spans) / 1e3 if spans else None,
+                       "device_calls": len(spans)}  # fmt: skip
+    return out
+
+
+def k5_to_k2_gap(events: list) -> list:
+    """For each K5 launch in ``events``, the stream's gap to the next K2
+    launch: ``gap_ms`` from K5's end to K2's start, ``busy_ms`` of it spent
+    on other device work (the cursor copy, the fills and memsets K2's
+    wrapper queues), ``idle_ms`` the rest."""
+    out = []
+    for i, (_, k5_end, name) in enumerate(events):
+        if K5_SYMBOL not in name:
+            continue
+        k2 = next((ev for ev in events[i + 1:] if K2_SYMBOL in ev[2]), None)
+        if k2 is None:
+            continue
+        busy, reach = 0.0, k5_end
+        for start, end, _ in events[i + 1:]:
+            if start >= k2[0]:
+                break
+            start, end = max(start, reach), min(end, k2[0])
+            if end > start:
+                busy += end - start
+                reach = end
+        gap = k2[0] - k5_end
+        out.append({"gap_ms": gap / 1e3, "busy_ms": busy / 1e3, "idle_ms": (gap - busy) / 1e3})
+    return out
+
+
+def handoff_legs(torch, masking, pair, n, rng, reps, digests) -> dict:
+    """The mask derivations that hand K5's cursors to K2, through the
+    checkout's own entry points: ``derive_mask_limbs`` (one seed, ``n``
+    elements) and ``sum_masks_planar`` (8 seeds x ``n``). Each leg's host
+    walls (a call ending in ``torch.cuda.synchronize()``, ``reps`` times)
+    and, from one profiler window of three calls, the gap on the stream
+    from each K5's end to the next K2's start. Results go into
+    ``k2_digest`` (the accumulator) and ``k5_digest`` (the units)."""
+    import time
+
+    seeds = [rng.bytes(32) for _ in range(9)]
+    legs = {
+        "derive_mask_limbs_25M": lambda: masking.derive_mask_limbs(seeds[0], n, pair),
+        "sum_masks_planar_8x25M": lambda: masking.sum_masks_planar(seeds[1:], n, pair),
+    }
+    out = {}
+    for name, fn in legs.items():
+        unit, acc = fn()
+        torch.cuda.synchronize()
+        digests["k5_digest"].update(np.ascontiguousarray(unit).tobytes())
+        digests["k2_digest"].update(acc.view(torch.int32).cpu().numpy().tobytes())
+        del acc
+        walls = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            _, acc = fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            del acc
+
+        def three():
+            for _ in range(3):
+                fn()
+                torch.cuda.synchronize()
+
+        out[name] = {"wall_ms": walls, "wall_ms_median": float(np.median(walls)),
+                     "k5_to_k2": k5_to_k2_gap(device_events(torch, three))}  # fmt: skip
+    torch.cuda.empty_cache()
+    return out
 
 
 def k6_legs(torch, kernels, to_device_u32, zeros_u32, order, n, rng, dev, time_ms, record,

@@ -1388,6 +1388,15 @@ class Smoke:
                 what = f"{label} B=3 count={count} chunk={chunk}"
                 self.compare("mask_fold", got_acc, want_acc, what + " acc")
                 self.compare("mask_fold", got_end, want_end, what + " end cursors")
+                # the cursors as K5 leaves them: an int64 tensor on the card,
+                # which the kernel reads and the host does not
+                cursors = self.torch.tensor(offs, dtype=self.torch.int64, device=self.dev)
+                held_acc, held_end = kernels.mask_fold(
+                    to_device_u32(acc0, self.dev), kws, cursors, count, order, chunk
+                )
+                self.compare("mask_fold", held_acc, want_acc, what + " acc, device cursors")
+                self.compare("mask_fold", held_end, want_end, what + " end cursors, device cursors")
+                self.check(cursors.tolist() == offs, f"mask_fold: {what} device cursors unchanged")
                 n_cases += 1
             # the mask itself, against the host sampler: one seed into a zero acc
             small = 200
@@ -1401,7 +1410,8 @@ class Smoke:
                 f"mask_fold: {label} mask and cursor == host StreamSampler",
             )
         self.sync()
-        log(f"[phase A] K2 byte-exact vs plain in {n_cases} group cases; masks == host sampler")
+        log(f"[phase A] K2 byte-exact vs plain in {n_cases} group cases, cursors as a list and "
+            f"on the device; masks == host sampler")
 
     def phase_a_look_back(self) -> None:
         """K2's single pass where its decoupled look-back and early exit

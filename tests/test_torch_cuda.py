@@ -109,6 +109,39 @@ def test_mask_fold_kernel_matches_plain_and_host(cuda, name, trips):
     assert int(end[0]) == sampler.consumed_bytes
 
 
+@pytest.mark.parametrize("trips", [1, 5])
+@pytest.mark.parametrize("name", ["L2", "L4-draw17", "L67"])
+def test_mask_fold_device_cursors_match_list_and_host(cuda, name, trips):
+    """K2's one-seed entry reading each seed's start cursor from device
+    memory: the accumulator and end cursors it gives for the cursors as a
+    list, the cursor tensor left as it was. Then K5's cursors handed to K2
+    with no host read between: each seed's mask and end cursor are the host
+    sampler's (unit draw, then vector draw)."""
+    order = ORDERS[name]
+    n_limb = limbs.n_limbs_for_order(order)
+    bpn = limbs.draw_width_for(order)
+    count = 500
+    seeds = [bytes([i, 11]) * 16 for i in range(3)]
+    kws = to_device_u32(np.stack([np.frombuffer(s, "<u4") for s in seeds]), cuda)
+    offs = [13 * i + 6 for i in range(3)]
+    cursors = torch.tensor(offs, dtype=torch.int64, device=cuda)
+    chunk = None if trips == 1 else max(7, count * (1 << (8 * bpn)) // order // trips)
+    acc0 = to_device_u32(_elements(order, (count,), 4), cuda)
+    got, ends = kernels.mask_fold(acc0.clone(), kws, cursors, count, order, chunk)
+    want, want_ends = kernels.mask_fold(acc0.clone(), kws, offs, count, order, chunk)
+    assert _same(got, want) and ends.tolist() == want_ends.tolist()
+    assert cursors.tolist() == offs
+    _, starts = kernels.unit_draws(kws, order)
+    for b, seed in enumerate(seeds):
+        zero = torch.zeros((n_limb, count), dtype=torch.int32, device=cuda).view(torch.uint32)
+        mask, end = kernels.mask_fold(zero, kws[b : b + 1], starts[b : b + 1], count, order, chunk)
+        sampler = StreamSampler(seed)
+        sampler.draw_limbs(1, order)
+        host = sampler.draw_limbs(count, order)
+        assert np.array_equal(mask.view(torch.int32).cpu().numpy().view(np.uint32).T, host)
+        assert int(end[0]) == sampler.consumed_bytes
+
+
 def _tile_acceptances(seed: bytes, start: int, order: int, n_tiles: int) -> list[int]:
     """Accepted candidates in each of K2's first ``n_tiles`` tiles of a trip
     from byte ``start`` (host arithmetic, independent of the kernel)."""

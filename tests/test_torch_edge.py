@@ -754,6 +754,11 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
+# how long tenant b may take to open its Sum phase, and then to publish its
+# sum dict (a few transitions on an idle host; generous for a loaded one)
+PHASE_TIMEOUT_S = 120.0
+
+
 def test_tenant_drain_stops_the_envelope_path_then_closes_then_reclaims(port_singletons):
     """Two tenants with ``[edge] enabled`` in one ``serve()`` (CPU). Tenant
     ``b`` reaches its Update phase, folds one envelope over ``POST
@@ -794,22 +799,35 @@ def test_tenant_drain_stops_the_envelope_path_then_closes_then_reclaims(port_sin
             manager = port_lifecycle.get_manager()
             ctx = manager.registry.get("b")
             probe = port_client.HttpClient(base)
-            while (await probe.get_round_params()) is None:
-                await asyncio.sleep(0.01)
+
+            async def until_phase(want: str) -> None:
+                while ctx.events.phase.get_latest().event.value != want:
+                    await ctx.events.phase.changed()
+
+            # b's round seed is drawn before its Sum phase opens: parameters
+            # read earlier carry the previous seed, for which the summer's
+            # keys are eligible only by chance and the envelope is refused
+            # ("from another round")
+            await asyncio.wait_for(until_phase("sum"), PHASE_TIMEOUT_S)
             params = await probe.get_round_params()
             seed = params.seed.as_bytes()
             summer = PORT.participant(port_sim.keys_for_task(seed, SUM_PROB, UPDATE_PROB, "sum"),
                                       base)  # fmt: skip
-            sum_dict = None
-            for _ in range(2000):
-                try:
-                    await summer.transition()
-                except Exception:
-                    pass
-                sum_dict = await probe.get_sums()
-                if sum_dict:
-                    break
-                await asyncio.sleep(0.01)
+
+            async def summed():
+                # the summer sends its sum message (a transition that fails
+                # is retried, as in the rounds above); that closes b's Sum
+                # phase, and its Update phase publishes the sum dict
+                while summer.phase.value != "sum2":
+                    try:
+                        await summer.transition()
+                    except Exception:
+                        pass
+                    await asyncio.sleep(0.01)
+                await until_phase("update")
+
+            await asyncio.wait_for(summed(), PHASE_TIMEOUT_S)
+            sum_dict = await probe.get_sums()
             assert sum_dict
             while ctx.machine.phase.shared.round_aggregator is None:
                 await asyncio.sleep(0.01)

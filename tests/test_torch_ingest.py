@@ -34,6 +34,7 @@ from __future__ import annotations
 import asyncio
 import json
 import socket
+from contextlib import contextmanager
 from fractions import Fraction
 from types import SimpleNamespace
 
@@ -476,11 +477,41 @@ async def _port_round(monkeypatch) -> dict:
         await pipeline.stop()
 
 
+# the per-shard gauge families (shard-parallel folds, ROADMAP item 10), in
+# both packages: a shard-parallel pipeline that ran earlier in the process
+# (another test file in the same worker) leaves a child per shard, which
+# /healthz and the round report then list
+_SHARD_FAMILIES = ("xaynet_streaming_shard_staging_depth",
+                   "xaynet_streaming_shard_inflight_folds",
+                   "xaynet_streaming_shard_overlap_ratio")  # fmt: skip
+
+
+@contextmanager
+def _no_shard_children():
+    """Both registries without per-shard children while the block runs (a
+    one-device round makes none); the children come back after it."""
+    from xaynet_tpu.telemetry.registry import get_registry as jax_registry
+
+    saved = []
+    for registry in (get_registry(), jax_registry()):
+        for name in _SHARD_FAMILIES:
+            family = registry.get(name)
+            if family is not None:
+                saved.append((family, dict(family._children)))
+                family._children.clear()
+    try:
+        yield
+    finally:
+        for family, children in saved:
+            family._children.update(children)
+
+
 @pytest.fixture(scope="module")
 def rounds():
-    with pytest.MonkeyPatch.context() as mp:
-        port = _run(_port_round(mp))
-    return {"port": port, "jax": _run(_jax_round())}
+    with _no_shard_children():
+        with pytest.MonkeyPatch.context() as mp:
+            port = _run(_port_round(mp))
+        yield {"port": port, "jax": _run(_jax_round())}
 
 
 def test_cpu_round_through_pipeline_matches_jax(rounds):
@@ -499,18 +530,12 @@ def test_cpu_round_through_pipeline_matches_jax(rounds):
     assert port["prevalidated_chunks"] + port["member_checks"] < N_UPDATE
 
 
-# the JAX pipeline's per-shard families (shard-parallel folds, ROADMAP item
-# 10) appear in its sections once any shard-parallel pipeline ran in the
-# process; the port has one device and no shards
-_SHARD_KEYS = {"shards", "shard_overlap_ratio"}
-
-
 def test_healthz_sections_match_jax(rounds):
     port, jax = rounds["port"]["health"], rounds["jax"]["health"]
     for section in ("ingest", "ingress", "pipeline"):
         assert section in port and section in jax, section
-        shard_keys = _SHARD_KEYS if section == "pipeline" else set()
-        assert set(port[section]) == set(jax[section]) - shard_keys, section
+        assert set(port[section]) == set(jax[section]), section
+    assert "shards" not in port["pipeline"]  # one device, no shards
     assert set(port) == set(jax)
     # the sum, update and sum2 messages all went through the pipeline
     accepted = 2 * N_SUM + N_UPDATE
@@ -531,7 +556,7 @@ def test_round_report_carries_the_streaming_section(rounds):
     assert jax_registry().get("xaynet_streaming_overlap_ratio") is jax_streaming.OVERLAP_RATIO
     port, jax = port_report._streaming_snapshot(), jax_report._streaming_snapshot()
     assert port is not None and jax is not None
-    assert set(port) == set(jax) - _SHARD_KEYS == {"overlap_ratio", "degraded"}
+    assert set(port) == set(jax) == {"overlap_ratio", "degraded"}
     assert 0.0 <= port["overlap_ratio"] <= 1.0 and port["degraded"] is False
 
 

@@ -182,6 +182,130 @@ def test_plain_mask_fold_rows_tensor_cursors_multi_trip(cfg):
         kernels.mask_fold_rows_plain(rows, kw, torch.tensor([-1, 0, 0]), n, order)
 
 
+# the shipped order (draw 6) and the widest draws the Pallas kernel traces:
+# 17 bytes above a 16-byte wire, 37 bytes (ten limbs)
+CURSOR_CONFIGS = [
+    CONFIGS[1],
+    CONFIGS[3],
+    MaskConfig(GroupType.INTEGER, DataType.F32, BoundType.BMAX, ModelType.M3),
+]
+
+
+@pytest.mark.parametrize("trips", [1, 5], ids=["one-trip", "multi-trip"])
+@pytest.mark.parametrize("cfg", CURSOR_CONFIGS, ids=["PRIME-draw6", "POWER2-draw17", "draw37"])
+def test_mask_fold_tensor_cursors_equal_list_and_pallas(cfg, trips):
+    """``mask_fold`` given the cursors as an int64 tensor (what K5 leaves on
+    the device) gives the accumulator and end cursors it gives for the same
+    cursors as a list, and both are the JAX package's fused Sum2 kernel's
+    (Pallas, interpret mode), byte for byte, in one trip and in several;
+    the caller's cursor tensor is left as it was."""
+    pair = cfg.pair()
+    order, n = pair.vect.order, 37
+    n_limb = ref_limbs.n_limbs_for_order(order)
+    seeds = _seeds(3, 0x6B)
+    kws, offs = _words_offsets(seeds, pair, extra=11)
+    chunk = None if trips == 1 else _short_trip(n, order, trips)
+    kw = fold.to_device_u32(kws, CPU)
+    cursors = torch.tensor(offs, dtype=torch.int64)
+    listed, listed_ends = kernels.mask_fold(fold.zeros_u32((n_limb, n), CPU), kw, offs, n, order,
+                                            chunk)  # fmt: skip
+    held, held_ends = kernels.mask_fold(fold.zeros_u32((n_limb, n), CPU), kw, cursors, n, order,
+                                        chunk)  # fmt: skip
+    assert cursors.tolist() == offs
+    assert fold.to_numpy_u32(held).tobytes() == fold.to_numpy_u32(listed).tobytes()
+    assert held_ends.dtype == torch.int64 and held_ends.tolist() == listed_ends.tolist()
+    want_acc, want_ends = fold_pallas.mask_fold_planar_pallas(
+        jnp.zeros((n_limb, n), jnp.uint32), jnp.asarray(kws), np.asarray(offs, np.int32),
+        n, order, chunk_candidates=chunk, interpret=True,
+    )  # fmt: skip
+    assert fold.to_numpy_u32(held).tobytes() == np.asarray(want_acc).tobytes()
+    assert held_ends.tolist() == np.asarray(want_ends).tolist()
+
+
+@pytest.mark.parametrize("trips", [1, 3], ids=["one-trip", "multi-trip"])
+def test_mask_fold_tensor_cursors_at_the_widest_draw(trips):
+    """The widest draw (268 bytes, 67 limbs), which the Pallas kernel does
+    not trace (a whole number of words): cursors as a tensor and as a list
+    give the JAX package's host derivation, byte for byte."""
+    pair = MaskConfig(GroupType.INTEGER, DataType.F64, BoundType.BMAX, ModelType.M12).pair()
+    order, n = pair.vect.order, 9
+    n_limb = ref_limbs.n_limbs_for_order(order)
+    seeds = _seeds(2, 0x35)
+    kws, offs = _words_offsets(seeds, pair, extra=3)
+    chunk = None if trips == 1 else _short_trip(n, order, trips)
+    kw = fold.to_device_u32(kws, CPU)
+    ref, ref_ends = _reference_sum(seeds, n, pair, extra=3)
+    for cursors in (offs, torch.tensor(offs, dtype=torch.int64)):
+        acc, ends = kernels.mask_fold(fold.zeros_u32((n_limb, n), CPU), kw, cursors, n, order,
+                                      chunk)  # fmt: skip
+        assert planar_to_wire(fold.to_numpy_u32(acc)).tobytes() == ref.tobytes()
+        assert ends.tolist() == ref_ends
+
+
+def test_mask_fold_cursor_arguments():
+    """A cursor tensor must be int64[B] on the accumulator's device; a
+    negative cursor is refused where the plain version reads it."""
+    pair = CONFIGS[1].pair()
+    order = pair.vect.order
+    kws, offs = _words_offsets(_seeds(2, 0x12), pair)
+    kw, acc = fold.to_device_u32(kws, CPU), fold.zeros_u32((2, 8), CPU)
+    with pytest.raises(ValueError, match="int64"):
+        kernels.mask_fold(acc, kw, torch.tensor(offs, dtype=torch.int32), 8, order)
+    with pytest.raises(ValueError, match="int64"):
+        kernels.mask_fold(acc, kw, torch.tensor(offs[:1]), 8, order)
+    with pytest.raises(ValueError, match="non-negative"):
+        kernels.mask_fold(acc, kw, torch.tensor([-1, 0]), 8, order)
+    with pytest.raises(ValueError, match="non-negative"):
+        kernels.mask_fold(acc, kw, [offs[0]], 8, order)
+
+
+def test_mask_derivations_hand_k5_cursors_to_k2_as_device_tensors(monkeypatch):
+    """``derive_mask_limbs`` (so ``mask_update``) and ``sum_masks_planar``
+    (so ``sum_masks``) give ``kernels.mask_fold`` K5's cursors as an int64
+    tensor on the accumulator's device, never as a list: the host does not
+    read them between K5 and K2. Each group of ``sum_masks_planar`` gets its
+    slice. The results stay the JAX package's, byte for byte."""
+    from fractions import Fraction
+
+    calls = []
+    real = kernels.mask_fold
+
+    def spy(acc, key_words, offsets, *args, **kwargs):
+        tensor = torch.is_tensor(offsets)
+        calls.append((tensor, tensor and offsets.dtype == torch.int64,
+                      tensor and offsets.device == acc.device, len(offsets)))  # fmt: skip
+        return real(acc, key_words, offsets, *args, **kwargs)
+
+    monkeypatch.setattr(kernels, "mask_fold", spy)
+    pair = CONFIGS[1].pair()
+    port_pair = convert.config_pair(pair)
+    n = 29
+    seeds = _seeds(5, 0x4E)
+
+    unit, vect = masking.derive_mask_limbs(seeds[0], n, port_pair, device=CPU)
+    want = MaskSeed(seeds[0]).derive_mask(n, pair)
+    assert np.array_equal(unit, want.unit.data)
+    assert np.array_equal(planar_to_wire(fold.to_numpy_u32(vect)), want.vect.data)
+    assert calls == [(True, True, True, 1)]
+
+    weights = np.random.default_rng(8).uniform(-0.9, 0.9, n).astype(np.float32)
+    _, want_masked = Masker(pair, MaskSeed(seeds[1])).mask(Scalar(Fraction(1, 5)), weights)
+    masked = masking.mask_update(seeds[1], PortScalar(Fraction(1, 5)), weights, port_pair,
+                                 device=CPU)  # fmt: skip
+    assert masked.vect.data.tobytes() == want_masked.vect.data.tobytes()
+    assert masked.unit.data.tobytes() == want_masked.unit.data.tobytes()
+    assert calls[1:] == [(True, True, True, 1)]
+
+    calls.clear()
+    unit_sum, vect_sum = masking.sum_masks(seeds, n, port_pair, seed_batch=2, device=CPU)
+    want_unit, want_vect = masking_jax.sum_masks(
+        seeds, n, pair, seed_batch=2, kernel="fused-pallas-interpret"
+    )
+    assert unit_sum.tobytes() == np.asarray(want_unit).tobytes()
+    assert vect_sum.tobytes() == np.asarray(want_vect).tobytes()
+    assert calls == [(True, True, True, 2), (True, True, True, 2), (True, True, True, 1)]
+
+
 def test_plain_mask_fold_accumulates_into_nonzero_acc():
     """K2 adds into whatever the accumulator holds (a second group)."""
     pair = CONFIGS[1].pair()

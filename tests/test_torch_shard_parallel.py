@@ -375,7 +375,11 @@ def test_shard_plan_reassemble_roundtrip():
 
 def _host_sum(stacks) -> np.ndarray:
     host = Aggregation(CFG.pair(), stacks[0].shape[0])
-    host.aggregate_batch(np.stack(stacks), np.zeros((len(stacks), 1), np.uint32))
+    # one zero unit per update, as many limbs as the unit's order needs: the
+    # reference's numpy fold takes nothing narrower (its native fold happens
+    # to, and a worker whose native build raced another's falls back)
+    units = np.zeros((len(stacks),) + host.object.unit.data.shape, np.uint32)
+    host.aggregate_batch(np.stack(stacks), units)
     return host.object.vect.data
 
 

@@ -41,6 +41,12 @@
 // 17-byte candidates for a 16-byte element): the comparison takes all draw
 // bytes, the add the first L limbs.
 //
+// The one-seed entry (`xn_mask_fold_trip`) reads the seed's start cursor
+// from device memory, as the per-row entry below reads its starts: the
+// host hands K5's cursor on without reading it, so it queues K2 right
+// behind K5 and first waits at the trip's end, where it reads the
+// acceptance counts to learn which seeds need another trip.
+//
 // K2's per-row entry (`xn_mask_fold_rows_trip`) runs the same tile body for
 // a block of B seeds in one launch per trip, seed b folding into its own row
 // (the whole-round simulation's and the load generator's masks): the grid
@@ -58,6 +64,9 @@
 // order, generating ChaCha blocks into a ring in shared memory as the
 // candidates reach them; at the shipped configs that is one or two blocks.
 // It is bound by launch latency; its operations are its blocks' rounds.
+// Its cursors stay in device memory: both K2 entries read them there, and
+// the callers bring the units down only after K2's trips, so no host wait
+// sits between K5 and K2 on the stream.
 //
 // C interface (route (b): nvcc -> shared library -> ctypes). Each entry
 // point returns the first non-zero CUDA error of its memset and launch.
@@ -389,32 +398,39 @@ __device__ __forceinline__ void fold_tile(const uint32_t* __restrict__ kw, long 
   if (threadIdx.x == 0 && c0 + nc == n_cand && prefix + total < count) *base_out = prefix + total;
 }
 
-// One trip of one seed. scratch: [0] tile counter, [1] done flag,
-// [2 + t] status of tile t; zeroed before the launch.
+// Trip `trip` of one seed, whose vector draw starts at byte *start (read
+// from device memory, so the cursor K5 wrote is never brought to the host;
+// thread 0 reads it beside the tile counter's atomic, so the load's latency
+// hides under that round trip and the tile reads it from shared memory).
+// scratch: [0] tile counter, [1] done flag, [2 + t] status of tile t;
+// zeroed before the launch.
 template <int LT>
 __global__ void __launch_bounds__(kThreads)
-mf_mask_fold_kernel(const uint32_t* __restrict__ kw, long long trip_off, long long n_cand,
-                    int bpn, int tile_cands, const uint8_t* __restrict__ order_bytes,
+mf_mask_fold_kernel(const uint32_t* __restrict__ kw, const long long* __restrict__ start,
+                    long long trip, long long n_cand, int bpn, int tile_cands,
+                    const uint8_t* __restrict__ order_bytes,
                     const uint32_t* __restrict__ order_limbs, int n_limb, int pow2,
                     long long base0, long long count, uint32_t* __restrict__ acc,
                     long long* __restrict__ base_out, long long* __restrict__ end,
                     unsigned long long* __restrict__ scratch) {
-  __shared__ long long s_tile;
+  __shared__ long long s_tile, s_off;
   __shared__ int s_done;
   unsigned long long* status = scratch + 2;
 
   if (threadIdx.x == 0) {
+    const long long off = *start;
     const long long t = (long long)atomicAdd(scratch, 1ull);
     const bool done = Atomic64(scratch[1]).load(cuda::memory_order_relaxed) != 0;
     // a tile past the count-th acceptance still publishes, for the tiles
     // behind it that are already looking back
     if (done) Atomic64(status[t]).store(kInclusive | kPast, cuda::memory_order_release);
     s_tile = t;
+    s_off = off + trip * n_cand * bpn;
     s_done = done;
   }
   __syncthreads();
   if (s_done) return;
-  fold_tile<LT>(kw, trip_off, n_cand, bpn, tile_cands, order_bytes, order_limbs, n_limb, pow2,
+  fold_tile<LT>(kw, s_off, n_cand, bpn, tile_cands, order_bytes, order_limbs, n_limb, pow2,
                 base0, count, acc, count, base_out, end, scratch + 1, status, s_tile);
 }
 
@@ -509,17 +525,17 @@ mf_unit_draws_kernel(const uint32_t* __restrict__ kw, int n_seeds, int bpn,
 }
 
 template <int LT>
-int launch(unsigned grid, int smem, cudaStream_t s, const uint32_t* kw, long long trip_off,
-           long long n_cand, int bpn, int tile_cands, const uint8_t* ob, const uint32_t* ol,
-           int n_limb, int pow2, long long base0, long long count, uint32_t* acc,
-           long long* base_out, long long* end, unsigned long long* scratch) {
+int launch(unsigned grid, int smem, cudaStream_t s, const uint32_t* kw, const long long* st,
+           long long trip, long long n_cand, int bpn, int tile_cands, const uint8_t* ob,
+           const uint32_t* ol, int n_limb, int pow2, long long base0, long long count,
+           uint32_t* acc, long long* base_out, long long* end, unsigned long long* scratch) {
   if (smem > kDefaultSmem) {
     cudaError_t e = cudaFuncSetAttribute(mf_mask_fold_kernel<LT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
-  mf_mask_fold_kernel<LT><<<grid, kThreads, smem, s>>>(kw, trip_off, n_cand, bpn, tile_cands, ob,
-                                                       ol, n_limb, pow2, base0, count, acc,
+  mf_mask_fold_kernel<LT><<<grid, kThreads, smem, s>>>(kw, st, trip, n_cand, bpn, tile_cands,
+                                                       ob, ol, n_limb, pow2, base0, count, acc,
                                                        base_out, end, scratch);
   return (int)cudaGetLastError();
 }
@@ -548,18 +564,21 @@ extern "C" {
 
 const char* xn_error_string(int e) { return cudaGetErrorString((cudaError_t)e); }
 
-// One trip of one seed over candidates [0, n_cand) of the keystream from
-// byte trip_off, in tiles of tile_cands candidates: acc uint32[L, count]
-// (in place), kw uint32[8] (the seed's key words), order_bytes uint8[bpn]
-// (order, little-endian, draw width), order_limbs uint32[L], base0 the
-// acceptances of earlier trips (< count), base_out int64[1] (the
-// acceptances after this trip, count once reached), end int64[1] (written
-// when the trip reaches count), scratch int64[2 + n_tiles] (zeroed here).
-int xn_mask_fold_trip(const void* kw, long long trip_off, long long n_cand, int bpn,
-                      int tile_cands, int n_limb, int pow2, const void* order_bytes,
+// Trip `trip` of one seed over candidates [0, n_cand) of the keystream from
+// byte *start + trip * n_cand * bpn, in tiles of tile_cands candidates: acc
+// uint32[L, count] (in place), kw uint32[8] (the seed's key words), start
+// int64[1] in device memory (the byte cursor the seed's vector draw starts
+// at, K5's output; the kernel reads it, so the host launches without
+// waiting for K5), order_bytes uint8[bpn] (order, little-endian, draw
+// width), order_limbs uint32[L], base0 the acceptances of earlier trips
+// (< count), base_out int64[1] (the acceptances after this trip, count
+// once reached), end int64[1] (written when the trip reaches count; not
+// start's word), scratch int64[2 + n_tiles] (zeroed here).
+int xn_mask_fold_trip(const void* kw, const void* start, long long trip, long long n_cand,
+                      int bpn, int tile_cands, int n_limb, int pow2, const void* order_bytes,
                       const void* order_limbs, void* acc, long long count, long long base0,
                       void* base_out, void* end, void* scratch, void* stream) {
-  if (n_cand <= 0 || count <= 0 || base0 < 0 || base0 >= count || trip_off < 0)
+  if (n_cand <= 0 || count <= 0 || base0 < 0 || base0 >= count || trip < 0 || start == end)
     return (int)cudaErrorInvalidValue;
   if (bpn < 1 || bpn > kMaxDraw || n_limb < 1 || n_limb > kMaxLimbs)
     return (int)cudaErrorInvalidValue;
@@ -574,17 +593,18 @@ int xn_mask_fold_trip(const void* kw, long long trip_off, long long n_cand, int 
   if (e != cudaSuccess) return (int)e;
   const unsigned grid = (unsigned)n_tiles;
   auto k = static_cast<const uint32_t*>(kw);
+  auto st = static_cast<const long long*>(start);
   auto ob = static_cast<const uint8_t*>(order_bytes);
   auto ol = static_cast<const uint32_t*>(order_limbs);
   auto a = static_cast<uint32_t*>(acc);
   auto b = static_cast<long long*>(base_out);
   auto en = static_cast<long long*>(end);
   switch (n_limb) {
-    case 2: return launch<2>(grid, smem, s, k, trip_off, n_cand, bpn, tile_cands, ob, ol, n_limb, pow2, base0, count, a, b, en, sc);
-    case 3: return launch<3>(grid, smem, s, k, trip_off, n_cand, bpn, tile_cands, ob, ol, n_limb, pow2, base0, count, a, b, en, sc);
-    case 4: return launch<4>(grid, smem, s, k, trip_off, n_cand, bpn, tile_cands, ob, ol, n_limb, pow2, base0, count, a, b, en, sc);
-    case 5: return launch<5>(grid, smem, s, k, trip_off, n_cand, bpn, tile_cands, ob, ol, n_limb, pow2, base0, count, a, b, en, sc);
-    default: return launch<0>(grid, smem, s, k, trip_off, n_cand, bpn, tile_cands, ob, ol, n_limb, pow2, base0, count, a, b, en, sc);
+    case 2: return launch<2>(grid, smem, s, k, st, trip, n_cand, bpn, tile_cands, ob, ol, n_limb, pow2, base0, count, a, b, en, sc);
+    case 3: return launch<3>(grid, smem, s, k, st, trip, n_cand, bpn, tile_cands, ob, ol, n_limb, pow2, base0, count, a, b, en, sc);
+    case 4: return launch<4>(grid, smem, s, k, st, trip, n_cand, bpn, tile_cands, ob, ol, n_limb, pow2, base0, count, a, b, en, sc);
+    case 5: return launch<5>(grid, smem, s, k, st, trip, n_cand, bpn, tile_cands, ob, ol, n_limb, pow2, base0, count, a, b, en, sc);
+    default: return launch<0>(grid, smem, s, k, st, trip, n_cand, bpn, tile_cands, ob, ol, n_limb, pow2, base0, count, a, b, en, sc);
   }
 }
 

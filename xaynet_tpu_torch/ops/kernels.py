@@ -221,7 +221,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.xn_wire_unfold.argtypes = [p, p, p, p, i, i, i, ll, i, p]
         lib.xn_wire_unfold.restype = i
     elif name == "mask_fold":
-        lib.xn_mask_fold_trip.argtypes = [p, ll, ll, i, i, i, i, p, p, p, ll, ll, p, p, p, p]
+        lib.xn_mask_fold_trip.argtypes = [p, p, ll, ll, i, i, i, i, p, p, p, ll, ll, p, p, p, p]
         lib.xn_mask_fold_trip.restype = i
         lib.xn_mask_fold_rows_trip.argtypes = [
             p, p, ll, ll, i, i, i, i, p, p, p, ll, ll, i, ll, p, p, p, p, p,
@@ -428,7 +428,9 @@ def plan_trips(count: int, order: int, chunk_candidates: int | None = None) -> T
     return TripPlan(bpn=bpn, trip=trip, tile=tile, n_tiles=n_tiles, scratch_words=2 + n_tiles)
 
 
-def _check_mask_fold_args(acc, key_words, offsets, count, order) -> list[int]:
+def _check_mask_fold_args(acc, key_words, offsets, count, order):
+    """Checks of :func:`mask_fold`'s arguments; returns the cursors, a list,
+    or the int64 tensor they were given as (never read here)."""
     n_limb = host_limbs.n_limbs_for_order(order)
     if acc.dtype != torch.uint32 or tuple(acc.shape) != (n_limb, count):
         raise ValueError(f"acc must be uint32[{n_limb}, {count}]")
@@ -436,10 +438,38 @@ def _check_mask_fold_args(acc, key_words, offsets, count, order) -> list[int]:
         raise ValueError("key_words must be uint32[B, 8]")
     if key_words.device != acc.device:
         raise ValueError("key words and accumulator live on different devices")
-    offs = [int(o) for o in (offsets.tolist() if torch.is_tensor(offsets) else offsets)]
-    if len(offs) != key_words.shape[0] or any(o < 0 for o in offs):
+    return _check_cursors(offsets, key_words.shape[0], acc.device, "accumulator")
+
+
+def _check_cursors(offsets, b: int, device: torch.device, holder: str):
+    """K2's byte cursors, one a seed: an int64 ``[b]`` tensor on ``device``,
+    returned unread (K5's cursors, which the kernel reads on the card), or
+    a list of non-negative ints."""
+    if torch.is_tensor(offsets):
+        if offsets.dtype != torch.int64 or tuple(offsets.shape) != (b,):
+            raise ValueError("need one byte cursor per seed: offsets must be int64[B]")
+        if offsets.device != device:
+            raise ValueError(f"cursors and {holder} live on different devices")
+        return offsets
+    offs = [int(o) for o in offsets]
+    if len(offs) != b or any(o < 0 for o in offs):
         raise ValueError("need one non-negative byte cursor per seed")
     return offs
+
+
+def _device_cursors(offs, device: torch.device) -> torch.Tensor:
+    """The cursors as the int64 tensor a K2 entry reads: the caller's
+    tensor, or the list uploaded once."""
+    if torch.is_tensor(offs):
+        return offs.contiguous()
+    return torch.tensor(offs, dtype=torch.int64).to(device)
+
+
+def _host_cursors(offs) -> list[int]:
+    """The cursors as ints, for a plain version (which reads a tensor's)."""
+    if not torch.is_tensor(offs):
+        return offs
+    return _check_cursors(offs.tolist(), len(offs), offs.device, "")
 
 
 def mask_fold_plain(
@@ -453,7 +483,7 @@ def mask_fold_plain(
     """Plain torch K2, any device: for every seed, derive its ``count``
     mask elements from its byte cursor and modular-add them into ``acc``
     (in place). Returns ``(acc, end cursors int64[B])``."""
-    offs = _check_mask_fold_args(acc, key_words, offsets, count, order)
+    offs = _host_cursors(_check_mask_fold_args(acc, key_words, offsets, count, order))
     acc64 = widen(acc)
     ends = []
     for b, kw in enumerate(widen(key_words).tolist()):
@@ -479,39 +509,45 @@ def mask_fold(
 
     ``key_words`` is ``uint32[B, 8]`` (each seed as little-endian words),
     ``offsets`` the keystream byte cursor each seed's vector draw starts at
-    (after its unit draw). Returns ``(acc, end cursors int64[B])``; each
-    seed's contribution is bit-identical to ``MaskSeed.derive_mask(...).vect``
-    folded with a modular add, and the mask never exists in device memory.
-    ``chunk_candidates`` is the candidates one trip covers (default: the
-    2^-60 provisioning, one trip); a small value forces the multi-trip path.
-    A trip is one launch per seed (:func:`plan_trips`): seeds that share the
-    accumulator run one after another. After each trip the host reads the
-    group's acceptance counts once, to learn which seeds need another.
-    Cursors are int64 (the JAX kernel's int32 cursors stop at 2 GiB of
-    keystream, which a 25M-element mask of the default config nearly fills).
+    (after its unit draw): an int64 ``[B]`` tensor on the accumulator's
+    device (:func:`unit_draws`' cursors), which the host never reads, or a
+    list of ints, uploaded once. Returns ``(acc, end cursors int64[B])``;
+    each seed's contribution is bit-identical to
+    ``MaskSeed.derive_mask(...).vect`` folded with a modular add, and the
+    mask never exists in device memory. ``chunk_candidates`` is the
+    candidates one trip covers (default: the 2^-60 provisioning, one trip);
+    a small value forces the multi-trip path. A trip is one launch per seed
+    (:func:`plan_trips`): seeds that share the accumulator run one after
+    another, each kernel reading its seed's start cursor from device
+    memory. So the first trip queues behind whatever wrote the cursors (K5)
+    without a host wait; after each trip the host reads the group's
+    acceptance counts once, to learn which seeds need another. Cursors are
+    int64 (the JAX kernel's int32 cursors stop at 2 GiB of keystream, which
+    a 25M-element mask of the default config nearly fills).
     """
     offs = _check_mask_fold_args(acc, key_words, offsets, count, order)
     if acc.device.type == "cpu":
         return mask_fold_plain(acc, key_words, offs, count, order, chunk_candidates)
     _require_cuda(acc, key_words)
-    dev = acc.device
-    ends = torch.tensor(offs, dtype=torch.int64).to(dev)
-    if count == 0 or not offs:
+    dev, n_seeds = acc.device, key_words.shape[0]
+    starts = _device_cursors(offs, dev)
+    ends = starts.clone()
+    if count == 0 or n_seeds == 0:
         return acc, ends
     n_limb = host_limbs.n_limbs_for_order(order)
     plan = _plan_k2(count, order, chunk_candidates)
     lib = load("mask_fold")
     scratch = torch.empty(plan.scratch_words, dtype=torch.int64, device=dev)
-    base = torch.zeros(len(offs), dtype=torch.int64, device=dev)
+    base = torch.zeros(n_seeds, dtype=torch.int64, device=dev)
     _, order_bytes, order_limbs = _order_buffers(order, n_limb, dev)
     pow2 = int(order == 1 << (32 * n_limb))
     stream = _stream(dev)
-    pending, done, t = list(range(len(offs))), [0] * len(offs), 0
+    pending, done, t = list(range(n_seeds)), [0] * n_seeds, 0
     with torch.cuda.device(dev):
         while pending:
             for b in pending:
                 rc = lib.xn_mask_fold_trip(
-                    key_words.data_ptr() + 32 * b, plan.offset(offs[b], t), plan.trip,
+                    key_words.data_ptr() + 32 * b, starts.data_ptr() + 8 * b, t, plan.trip,
                     plan.bpn, plan.tile, n_limb, pow2, order_bytes.data_ptr(),
                     order_limbs.data_ptr(), acc.data_ptr(), count, done[b],
                     base.data_ptr() + 8 * b, ends.data_ptr() + 8 * b, scratch.data_ptr(), stream,
@@ -542,16 +578,7 @@ def _check_rows_args(rows, key_words, offsets, count, order):
         raise ValueError("need one seed per row: key_words must be uint32[B, 8]")
     if key_words.device != rows.device:
         raise ValueError("key words and rows live on different devices")
-    if torch.is_tensor(offsets):
-        if offsets.dtype != torch.int64 or tuple(offsets.shape) != (b,):
-            raise ValueError("need one byte cursor per seed: offsets must be int64[B]")
-        if offsets.device != rows.device:
-            raise ValueError("cursors and rows live on different devices")
-        return offsets
-    offs = [int(o) for o in offsets]
-    if len(offs) != b or any(o < 0 for o in offs):
-        raise ValueError("need one non-negative byte cursor per seed")
-    return offs
+    return _check_cursors(offsets, b, rows.device, "rows")
 
 
 def mask_fold_rows_plain(
@@ -565,11 +592,7 @@ def mask_fold_rows_plain(
     """Plain torch :func:`mask_fold_rows`, any device: seed ``b``'s
     ``count`` mask elements from its byte cursor, modular-added into
     ``rows[b]`` (in place). Returns ``(rows, end cursors int64[B])``."""
-    offs = _check_rows_args(rows, key_words, offsets, count, order)
-    if torch.is_tensor(offs):
-        offs = offs.tolist()
-        if any(o < 0 for o in offs):
-            raise ValueError("need one non-negative byte cursor per seed")
+    offs = _host_cursors(_check_rows_args(rows, key_words, offsets, count, order))
     ends = []
     for b, kw in enumerate(widen(key_words).tolist()):
         mask, end = chacha.derive_uniform_limbs(
@@ -609,7 +632,7 @@ def mask_fold_rows(
     if rows.device.type != "cuda" or (count > 1 and rows.stride(2) != 1):
         raise ValueError("rows must be a CUDA tensor whose limbs hold contiguous elements")
     dev, b = rows.device, rows.shape[0]
-    starts = offs.contiguous() if torch.is_tensor(offs) else torch.tensor(offs).to(dev)
+    starts = _device_cursors(offs, dev)
     if count == 0 or b == 0:
         return rows, starts.clone()
     n_limb = host_limbs.n_limbs_for_order(order)

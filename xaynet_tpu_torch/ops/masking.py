@@ -7,8 +7,8 @@ rust/xaynet-server/src/state_machine/phases/unmask.rs unmask subtract):
 
 - ``derive_mask_limbs``: seed -> (unit element, planar vector limbs on the
   device): the unit draw by kernel K5 (``kernels.unit_draws``), the vector
-  draws by kernel K2 into a zero accumulator from the handed-off byte
-  cursor;
+  draws by kernel K2 into a zero accumulator from the byte cursor K5 left
+  in device memory;
 - ``mask_update``: a participant's masked model (encoded weights plus the
   seed's mask), with the mask derived by K2 and the add done by K1;
 - ``sum_masks``: aggregate many seed-derived masks (the Sum2 hot loop) on
@@ -21,6 +21,14 @@ rust/xaynet-server/src/state_machine/phases/unmask.rs unmask subtract):
   the whole-round simulation's and the load generator's derivation;
 - ``encode_models_batch``: the fixed-point encode of a population of models
   sharing one scalar, on the host.
+
+K5's cursors never come to the host: K2 reads each seed's start cursor
+from device memory, so it is queued right behind K5 and the host first
+waits at the end of K2's trip (the acceptance counts it reads there).
+The accumulator's zero fill is queued behind K5, so the card has work
+while the host sets K2 up. K5's units come down once the fold has
+returned, when the stream holds nothing more, to be summed or added on
+the host.
 
 The JAX module's ``derive_chunk_budgets`` is not ported: it sizes the
 keystream its vmapped derivation materializes per lane, and K2 never
@@ -59,26 +67,20 @@ def seed_words(seeds: list[bytes]) -> np.ndarray:
     return np.stack([np.frombuffer(s, dtype="<u4") for s in seeds])
 
 
-def _download_draws(units: torch.Tensor, cursors: torch.Tensor) -> tuple[np.ndarray, list[int]]:
-    """K5's outputs on the host in one copy: (units ``uint32[B, L1]``,
-    cursors as ints)."""
-    both = torch.cat([units.view(torch.int32).to(torch.int64), cursors[:, None]], dim=1).cpu()
-    return both[:, :-1].to(torch.int32).numpy().view(np.uint32), both[:, -1].tolist()
-
-
 def derive_mask_limbs(
     seed: bytes, length: int, config: MaskConfigPair, device=None
 ) -> tuple[np.ndarray, torch.Tensor]:
     """Expand a 32-byte seed into (unit limbs ``[L1]``, vector limbs as a
     planar ``uint32[L, length]`` tensor on the device). The JAX function
-    returns the vector in wire layout ``[length, L]``."""
+    returns the vector in wire layout ``[length, L]``. K2 starts from K5's
+    cursor in device memory; the unit comes down after the fold."""
     dev = resolve_device(device)
     kw = to_device_u32(seed_words([seed]), dev)
-    units, offsets = _download_draws(*kernels.unit_draws(kw, config.unit.order))
+    units, cursors = kernels.unit_draws(kw, config.unit.order)
     n_limb = host_limbs.n_limbs_for_order(config.vect.order)
     acc = zeros_u32((n_limb, length), dev)
-    kernels.mask_fold(acc, kw, offsets, length, config.vect.order)
-    return units[0], acc
+    kernels.mask_fold(acc, kw, cursors, length, config.vect.order)
+    return to_numpy_u32(units)[0], acc
 
 
 def derive_mask_limbs_batch(
@@ -161,21 +163,24 @@ def sum_masks_planar(
 ) -> tuple[np.ndarray, torch.Tensor]:
     """The fused Sum2 route, keeping the mask sum on the device: returns
     (unit limbs, planar ``uint32[L, length]`` tensor). Every seed's unit
-    draw and cursor handoff is one K5 launch and one download; the units
-    are summed on the host; then, per group of ``seed_batch`` seeds, one K2
-    call derives and folds every seed's mask into the accumulator."""
+    draw and cursor handoff is one K5 launch; then, per group of
+    ``seed_batch`` seeds, one K2 call derives and folds every seed's mask
+    into the accumulator, starting from the group's cursors where K5 left
+    them in device memory. The units come down once, after the last
+    group, and are summed on the host."""
     if not seeds:
         raise ValueError("no seeds to aggregate")
     dev = resolve_device(device)
     n_limb = host_limbs.n_limbs_for_order(config.vect.order)
     kw = to_device_u32(seed_words(seeds), dev)
-    units, offsets = _download_draws(*kernels.unit_draws(kw, config.unit.order))
-    unit_acc = host_limbs.batch_mod_sum(units, host_limbs.order_limbs_for(config.unit.order))
+    units, cursors = kernels.unit_draws(kw, config.unit.order)
     acc = zeros_u32((n_limb, length), dev)
     step = max(1, seed_batch)
     for g0 in range(0, len(seeds), step):
-        kernels.mask_fold(acc, kw[g0 : g0 + step], offsets[g0 : g0 + step], length,
+        kernels.mask_fold(acc, kw[g0 : g0 + step], cursors[g0 : g0 + step], length,
                           config.vect.order, chunk_candidates)  # fmt: skip
+    unit_acc = host_limbs.batch_mod_sum(to_numpy_u32(units),
+                                        host_limbs.order_limbs_for(config.unit.order))  # fmt: skip
     return unit_acc, acc
 
 
